@@ -5,13 +5,23 @@
 
 Builds the CUDA kernels from ``md_neighbor_list_tpu_torch/csrc``, holds each
 against its plain PyTorch version (at small shapes that exercise wrap-around,
-several cell capacities and overflow, then at the full N = 1,000,000 size),
-drives the dense LJ engine's main path (init -> list build -> NVE steps ->
-observables) through ``DenseSimulator`` and checks, by the launch counters,
-that the path went through every kernel. Each phase prints one JSON line;
-any failure ends the run with a non-zero exit code. Without a CUDA device the
-script fails at once. ``--profile`` adds a ``torch.profiler`` breakdown of 50
-steps by device kernel (information only). The last line is
+cell capacities from 28 to 304, overflow and cleared validity, then at the
+full N = 1,000,000 size), and drives two paths through the entry points a user
+calls, each with the launch counters set to 0 just before and read just after:
+
+  main_path      the dense LJ engine (init -> list build -> NVE steps ->
+                 observables) through ``DenseSimulator``;
+  list_delivery  ``neighbor_list`` / ``pair_list`` at N = 1,000,000 (rebuild,
+                 list kernel, host decode, built here with g++), held against
+                 the half and full count kernels and a brute-force search of
+                 1,000 sampled rows, then the full-sweep parity passes
+                 (counts, forces, energy) of the lattice start.
+
+Each phase prints one JSON line; any failure ends the run with a non-zero exit
+code. Without a CUDA device the script fails at once. ``--profile`` adds a
+``torch.profiler`` breakdown by device kernel of 50 steps and of one
+``neighbor_list`` call (information only).
+The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -26,11 +36,13 @@ import time
 import numpy as np
 import torch
 
-from md_neighbor_list_tpu_torch import PRESETS, DenseSimulator, MDConfig
+from md_neighbor_list_tpu_torch import (PRESETS, DenseSimulator, MDConfig,
+                                        neighbor_list, pair_list)
 from md_neighbor_list_tpu_torch.core.box import Box
 from md_neighbor_list_tpu_torch.core.system import System
-from md_neighbor_list_tpu_torch.ops import (_cuda, dense_cells, dense_force,
-                                            dense_ref, oracle)
+from md_neighbor_list_tpu_torch.ops import (_cuda, decode, dense_cells,
+                                            dense_force, dense_ref, oracle)
+from md_neighbor_list_tpu_torch.utils import native
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): device memory and fp32
 # outside the tensor cores. The bounds below are stated against them.
@@ -40,14 +52,31 @@ PEAK_FP32_PER_S = 67e12
 # Operations per pair, as the kernels' arithmetic counts them.
 FLOPS_TEST = 9  # 3 sub, 3 mul, 2 add, 1 compare
 FLOPS_HIT_FORCE = 16  # divide, s6, f, f*d, own and reaction sums
+FLOPS_HIT_FORCE_FULL = 13  # the same without the reaction sums
 FLOPS_HIT_PE = 5  # 4*(s6*s6 - s6) - shift, and its sum
 FLOPS_HIT_PE_VIRIAL = 13  # divide, s6, pe, virial, two sums
 
-# Forces sum ~30 f32 terms per slot in an order that differs between the
-# kernel (atomics) and the plain version (tree sums): agreement is to
-# rounding. The tolerance scales with the largest force component.
+# Forces sum ~30 f32 terms per slot (~70 in the full sweep) in an order that
+# differs between the kernels (atomics in the half sweep, a fixed sequential
+# order in the full sweep) and the plain versions (tree sums): agreement is
+# to rounding. The tolerance scales with the largest force component.
 FORCE_RTOL = 1e-4
 FORCE_ATOL_SCALE = 2e-5
+# Two different sweeps (half against full, either against the O(N^2) oracle)
+# also see a pair across the periodic boundary from different sides:
+# own - (partner + L) rounds at ulp(L), partner - (own - L) nearly exactly, and
+# the r^-14 force law multiplies that difference. The repo's fp32 force-parity
+# gate covers it: the largest deviation is at most this share of the largest
+# force component.
+FORCE_GATE = 2e-4
+# The same two views can put a pair across the boundary on either side of the
+# cutoff: at L = 100 the difference rounds at ulp(L)/2 = 3.8e-6, which moves
+# r2 = 7.84 by up to 2.7e-6 of itself. Only a pair whose r2 lies within this
+# relative band of the cutoff may be counted by one view and not the other
+# (the full sweep counts both views, the half sweep and the lists take one,
+# a brute-force minimum image is a third). On a lattice no pair is that close
+# to the cutoff and every count is exact.
+CUTOFF_BAND = 1e-5
 
 MAX_RUN_SECONDS = 420.0  # the NVE run stops early (>= 200 steps) past this
 
@@ -87,23 +116,48 @@ def force_close(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float]:
     return ok, float(err.max())
 
 
+def within_force_gate(got: torch.Tensor,
+                      want: torch.Tensor) -> tuple[bool, float]:
+    err = float((got - want).abs().max())
+    return err <= FORCE_GATE * max(float(want.abs().max()), 1.0), err
+
+
 # ------------------------------------------------------------------ inputs
-def jittered_system(n: int, rho: float, seed: int, jitter: float,
-                    device) -> tuple[System, Box]:
-    """Lattice positions moved by uniform numpy noise from ``seed`` (so the
-    state has left the lattice) and Maxwell velocities at T = 1."""
-    box = Box.from_density(n, rho)
+def cubic_sites(n: int) -> tuple[np.ndarray, int]:
+    """(n, 3) integer sites of the smallest cubic lattice that holds n, and
+    its sites per side."""
     m = math.ceil(n ** (1.0 / 3.0))
     while m**3 < n:
         m += 1
-    rng = np.random.default_rng(seed)
     idx = np.arange(n)
-    lattice = np.stack([idx % m, (idx // m) % m, idx // (m * m)], -1)
+    return np.stack([idx % m, (idx // m) % m, idx // (m * m)], -1), m
+
+
+def jittered_system(n: int, rho: float, seed: int, jitter: float, device,
+                    cluster: int = 0, rs: float = 2.8) -> tuple[System, Box]:
+    """Lattice positions moved by uniform numpy noise from ``seed`` (so the
+    state has left the lattice) and Maxwell velocities at T = 1. With
+    ``cluster`` = k, k particles are moved onto a fine jittered lattice inside
+    cell (0, 0, 0) of the rs-grid and nobody else stays in that cell: one
+    cell holds exactly k particles, no two closer than about 0.3."""
+    box = Box.from_density(n, rho)
+    rng = np.random.default_rng(seed)
+    lattice, m = cubic_sites(n)
     pos = (lattice + 0.5) * (box.L / m) + rng.uniform(-jitter, jitter, (n, 3))
+    pos %= box.L
     vel = rng.standard_normal((n, 3))
     vel -= vel.mean(axis=0, keepdims=True)
+    if cluster:
+        cell = box.L / int(box.L / rs)
+        inside = np.all(pos < cell, axis=1)
+        movers = np.concatenate([
+            np.nonzero(inside)[0],
+            np.nonzero(~inside)[0][:cluster - inside.sum()]])
+        fine, mf = cubic_sites(cluster)
+        pos[movers] = (0.15 + (fine + 0.5) * ((cell - 0.3) / mf)
+                       + rng.uniform(-0.02, 0.02, (cluster, 3)))
     system = System(
-        pos=torch.tensor(pos % box.L, dtype=torch.float32, device=device),
+        pos=torch.tensor(pos, dtype=torch.float32, device=device),
         vel=torch.tensor(vel, dtype=torch.float32, device=device),
         force=torch.zeros((n, 3), dtype=torch.float32, device=device),
         pid=torch.arange(n, dtype=torch.int32, device=device))
@@ -123,9 +177,9 @@ def sorted_records(state: dense_cells.DenseState, spec):
 
 # ------------------------------------------------- kernel against plain
 def compare_kernels(state0: dense_cells.DenseState, spec, cfg, label: str):
-    """Run K1-K4 and their plain versions on the same inputs; fail on any
-    disagreement. Returns (rebuilt state, per-kernel max errors, callables
-    for timing)."""
+    """Run every kernel and its plain version on the same inputs; fail on
+    any disagreement. Returns (rebuilt state, sorted records, per-kernel max
+    errors)."""
     recs = sorted_records(state0, spec)
     posvel, pid = dense_cells.expand(*recs, spec)
     torch.cuda.synchronize()
@@ -167,21 +221,87 @@ def compare_kernels(state0: dense_cells.DenseState, spec, cfg, label: str):
     ok_w, e_w = force_close(vir4, vir4_p)
     check(ok_pe and ok_w, f"{label}: pe/virial off by {e_pe}/{e_w}")
     errs["pe_virial_half"] = max(e_pe, e_w)
+
+    # K5: the list kernel's counts, bitwise
+    half = dense_force.dense_counts_half(pos, spec, cfg.rs)
+    torch.cuda.synchronize()
+    check(torch.equal(half, dense_force.counts_half_plain(pos, spec, cfg.rs)),
+          f"{label}: count_half differs from its plain version")
+    check(torch.equal(half, counts),
+          f"{label}: count_half differs from the list kernel's counts")
+    errs["count_half"] = 0.0
+    errs.update(compare_full_sweep(pos, valid, spec, cfg, label, f_p))
+    full = dense_force.dense_counts(pos, valid, spec, cfg.rs)
+    gap = int(full[valid].sum()) - 2 * int(half[valid].sum())
+    check(abs(gap) <= band_pairs(pos, valid, spec, cfg.rs),
+          f"{label}: full counts differ from twice the half counts by {gap}, "
+          "more than the pairs in the cutoff band")
     return state, recs, errs
 
 
+def band_pairs(pos, valid, spec, radius: float) -> int:
+    """Pairs whose r2 lies within CUTOFF_BAND of the cutoff, by the half
+    count kernel at the band's two edges."""
+    outer, inner = (dense_force.dense_counts_half(
+        pos, spec, radius * math.sqrt(1.0 + sign * CUTOFF_BAND))[valid].sum()
+        for sign in (1, -1))
+    return int(outer) - int(inner)
+
+
+def compare_full_sweep(pos, valid, spec, cfg, label: str, f_half=None) -> dict:
+    """K6 (both forms) and K7 against their plain versions under ``valid``;
+    K6 bitwise across two launches and, given the half sweep's forces,
+    within the force-parity gate of them."""
+    errs = {}
+    full = dense_force.dense_counts(pos, valid, spec, cfg.rs)
+    torch.cuda.synchronize()
+    check(torch.equal(full, dense_force.counts_full_plain(pos, valid, spec,
+                                                          cfg.rs)),
+          f"{label}: count_full differs from its plain version")
+    check(int(full[~valid].abs().sum()) == 0,
+          f"{label}: count_full counted on an invalid slot")
+    errs["count_full"] = 0.0
+    f_p, pe_p = dense_force.forces_full_plain(pos, valid, spec, cfg.rc, True)
+    for name, want_pe in (("force_full", False), ("force_full_pe", True)):
+        f, pe = dense_force.dense_forces(pos, valid, spec, cfg.rc, want_pe)
+        torch.cuda.synchronize()
+        again, pe_again = dense_force.dense_forces(pos, valid, spec, cfg.rc,
+                                                   want_pe)
+        check(torch.equal(f, again), f"{label}: {name} differs between two "
+              "launches on the same input")
+        ok, errs[name] = force_close(f, f_p)
+        check(ok, f"{label}: {name} forces off by {errs[name]}")
+        check(float(f[:, ~valid].abs().sum()) == 0.0,
+              f"{label}: {name} left a force on an invalid slot")
+        if f_half is not None:
+            ok, err = within_force_gate(f, f_half)
+            check(ok, f"{label}: {name} off the half sweep by {err}")
+    check(torch.equal(pe, pe_again),
+          f"{label}: force_full_pe potential differs between two launches")
+    ok, pe_err = force_close(pe, pe_p)
+    check(ok, f"{label}: force_full_pe potential off by {pe_err}")
+    check(float(pe[~valid].abs().sum()) == 0.0,
+          f"{label}: force_full_pe left a potential on an invalid slot")
+    errs["force_full_pe"] = max(errs["force_full_pe"], pe_err)
+    return errs
+
+
 def small_shapes(device) -> None:
-    """Wrap-around (mc = 3), one- and two-word masks, an overflowing cell,
-    and the port on the card against the O(N^2) oracle."""
+    """Wrap-around (mc = 3), one to ten mask words (cap = 152 and 304 with a
+    cluster in one cell: the caps the growth ladder reaches beyond 128), an
+    overflowing cell, validity cleared on in-box slots, and the port on the
+    card against the O(N^2) oracle."""
     cases = []
-    for n, rho, cap, jitter, label in (
-            (1728, 1.0, 32, 0.1, "mc4_cap32"),
-            (1728, 1.0, 40, 0.1, "mc4_cap40"),
-            (700, 1.0, 56, 0.25, "mc3_cap56"),
-            (1728, 1.0, 28, 0.6, "mc4_cap28_overflow")):
+    for n, rho, cap, jitter, cluster, label in (
+            (1728, 1.0, 32, 0.1, 0, "mc4_cap32"),
+            (1728, 1.0, 40, 0.1, 0, "mc4_cap40"),
+            (700, 1.0, 56, 0.25, 0, "mc3_cap56"),
+            (700, 1.0, 152, 0.1, 140, "mc3_cap152_cluster"),
+            (700, 1.0, 304, 0.1, 292, "mc3_cap304_cluster"),
+            (1728, 1.0, 28, 0.6, 0, "mc4_cap28_overflow")):
         cfg = MDConfig(n=n, rho=rho)
         system, box = jittered_system(n, rho, seed=n + cap, jitter=jitter,
-                                      device=device)
+                                      device=device, cluster=cluster)
         spec = dense_cells.make_spec(box, cfg.rs, cap)
         state0 = dense_cells.from_packed(system.pos, system.vel, system.pid,
                                          spec)
@@ -195,11 +315,21 @@ def small_shapes(device) -> None:
         check(all(torch.equal(a, b) for a, b in zip(state, ref)),
               f"{label}: rebuild differs from the scatter reference")
         kept = int(state.valid().sum())
+        if cluster:
+            check(int(state.valid().sum(dim=-1).max()) == cluster,
+                  f"{label}: the cluster is not in one cell")
+        # validity cleared on every 7th occupied slot: in-box positions that
+        # the full sweep must treat as absent
+        cleared = state.valid().clone()
+        occupied = cleared.reshape(-1).nonzero()[:, 0]
+        cleared.reshape(-1)[occupied[::7]] = False
+        compare_full_sweep(state.pos, cleared, spec, cfg, label + "/cleared")
         if "overflow" in label:
             check(kept < n, f"{label}: expected a truncated cell")
         else:
             check(kept == n, f"{label}: lost particles ({kept} != {n})")
-            counts, _ = dense_force.dense_lists_half(state.pos, spec, cfg.rs)
+            counts, masks = dense_force.dense_lists_half(state.pos, spec,
+                                                         cfg.rs)
             pairs = int(counts[state.valid()].sum())
             pos, _ = dense_cells.to_packed(state, n, spec.L)
             pos_t = torch.from_numpy(pos).to(device)
@@ -211,25 +341,57 @@ def small_shapes(device) -> None:
             f_packed = torch.empty_like(f_o)
             f_packed[state.pid.reshape(-1)[keep].long()] = \
                 f.reshape(3, -1)[:, keep].T
-            scale = max(float(f_o.abs().max()), 1.0)
-            err = float((f_packed - f_o).abs().max())
-            check(err <= 2e-4 * scale, f"{label}: force vs oracle off by {err}")
+            ok, err = within_force_gate(f_packed, f_o)
+            check(ok, f"{label}: force vs oracle off by {err}")
             u = float(pe[state.valid()].sum())
             check(abs(u - float(u_o)) <= 1e-4 * abs(float(u_o)) + 1e-2,
                   f"{label}: PE {u} vs oracle {float(u_o)}")
+            # the same three against the full sweep and the mask popcount
+            valid = state.valid()
+            check(torch.equal(dense_force.mask_slot_counts(masks, cap),
+                              counts),
+                  f"{label}: mask popcounts differ from the counts")
+            full = dense_force.dense_counts(state.pos, valid, spec, cfg.rs)
+            check(int(full[valid].sum()) == 2 * want,
+                  f"{label}: full counts {int(full[valid].sum())}, oracle "
+                  f"2 x {want}")
+            for want_pe in (False, True):
+                f6, pe6 = dense_force.dense_forces(state.pos, valid, spec,
+                                                   cfg.rc, want_pe)
+                f_packed[state.pid.reshape(-1)[keep].long()] = \
+                    f6.reshape(3, -1)[:, keep].T
+                ok, err = within_force_gate(f_packed, f_o)
+                check(ok, f"{label}: full-sweep force vs oracle off by {err}")
+            u6 = 0.5 * float(pe6[valid].sum())
+            check(abs(u6 - float(u_o)) <= 1e-4 * abs(float(u_o)) + 1e-2,
+                  f"{label}: full-sweep PE {u6} vs oracle {float(u_o)}")
         cases.append({"case": label, "mc": spec.mc, "cap": cap, "kept": kept,
                       "max_abs_err": errs})
     emit("small_shapes", cases=cases)
 
 
 # --------------------------------------------------------------- bounds
-def bounds(spec, records: int, hits: int) -> dict:
+def window_tests(valid: torch.Tensor, spec) -> int:
+    """Distance tests this state needs in a full sweep: ordered pairs of
+    occupied slots whose cells are the same or neighbours (27 cells, self
+    pairs left out), from the cells' occupancy. A half sweep needs half."""
+    occ = valid.sum(dim=-1, dtype=torch.int64).reshape(spec.mc, spec.mc,
+                                                       spec.mc)
+    around = sum(torch.roll(occ, (dz, dy, dx), (0, 1, 2))
+                 for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    return int((occ * around).sum() - occ.sum())
+
+
+def bounds(spec, valid: torch.Tensor, records: int, hits: int) -> dict:
     """Least time (ms) the card could take per kernel on these inputs: the
     larger of bytes moved (inputs read once, outputs written once) over the
-    memory rate and operations over the fp32 rate."""
+    memory rate and operations over the fp32 rate. The distance tests are
+    those between occupied slots of this state, not between all slots."""
     S, cap = spec.slots, spec.cap
     words = dense_force.mask_words(cap)
-    tests = spec.ncells * (13 * cap * cap + cap * (cap - 1) // 2)
+    tests_full = window_tests(valid, spec)
+    tests = tests_full // 2
+    full_read = S * 12 + S  # the state and one validity byte per slot
     work = {
         "expand": (records * 32 + (spec.rows + 1) * 4 + S * 28, 0),
         "lists_half": (S * 12 + 5 * words * S * 3 * 4 + S * 4,
@@ -239,6 +401,12 @@ def bounds(spec, records: int, hits: int) -> dict:
                            + hits * (FLOPS_HIT_FORCE + FLOPS_HIT_PE)),
         "pe_virial_half": (S * 20, tests * FLOPS_TEST
                            + hits * FLOPS_HIT_PE_VIRIAL),
+        "count_half": (S * 12 + S * 4, tests * FLOPS_TEST),
+        "force_full": (full_read + S * 12, tests_full * FLOPS_TEST
+                       + 2 * hits * FLOPS_HIT_FORCE_FULL),
+        "force_full_pe": (full_read + S * 16, tests_full * FLOPS_TEST
+                          + 2 * hits * (FLOPS_HIT_FORCE_FULL + FLOPS_HIT_PE)),
+        "count_full": (full_read + S * 4, tests_full * FLOPS_TEST),
     }
     out = {}
     for name, (nbytes, flops) in work.items():
@@ -247,6 +415,7 @@ def bounds(spec, records: int, hits: int) -> dict:
         out[name] = {"bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "bytes": nbytes, "operations": flops}
+    out["distance_tests"] = {"half_sweep": tests, "full_sweep": tests_full}
     return out
 
 
@@ -261,17 +430,26 @@ SOURCES = {
                        "md_neighbor_list_tpu/ops/pallas_force.py:613"),
     "pe_virial_half": ("md_neighbor_list_tpu_torch/csrc/pe_virial_half.cu",
                        "md_neighbor_list_tpu/ops/pallas_force.py:860"),
+    "count_half": ("md_neighbor_list_tpu_torch/csrc/count_half.cu",
+                   "md_neighbor_list_tpu/ops/pallas_force.py:801"),
+    "force_full": ("md_neighbor_list_tpu_torch/csrc/force_full.cu",
+                   "md_neighbor_list_tpu/ops/pallas_force.py:185"),
+    "force_full_pe": ("md_neighbor_list_tpu_torch/csrc/force_full.cu",
+                      "md_neighbor_list_tpu/ops/pallas_force.py:185"),
+    "count_full": ("md_neighbor_list_tpu_torch/csrc/count_full.cu",
+                   "md_neighbor_list_tpu/ops/pallas_force.py:230"),
 }
 
 
 def full_width(sim: DenseSimulator) -> list[dict]:
-    """K1-K4 against their plain versions at N = 1M, cap = 40, with times."""
+    """Every kernel against its plain version at N = 1M, cap = 40, with
+    times."""
     cfg, spec, dev = sim.config, sim.spec, sim.device
     system, _ = jittered_system(cfg.n, cfg.rho, seed=7, jitter=0.1, device=dev)
     state0 = dense_cells.from_packed(system.pos, system.vel, system.pid, spec)
     state, recs, errs = compare_kernels(state0, spec, cfg, "full_width")
     check(int(state.valid().sum()) == cfg.n, "full_width: lost particles")
-    pos = state.pos
+    pos, valid = state.pos, state.valid()
     counts_rc, _ = dense_force.dense_lists_half(pos, spec, cfg.rc)
     hits = int(counts_rc[state.valid()].sum())
 
@@ -290,8 +468,22 @@ def full_width(sim: DenseSimulator) -> list[dict]:
         "pe_virial_half": (
             lambda: dense_force.dense_pe_virial(pos, spec, cfg.rc),
             lambda: dense_force.pe_virial_half_plain(pos, spec, cfg.rc)),
+        "count_half": (
+            lambda: dense_force.dense_counts_half(pos, spec, cfg.rs),
+            lambda: dense_force.counts_half_plain(pos, spec, cfg.rs)),
+        "force_full": (
+            lambda: dense_force.dense_forces(pos, valid, spec, cfg.rc, False),
+            lambda: dense_force.forces_full_plain(pos, valid, spec, cfg.rc,
+                                                  False)),
+        "force_full_pe": (
+            lambda: dense_force.dense_forces(pos, valid, spec, cfg.rc, True),
+            lambda: dense_force.forces_full_plain(pos, valid, spec, cfg.rc,
+                                                  True)),
+        "count_full": (
+            lambda: dense_force.dense_counts(pos, valid, spec, cfg.rs),
+            lambda: dense_force.counts_full_plain(pos, valid, spec, cfg.rs)),
     }
-    bound = bounds(spec, recs[2].shape[0], hits)
+    bound = bounds(spec, valid, recs[2].shape[0], hits)
     rows = []
     for name, (kernel, plain) in runs.items():
         rows.append({
@@ -381,36 +573,223 @@ def main_path(sim: DenseSimulator) -> dict:
         check(launches[name] >= least,
               f"launches: {name} launched {launches[name]} times on the main "
               f"path, expected at least {least}")
-    emit("launches", launches=launches, expected_at_least=need)
+    emit("launches", path="main_path", launches=launches,
+         expected_at_least=need)
     return launches, carry
 
 
-def profile_steps(sim: DenseSimulator, carry, steps: int = 50) -> None:
-    """Device time of ``steps`` NVE steps by kernel, and the device's busy
-    share of the traced window (tracing slows the host side down, so the
-    share in an untraced run is higher: compare ``device_busy_ms / steps``
-    with the main path's time per step)."""
+# -------------------------------------------------------- list delivery
+SAMPLE_ROWS = 1000  # rows held against a brute-force search
+SAMPLE_SEED = 11
+
+
+def brute_force_rows(pos: torch.Tensor, L: float, radius: float,
+                     ids: torch.Tensor, chunk: int = 50):
+    """Two (len(ids), N) bool matrices of the sampled particles against all N
+    positions: neighbours (min-image, r2 < f32(radius^2), self excluded),
+    and pairs inside the cutoff band."""
+    r2cut = float(np.float32(radius * radius))
+    hits, near = [], []
+    for start in range(0, ids.shape[0], chunk):
+        sel = ids[start:start + chunk]
+        d = pos[sel][:, None, :] - pos[None, :, :]
+        d = d - L * torch.round(d / L)
+        r2 = torch.sum(d * d, dim=-1)
+        r2[torch.arange(sel.shape[0], device=pos.device), sel] = float("inf")
+        hits.append(r2 < r2cut)
+        near.append((r2 - r2cut).abs() <= CUTOFF_BAND * r2cut)
+    return torch.cat(hits), torch.cat(near)
+
+
+def caller_positions(sim: DenseSimulator) -> tuple[torch.Tensor, Box]:
+    """The jittered system of the full-width comparison, its particles in a
+    shuffled order: what a caller of ``neighbor_list`` hands over."""
+    cfg = sim.config
+    system, box = jittered_system(cfg.n, cfg.rho, seed=7, jitter=0.1,
+                                  device=sim.device)
+    order = torch.randperm(cfg.n, generator=torch.Generator().manual_seed(3))
+    return system.pos[order.to(sim.device)], box
+
+
+def list_delivery(sim: DenseSimulator) -> dict:
+    """``neighbor_list`` / ``pair_list`` at full width, and the parity passes
+    of the lattice start. Returns the launch counts of this path."""
+    cfg, dev = sim.config, sim.device
+    n, rs = cfg.n, cfg.rs
+    pos, box = caller_positions(sim)
+    _cuda.reset_launches()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx_h, cnt_h = neighbor_list(pos, box.L, rs, half=True, backend="dense")
+    torch.cuda.synchronize()
+    t_half = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx_f, cnt_f = neighbor_list(pos, box.L, rs, half=False, backend="dense")
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pi, pj = pair_list(pos, box.L, rs, backend="dense")
+    t_pairs = time.perf_counter() - t0
+
+    # the same build piece by piece: the parity passes, and the split of the
+    # time into device part, copy to the host and host decode
+    spec = dense_cells.make_spec(box, rs, 40)
+    pid = torch.arange(n, dtype=torch.int32, device=dev)
+    seed_state = dense_cells.from_packed(box.wrap(pos), torch.zeros_like(pos),
+                                         pid, spec)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = dense_cells.rebuild_dense(seed_state, spec)
+    _, masks = dense_force.dense_lists_half(state.pos, spec, rs)
+    torch.cuda.synchronize()
+    t_device = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    masks_h, pid_h = masks.cpu().numpy(), state.pid.cpu().numpy()
+    t_copy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx_m, cnt_m = decode.masks_to_padded(masks_h, pid_h, spec, n=n)
+    t_decode = time.perf_counter() - t0
+    valid = state.valid()
+    check(int(valid.sum()) == n, "list_delivery: lost particles")
+    check(np.array_equal(idx_m, idx_h.cpu().numpy())
+          and np.array_equal(cnt_m, cnt_h.cpu().numpy()),
+          "list_delivery: neighbor_list differs from rebuild + lists + decode")
+
+    half_total = int(dense_force.dense_counts_half(state.pos, spec,
+                                                   rs)[valid].sum())
+    full_total = int(dense_force.dense_counts(state.pos, valid, spec,
+                                              rs)[valid].sum())
+    in_band = band_pairs(state.pos, valid, spec, rs)
+    check(abs(full_total - 2 * half_total) <= in_band,
+          f"list_delivery: full count {full_total} differs from 2 x "
+          f"{half_total} by more than the {in_band} pairs in the cutoff band")
+    check(int(cnt_h.sum()) == half_total,
+          f"list_delivery: half rows hold {int(cnt_h.sum())} pairs, the "
+          f"count kernel {half_total}")
+    check(int(cnt_f.sum()) == 2 * half_total,
+          f"list_delivery: full rows hold {int(cnt_f.sum())} entries, "
+          f"expected {2 * half_total}")
+    check(idx_h.shape[0] == n and idx_f.shape[0] == n
+          and idx_h.dtype == torch.int32 and idx_h.is_cuda,
+          "list_delivery: rows of the wrong shape, type or device")
+    check(bool(((idx_f < n).sum(dim=1) == cnt_f).all()),
+          "list_delivery: sentinel padding does not match the counts")
+    check(pi.shape[0] == half_total and bool((pi < pj).all()),
+          f"list_delivery: pair_list has {pi.shape[0]} pairs, expected "
+          f"{half_total} with i < j")
+
+    # sampled rows against a brute-force search over all N positions
+    ids = torch.from_numpy(np.sort(np.random.default_rng(
+        SAMPLE_SEED).choice(n, SAMPLE_ROWS, replace=False))).to(dev)
+    want, near = brute_force_rows(box.wrap(pos), box.L, rs, ids)
+    got = torch.zeros((SAMPLE_ROWS, n + 1), dtype=torch.bool, device=dev)
+    got.scatter_(1, idx_f[ids].long(), True)
+    differ = got[:, :n] ^ want
+    n_differ = int(differ.sum())
+    check(int((differ & ~near).sum()) == 0,
+          f"list_delivery: {n_differ} sampled entries differ from the brute "
+          "force, some outside the cutoff band")
+    check(bool((got[:, :n].sum(dim=1) == cnt_f[ids]).all()),
+          "list_delivery: a sampled row repeats a neighbour")
+    half_rows = torch.zeros_like(got)
+    half_rows.scatter_(1, idx_h[ids].long(), True)
+    check(bool((half_rows[:, :n] & ~got[:, :n]).sum() == 0),
+          "list_delivery: a half row holds a pair its full row lacks")
+    del got, want, near, differ, half_rows
+
+    # the half sweep's forces and energy of the delivered state against the
+    # full sweep, whose sums have a fixed order
+    f3, pe3 = dense_force.dense_forces_half(state.pos, spec, cfg.rc, True)
+    f6, _ = dense_force.dense_forces(state.pos, valid, spec, cfg.rc, False)
+    ok, f_err = within_force_gate(f3, f6)
+    check(ok, f"list_delivery: half-sweep forces off the full sweep by "
+          f"{f_err}")
+    _, pe6 = dense_force.dense_forces(state.pos, valid, spec, cfg.rc, True)
+    pe_full = 0.5 * float(pe6[valid].sum(dtype=torch.float64))
+    pe_half = float(pe3[valid].sum(dtype=torch.float64))
+    check(abs(pe_full - pe_half) <= 1e-5 * abs(pe_full),
+          f"list_delivery: PE {pe_half} (half sweep) vs {pe_full} (full)")
+
+    # the lattice start of the main path, by the full-sweep count
+    st = sim.init().state
+    v = st.valid()
+    k2_total = int(dense_force.dense_lists_half(st.pos, sim.spec,
+                                                rs)[0][v].sum())
+    k7_total = int(dense_force.dense_counts(st.pos, v, sim.spec, rs)[v].sum())
+    check(k7_total // 2 == 40_000_000 == k2_total and k7_total % 2 == 0,
+          f"list_delivery: lattice start has {k7_total} / 2 pairs by the "
+          f"full sweep, {k2_total} by the list kernel, want 40000000")
+
+    launches = dict(_cuda.LAUNCHES)
+    emit("list_delivery", n=n, cap=spec.cap, pairs=half_total,
+         full_sweep_count=full_total, pairs_in_cutoff_band=in_band,
+         k_half=idx_h.shape[1], k_full=idx_f.shape[1],
+         sampled_rows=SAMPLE_ROWS, sampled_entries_in_cutoff_band=n_differ,
+         seconds={"neighbor_list_half": t_half, "neighbor_list_full": t_full,
+                  "pair_list": t_pairs, "device_rebuild_and_lists": t_device,
+                  "masks_to_host": t_copy, "native_decode_half": t_decode},
+         mask_bytes=masks_h.nbytes, force_err_half_vs_full_sweep=f_err,
+         pe_half_sweep=pe_half, pe_full_sweep=pe_full,
+         lattice_pairs=k7_total // 2)
+    need = {"expand": 4, "lists_half": 4, "count_half": 1, "count_full": 2,
+            "force_full": 1, "force_full_pe": 1}
+    for name, least in need.items():
+        check(launches[name] >= least,
+              f"launches: {name} launched {launches[name]} times on the list "
+              f"delivery path, expected at least {least}")
+    emit("launches", path="list_delivery", launches=launches,
+         expected_at_least=need)
+    return launches
+
+
+def traced(fn) -> tuple[float, list]:
+    """Host ms of ``fn()`` under ``torch.profiler`` (synchronised), and its
+    device kernels as (name, device ms, calls), longest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=activities):  # the first trace pays the set-up
-        carry = sim._run_chunk(carry, 5)
-        torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=activities) as prof:
-        carry = sim._run_chunk(carry, steps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    rows.sort(key=lambda r: -r[1])
+    return wall_ms, sorted(rows, key=lambda r: -r[1])
+
+
+def profile_paths(sim: DenseSimulator, carry, steps: int = 50) -> None:
+    """Device time of ``steps`` NVE steps by kernel, and of one
+    ``neighbor_list`` call at full width, each with the device's busy share
+    of the traced window (tracing slows the host side down, so the share in
+    an untraced run is higher: compare ``device_busy_ms / steps`` with the
+    main path's time per step)."""
+    at = [carry]  # the steps update the carry's tensors in place
+
+    def advance(nsteps: int) -> None:
+        at[0] = sim._run_chunk(at[0], nsteps)
+
+    traced(lambda: advance(5))  # the first trace pays the set-up
+    before = int(at[0].n_rebuilds)
+    wall_ms, rows = traced(lambda: advance(steps))
     busy_ms = sum(r[1] for r in rows)
     emit("profile", steps=steps, wall_ms=wall_ms, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / wall_ms,
-         rebuilds=int(carry.n_rebuilds),
+         rebuilds=int(at[0].n_rebuilds) - before,
          kernels=[{"name": k[:70], "ms": ms, "calls": c}
                   for k, ms, c in rows[:14]])
+
+    cfg = sim.config
+    pos, box = caller_positions(sim)
+    wall_ms, rows = traced(lambda: neighbor_list(
+        pos, box.L, cfg.rs, half=True, backend="dense"))
+    busy_ms = sum(r[1] for r in rows)
+    emit("profile_neighbor_list", n=cfg.n, half=True, wall_ms=wall_ms,
+         device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+         kernels=[{"name": k[:70], "ms": ms, "calls": c}
+                  for k, ms, c in rows[:8]])
 
 
 def main() -> int:
@@ -427,7 +806,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _cuda.library()
-    emit("build", seconds=time.perf_counter() - t0,
+    t_kernels = time.perf_counter() - t0
+    native.load()  # the host decoder of the list delivery path (g++)
+    emit("build", seconds=t_kernels,
+         decoder_seconds=time.perf_counter() - t0 - t_kernels,
          ptxas=[line for text in _cuda.build_log for line in text.splitlines()
                 if "registers" in line or "error" in line.lower()])
 
@@ -438,9 +820,15 @@ def main() -> int:
     sim = DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device)
     launches, carry = main_path(sim)
     if "--profile" in sys.argv[1:]:
-        profile_steps(sim, carry)
-    for row in rows:
-        row["launches"] = launches[row["name"]]
+        profile_paths(sim, carry)
+    del carry
+    delivery = list_delivery(
+        DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device))
+    for row in rows:  # launches on the two driven paths, and their sum
+        name = row["name"]
+        row["launches"] = launches[name] + delivery[name]
+        row["launches_by_path"] = {"main_path": launches[name],
+                                   "list_delivery": delivery[name]}
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi.splitlines()[0], flush=True)
     print(json.dumps({"ok": True, "device": {

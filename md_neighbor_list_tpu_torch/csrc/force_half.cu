@@ -36,10 +36,10 @@
 namespace mdnl {
 
 template <bool WANT_PE>
-__global__ void force_half_kernel(const float* __restrict__ pos,
-                                  float* __restrict__ force,
-                                  float* __restrict__ pe, int mc, int cap,
-                                  float L, float r2cut, float ushift) {
+__device__ __forceinline__ void
+force_half_body(const float* __restrict__ pos, float* __restrict__ force,
+                float* __restrict__ pe, int mc, int cap, float L, float r2cut,
+                float ushift) {
   extern __shared__ float smem[];
   float* sx = smem;
   float* sy = sx + cap;
@@ -102,6 +102,22 @@ __global__ void force_half_kernel(const float* __restrict__ pos,
   }
 }
 
+template <bool WANT_PE>
+__global__ void MDNL_NARROW
+force_half_kernel(const float* __restrict__ pos, float* __restrict__ force,
+                  float* __restrict__ pe, int mc, int cap, float L,
+                  float r2cut, float ushift) {
+  force_half_body<WANT_PE>(pos, force, pe, mc, cap, L, r2cut, ushift);
+}
+
+template <bool WANT_PE>
+__global__ void MDNL_BLOCK_BOUND
+force_half_kernel_wide(const float* __restrict__ pos,
+                       float* __restrict__ force, float* __restrict__ pe,
+                       int mc, int cap, float L, float r2cut, float ushift) {
+  force_half_body<WANT_PE>(pos, force, pe, mc, cap, L, r2cut, ushift);
+}
+
 }  // namespace mdnl
 
 namespace {
@@ -113,7 +129,9 @@ int launch_force_half(const void* pos, void* force, void* pe, int mc, int cap,
   if (cap < 1 || cap > kMaxCap) return (int)cudaErrorInvalidValue;
   const int threads = round_up32(3 * cap);
   const size_t smem = (size_t)cap * 7 * sizeof(float);
-  force_half_kernel<WANT_PE><<<mc * mc * mc, threads, smem, (cudaStream_t)stream>>>(
+  const auto kernel = cap <= kNarrowCap ? force_half_kernel<WANT_PE>
+                                        : force_half_kernel_wide<WANT_PE>;
+  kernel<<<mc * mc * mc, threads, smem, (cudaStream_t)stream>>>(
       (const float*)pos, (float*)force, (float*)pe, mc, cap, L, r2cut, ushift);
   return (int)cudaGetLastError();
 }

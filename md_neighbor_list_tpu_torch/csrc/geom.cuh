@@ -1,12 +1,14 @@
-// Shared device code of the half-sweep kernels: the window geometry of the
-// dense cell layout.
+// Shared device code of the sweep kernels: the window geometry of the dense
+// cell layout.
 //
 // State arrays are channel-leading (3, R, mc, cap) f32 with R = mc*mc rows
-// (z, y), axis 2 the x-cell and axis 3 the slot. For own cell (z, y, x), half
-// offset row k with (dz, dy) = HALF_OFFSETS5[k] and window lane l in
+// (z, y), axis 2 the x-cell and axis 3 the slot. For own cell (z, y, x), a
+// neighbour row (dz, dy) with dz, dy in {-1, 0, 1} and window lane l in
 // [0, 3*cap): the partner is slot l % cap of x-cell (x + l/cap - 1) mod mc in
 // row ((z+dz) % mc, (y+dy) % mc), moved by -L/+L along every axis on which the
 // neighbour wrapped around the box, so d = own - partner is the nearest image.
+// The half sweep visits the five rows HALF_OFFSETS5[k]; the full sweep visits
+// all nine, every pair from both partners.
 //
 // r2 is computed with explicit round-to-nearest multiplies and adds in the
 // association (dx*dx + dy*dy) + dz*dz. The compiler would otherwise contract
@@ -19,7 +21,24 @@
 
 namespace mdnl {
 
-constexpr int kMaxCap = 128;  // slots per cell the kernels take
+// Slots per cell the kernels take: a block has one thread per window lane,
+// 3*cap <= 1024 threads.
+constexpr int kMaxCap = 341;
+// Blocks of up to 1024 threads need a launch bound (64 registers a thread).
+// The list and full-sweep kernels carry it at every cap. The half-force,
+// pe/virial and half-count kernels are compiled in two forms over one body:
+// for cap <= kNarrowCap (blocks of at most 384 threads) with no bound, so
+// registers are unconstrained, and a `_wide` form with the bound for the caps
+// above, because the bound costs those three time at small caps: under it
+// they ran 3 %, 8 % and 18 % slower at N = 1M, cap = 40 (NVIDIA H100 80GB HBM3
+// at 700 W, by tools/port_ab.py).
+constexpr int kNarrowCap = 128;
+#ifndef MDNL_NARROW_BOUND  // -DMDNL_NARROW_BOUND=<threads> bounds the narrow
+#define MDNL_NARROW        // forms too: the measurement behind the split
+#else
+#define MDNL_NARROW __launch_bounds__(MDNL_NARROW_BOUND)
+#endif
+#define MDNL_BLOCK_BOUND __launch_bounds__(1024)
 
 struct CellId {
   int z, y, x, row, cell;
@@ -41,26 +60,44 @@ __device__ __forceinline__ void half_offset(int k, int& dz, int& dy) {
   dy = k == 0 ? 0 : (k == 1 ? 1 : k - 3);
 }
 
-// Load the image-shifted position of window lane l; returns the partner's
-// flat slot index (cell * cap + slot) in the (R, mc, cap) arrays.
+// Cell index c + d along one axis, wrapped into [0, mc); returns the image
+// shift (-L, 0 or +L) that goes with the wrap.
+__device__ __forceinline__ float wrap_cell(int& c, int mc, float L) {
+  if (c >= mc) { c -= mc; return L; }
+  if (c < 0) { c += mc; return -L; }
+  return 0.f;
+}
+
+// Load the image-shifted position of window lane l of neighbour row (dz, dy);
+// returns the partner's flat slot index (cell * cap + slot) in the
+// (R, mc, cap) arrays.
+__device__ __forceinline__ int load_partner_at(const float* __restrict__ pos,
+                                               size_t S, int mc, int cap,
+                                               float L, const CellId& c,
+                                               int dz, int dy, int l,
+                                               float& xj, float& yj,
+                                               float& zj) {
+  int zz = c.z + dz, yy = c.y + dy;
+  const int seg = l / cap;
+  int xx = c.x + seg - 1;
+  const float zs = wrap_cell(zz, mc, L);
+  const float ys = wrap_cell(yy, mc, L);
+  const float xs = wrap_cell(xx, mc, L);
+  const int idx = ((zz * mc + yy) * mc + xx) * cap + (l - seg * cap);
+  xj = __fadd_rn(pos[idx], xs);
+  yj = __fadd_rn(pos[S + idx], ys);
+  zj = __fadd_rn(pos[2 * S + idx], zs);
+  return idx;
+}
+
+// The same for half offset row k.
 __device__ __forceinline__ int load_partner(const float* __restrict__ pos,
                                             size_t S, int mc, int cap, float L,
                                             const CellId& c, int k, int l,
                                             float& xj, float& yj, float& zj) {
   int dz, dy;
   half_offset(k, dz, dy);
-  int zz = c.z + dz, yy = c.y + dy;
-  const int seg = l / cap;
-  int xx = c.x + seg - 1;
-  float xs = 0.f, ys = 0.f, zs = 0.f;
-  if (zz >= mc) { zz -= mc; zs = L; }
-  if (yy >= mc) { yy -= mc; ys = L; } else if (yy < 0) { yy += mc; ys = -L; }
-  if (xx >= mc) { xx -= mc; xs = L; } else if (xx < 0) { xx += mc; xs = -L; }
-  const int idx = ((zz * mc + yy) * mc + xx) * cap + (l - seg * cap);
-  xj = __fadd_rn(pos[idx], xs);
-  yj = __fadd_rn(pos[S + idx], ys);
-  zj = __fadd_rn(pos[2 * S + idx], zs);
-  return idx;
+  return load_partner_at(pos, S, mc, cap, L, c, dz, dy, l, xj, yj, zj);
 }
 
 __device__ __forceinline__ float pair_r2(float xi, float yi, float zi,
@@ -89,6 +126,38 @@ __device__ __forceinline__ void load_own(const float* __restrict__ pos,
     sy[i] = pos[S + g];
     sz[i] = pos[2 * S + g];
   }
+}
+
+// ---- full 27-cell sweep -------------------------------------------------
+// One block per own cell, 3*cap threads: thread t serves own slot t % cap in
+// z-group g = t / cap, which sweeps the three rows (dz = g - 1, dy = -1, 0, 1)
+// lane by lane in a fixed order. A slot whose `valid` byte is 0 is absent on
+// both sides: as a partner it is staged at +infinity (r2 = inf passes no
+// cutoff and makes no NaN against a finite own position), as an own slot its
+// thread sweeps nothing and its outputs are zero.
+
+// Stage, for one dy, the windows of rows (dz = -1, 0, 1; dy): sx/sy/sz hold
+// [3][3*cap] floats, group g's window at offset g * 3*cap.
+__device__ __forceinline__ void stage_rows_full(
+    const float* __restrict__ pos, const unsigned char* __restrict__ valid,
+    size_t S, int mc, int cap, float L, const CellId& c, int dy, float* sx,
+    float* sy, float* sz) {
+  const int W = 3 * cap;
+  for (int e = threadIdx.x; e < 3 * W; e += blockDim.x) {
+    const int g = e / W;
+    float xj, yj, zj;
+    const int idx =
+        load_partner_at(pos, S, mc, cap, L, c, g - 1, dy, e - g * W, xj, yj, zj);
+    sx[e] = valid[idx] ? xj : __int_as_float(0x7f800000);
+    sy[e] = yj;
+    sz[e] = zj;
+  }
+}
+
+// The window lane that is own slot i itself: lane cap + i of the centre row
+// (dz = 0, dy = 0) and no lane of any other row.
+__device__ __forceinline__ int self_lane(int g, int dy, int i, int cap) {
+  return (g == 1 && dy == 0) ? cap + i : -1;
 }
 
 __host__ __device__ inline int round_up32(int n) { return (n + 31) / 32 * 32; }

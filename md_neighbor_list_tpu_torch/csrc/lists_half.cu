@@ -16,6 +16,11 @@
 // own slot, kept by lane (i % 32) of each warp, then summed over the warps
 // through shared memory. Integers throughout, so the result is exact.
 //
+// W is the number of mask-word registers a thread holds. For cap <= 128 it is
+// the word count itself (W = 1..4, every loop bound known to the compiler);
+// above, the W = 11 form serves every word count up to the 11 of cap = 341
+// and takes the real count at run time.
+//
 // Bound: the mask write, 5*words*3 words per slot against 3 floats read; the
 // ~15*cap distance tests per slot (9 flops each) come second on this card.
 // Mask stores run along l and coalesce.
@@ -23,11 +28,12 @@
 
 namespace mdnl {
 
-template <int WORDS>
-__global__ void lists_half_kernel(const float* __restrict__ pos,
-                                  int* __restrict__ masks,
-                                  int* __restrict__ counts, int mc, int cap,
-                                  float L, float r2cut) {
+template <int W>
+__global__ void MDNL_BLOCK_BOUND
+lists_half_kernel(const float* __restrict__ pos, int* __restrict__ masks,
+                  int* __restrict__ counts, int mc, int cap, float L,
+                  float r2cut, int words_rt) {
+  const int words = W <= 4 ? W : words_rt;
   extern __shared__ float smem[];
   float* sx = smem;
   float* sy = sx + cap;
@@ -42,18 +48,18 @@ __global__ void lists_half_kernel(const float* __restrict__ pos,
   const int l = threadIdx.x;
   const int lane = l & 31, warp = l >> 5;
   const bool active = l < 3 * cap;
-  int cnt[WORDS];
+  int cnt[W];
 #pragma unroll
-  for (int w = 0; w < WORDS; ++w) cnt[w] = 0;
+  for (int w = 0; w < W; ++w) cnt[w] = 0;
 
   for (int k = 0; k < 5; ++k) {
     float xj = 0.f, yj = 0.f, zj = 0.f;
     if (active) load_partner(pos, S, mc, cap, L, c, k, l, xj, yj, zj);
-    uint32_t bits[WORDS];
+    uint32_t bits[W];
 #pragma unroll
-    for (int w = 0; w < WORDS; ++w) {
+    for (int w = 0; w < W; ++w) {
       bits[w] = 0u;
-      const int n = min(32, cap - 32 * w);
+      const int n = min(32, cap - 32 * w);  // <= 0 beyond the last word
       for (int b = 0; b < n; ++b) {
         const int i = 32 * w + b;
         float dx, dy, dz;
@@ -66,16 +72,18 @@ __global__ void lists_half_kernel(const float* __restrict__ pos,
     }
     if (active) {
 #pragma unroll
-      for (int w = 0; w < WORDS; ++w) {
-        const size_t o =
-            ((((size_t)k * WORDS + w) * R + c.row) * mc + c.x) * (3 * cap) + l;
-        masks[o] = (int)bits[w];  // bit 31 is the sign bit: same 32 bits
+      for (int w = 0; w < W; ++w) {
+        if (w < words) {
+          const size_t o =
+              ((((size_t)k * words + w) * R + c.row) * mc + c.x) * (3 * cap) + l;
+          masks[o] = (int)bits[w];  // bit 31 is the sign bit: same 32 bits
+        }
       }
     }
   }
 
 #pragma unroll
-  for (int w = 0; w < WORDS; ++w) {
+  for (int w = 0; w < W; ++w) {
     const int i = 32 * w + lane;
     if (i < cap) scnt[warp * cap + i] = cnt[w];
   }
@@ -99,15 +107,14 @@ extern "C" int mdnl_lists_half(const void* pos, void* masks, void* counts,
   const int blocks = mc * mc * mc;
   const size_t smem = (size_t)cap * (3 * sizeof(float) + (threads / 32) * sizeof(int));
   const int words = (cap + 31) / 32;
-#define MDNL_LISTS(W)                                                      \
-  lists_half_kernel<W><<<blocks, threads, smem, (cudaStream_t)stream>>>(   \
-      (const float*)pos, (int*)masks, (int*)counts, mc, cap, L, r2cut)
+  auto kernel = lists_half_kernel<11>;  // 5..11 words, cap <= 341
   switch (words) {
-    case 1: MDNL_LISTS(1); break;
-    case 2: MDNL_LISTS(2); break;
-    case 3: MDNL_LISTS(3); break;
-    default: MDNL_LISTS(4); break;
+    case 1: kernel = lists_half_kernel<1>; break;
+    case 2: kernel = lists_half_kernel<2>; break;
+    case 3: kernel = lists_half_kernel<3>; break;
+    case 4: kernel = lists_half_kernel<4>; break;
   }
-#undef MDNL_LISTS
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)pos, (int*)masks, (int*)counts, mc, cap, L, r2cut, words);
   return (int)cudaGetLastError();
 }

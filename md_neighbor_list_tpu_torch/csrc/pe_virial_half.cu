@@ -15,10 +15,10 @@
 
 namespace mdnl {
 
-__global__ void pe_virial_half_kernel(const float* __restrict__ pos,
-                                      float* __restrict__ pe,
-                                      float* __restrict__ vir, int mc, int cap,
-                                      float L, float r2cut, float ushift) {
+__device__ __forceinline__ void
+pe_virial_half_body(const float* __restrict__ pos, float* __restrict__ pe,
+                    float* __restrict__ vir, int mc, int cap, float L,
+                    float r2cut, float ushift) {
   extern __shared__ float smem[];
   float* sx = smem;
   float* sy = sx + cap;
@@ -62,6 +62,21 @@ __global__ void pe_virial_half_kernel(const float* __restrict__ pos,
   }
 }
 
+__global__ void MDNL_NARROW
+pe_virial_half_kernel(const float* __restrict__ pos, float* __restrict__ pe,
+                      float* __restrict__ vir, int mc, int cap, float L,
+                      float r2cut, float ushift) {
+  pe_virial_half_body(pos, pe, vir, mc, cap, L, r2cut, ushift);
+}
+
+__global__ void MDNL_BLOCK_BOUND
+pe_virial_half_kernel_wide(const float* __restrict__ pos,
+                           float* __restrict__ pe, float* __restrict__ vir,
+                           int mc, int cap, float L, float r2cut,
+                           float ushift) {
+  pe_virial_half_body(pos, pe, vir, mc, cap, L, r2cut, ushift);
+}
+
 }  // namespace mdnl
 
 extern "C" int mdnl_pe_virial_half(const void* pos, void* pe, void* vir,
@@ -71,7 +86,9 @@ extern "C" int mdnl_pe_virial_half(const void* pos, void* pe, void* vir,
   if (cap < 1 || cap > kMaxCap) return (int)cudaErrorInvalidValue;
   const int threads = round_up32(3 * cap);
   const size_t smem = (size_t)cap * 5 * sizeof(float);
-  pe_virial_half_kernel<<<mc * mc * mc, threads, smem, (cudaStream_t)stream>>>(
+  const auto kernel =
+      cap <= kNarrowCap ? pe_virial_half_kernel : pe_virial_half_kernel_wide;
+  kernel<<<mc * mc * mc, threads, smem, (cudaStream_t)stream>>>(
       (const float*)pos, (float*)pe, (float*)vir, mc, cap, L, r2cut, ushift);
   return (int)cudaGetLastError();
 }

@@ -3,8 +3,8 @@
 The sources have a plain C interface (no PyTorch headers), so ``nvcc``
 compiles each in seconds. ``library()`` compiles every ``csrc/*.cu`` for
 ``sm_90a`` — one ``nvcc`` per source, all started together — links them into
-one shared library under ``build/`` (named by a hash of the sources, so an
-edit rebuilds) and loads it with ``ctypes``. Nothing is built when this
+one shared library under ``build/`` (named by a hash of the sources and of
+``MDNL_NVCC_FLAGS``, so an edit rebuilds) and loads it with ``ctypes``. Nothing is built when this
 module is imported; the first kernel launch builds.
 
 ``launch(name, ...)`` is the only place a kernel is launched: it calls the C
@@ -19,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import shlex
 import shutil
 import subprocess
 
@@ -45,6 +46,14 @@ _ENTRIES = {
     "forces_half_pe": [_P, _P, _P, _I, _I, _F, _F, _F],
     # pos, pe, vir, mc, cap, L, r2cut, ushift
     "pe_virial_half": [_P, _P, _P, _I, _I, _F, _F, _F],
+    # pos, counts, mc, cap, L, r2cut
+    "count_half": [_P, _P, _I, _I, _F, _F],
+    # pos, valid, force, mc, cap, L, r2cut
+    "force_full": [_P, _P, _P, _I, _I, _F, _F],
+    # pos, valid, force, pe, mc, cap, L, r2cut, ushift (the want_pe form)
+    "force_full_pe": [_P, _P, _P, _P, _I, _I, _F, _F, _F],
+    # pos, valid, counts, mc, cap, L, r2cut
+    "count_full": [_P, _P, _P, _I, _I, _F, _F],
 }
 
 # kernel launches so far, by kernel; reset_launches() zeroes them
@@ -70,9 +79,15 @@ def _nvcc() -> str:
     return found
 
 
+def _extra_flags() -> list[str]:
+    """Further nvcc flags from the environment, for measurements of a compile
+    time variant (``MDNL_NVCC_FLAGS=-DMDNL_NARROW_BOUND=384``, csrc/geom.cuh)."""
+    return shlex.split(os.environ.get("MDNL_NVCC_FLAGS", ""))
+
+
 def _sources() -> tuple[list[pathlib.Path], str]:
     cu = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256()
+    h = hashlib.sha256(" ".join(_extra_flags()).encode())
     for path in cu + sorted(CSRC.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -84,7 +99,8 @@ def _build(cu: list[pathlib.Path], out: pathlib.Path) -> None:
     work = BUILD / f"obj-{out.stem}-{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
     flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC)]
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
+             *_extra_flags()]
     procs = []
     for src in cu:  # one nvcc per source, all in flight together
         obj = work / (src.stem + ".o")

@@ -1,14 +1,18 @@
-"""Half-sweep kernels of the dense engine: neighbour-list build, Newton-3 LJ
-forces, and the pe/virial observable pass.
+"""Sweep kernels of the dense engine: the half-sweep neighbour-list build,
+Newton-3 LJ forces, pe/virial observable pass and counts, and the full
+27-cell sweep's forces and counts (the symmetric parity passes).
 
 This module is the port of ``md_neighbor_list_tpu/ops/pallas_force.py`` (the
 name changes because nothing here is Pallas): ``dense_lists_half``,
-``dense_forces_half`` and ``dense_pe_virial`` launch hand-written CUDA kernels
-(``csrc/lists_half.cu``, ``csrc/force_half.cu``, ``csrc/pe_virial_half.cu``)
-on CUDA tensors. Beside each stands its plain PyTorch version
-(``lists_half_plain``, ``forces_half_plain``, ``pe_virial_half_plain``), taken
-only for tensors that lie on the CPU; it is what the CPU tests run and what
-the kernels are held against on the card.
+``dense_forces_half``, ``dense_pe_virial``, ``dense_counts_half``,
+``dense_forces`` and ``dense_counts`` launch hand-written CUDA kernels
+(``csrc/lists_half.cu``, ``force_half.cu``, ``pe_virial_half.cu``,
+``count_half.cu``, ``force_full.cu``, ``count_full.cu``) on CUDA tensors.
+Beside each stands its plain PyTorch version (``lists_half_plain``,
+``forces_half_plain``, ``pe_virial_half_plain``, ``counts_half_plain``,
+``forces_full_plain``, ``counts_full_plain``), taken only for tensors that lie
+on the CPU; it is what the CPU tests run and what the kernels are held against
+on the card.
 
 Half sweep: every unordered pair is visited once. The own cell (z, y, x)
 sees, for each of the five offset rows ``HALF_OFFSETS5[k] = (dz, dy)``, a
@@ -17,9 +21,15 @@ moved by -L/+L where it wrapped around the box. In the own row (k = 0) the
 x-1 segment is left to the neighbour's sweep and inside the own cell only
 slot j > i is kept.
 
-CONTRACT: ``pos4`` satisfies the park invariant (``dense_cells``): empty
-slots sit on the park lattice, so no validity input exists and they receive
-exactly zero force, count and mask bits.
+CONTRACT of the half sweep: ``pos4`` satisfies the park invariant
+(``dense_cells``): empty slots sit on the park lattice, so no validity input
+exists and they receive exactly zero force, count and mask bits.
+
+Full sweep: every pair is visited from both partners over all nine (dz, dy)
+rows, nothing is written outside the own cell, and totals over slots count
+each pair twice. It takes ``valid`` and honours it whatever the state holds:
+a slot with ``valid`` False gives nothing and receives nothing, even at an
+in-box position (``make_windows`` parks by ``valid``).
 """
 
 from __future__ import annotations
@@ -29,11 +39,14 @@ import torch
 
 from md_neighbor_list_tpu_torch.ops import _cuda
 from md_neighbor_list_tpu_torch.ops.common import lj_shift
+from md_neighbor_list_tpu_torch.ops.dense_cells import park_positions
 
 HALF_OFFSETS5 = [(0, 0), (0, 1), (1, -1), (1, 0), (1, 1)]
 
 MASK_BITS = 32  # bits per packed i32 mask word
-MAX_CAP = 128  # slots per cell the CUDA kernels take (csrc/geom.cuh)
+# Slots per cell the CUDA kernels take (csrc/geom.cuh): a block has one
+# thread per window lane, 3*cap <= 1024.
+MAX_CAP = 341
 
 
 def mask_words(cap: int) -> int:
@@ -53,12 +66,24 @@ def _check_state(pos4: torch.Tensor, spec) -> None:
             f"expected f32 positions of shape {(3, spec.rows, spec.mc, spec.cap)}, "
             f"got {pos4.dtype} {tuple(pos4.shape)}")
     if spec.rows != spec.mc * spec.mc:
-        raise ValueError("the half-sweep kernels take the cubic layout only")
+        raise ValueError("the sweep kernels take the cubic layout only")
     if pos4.is_cuda:
         _cuda.check_cuda(pos4)
         if spec.cap > MAX_CAP:
-            raise ValueError(f"cap={spec.cap} exceeds the CUDA kernels' "
-                             f"limit of {MAX_CAP} slots per cell")
+            raise ValueError(
+                f"cap={spec.cap} exceeds the CUDA kernels' limit of "
+                f"{MAX_CAP} slots per cell (one thread per window lane, "
+                "3*cap <= 1024)")
+
+
+def _check_valid(valid: torch.Tensor, pos4: torch.Tensor, spec) -> None:
+    if valid.shape != (spec.rows, spec.mc, spec.cap) or \
+            valid.dtype != torch.bool:
+        raise ValueError(
+            f"expected bool validity of shape {(spec.rows, spec.mc, spec.cap)}"
+            f", got {valid.dtype} {tuple(valid.shape)}")
+    if pos4.is_cuda:
+        _cuda.check_cuda(pos4, valid)
 
 
 # ----------------------------------------------------- plain sweep geometry
@@ -163,6 +188,39 @@ def dense_lists_half(pos4: torch.Tensor, spec, radius: float):
     _cuda.launch("lists_half", pos4, masks, counts, spec.mc, spec.cap,
                  _f32(spec.L), _f32(radius * radius))
     return counts, masks
+
+
+# ------------------------------------------------------------- K5: counts
+def counts_half_plain(pos4: torch.Tensor, spec, radius: float) -> torch.Tensor:
+    """Plain PyTorch version of ``dense_counts_half``."""
+    grid = _grid(pos4, spec)
+    r2cut = _f32(radius * radius)
+    counts = torch.zeros(grid.shape[1:], dtype=torch.int32, device=pos4.device)
+    for z in range(spec.mc):
+        for *_, hit in _layer_pairs(grid, spec, z, r2cut):
+            counts[z] += hit.sum(dim=-1, dtype=torch.int32)
+    return counts.reshape(spec.rows, spec.mc, spec.cap)
+
+
+def dense_counts_half(pos4: torch.Tensor, spec, radius: float) -> torch.Tensor:
+    """Per-slot half neighbour counts (R, mc, cap) i32 at ``radius``: each
+    unordered pair attributed once, to the own slot of the half sweep. Total
+    pairs = sum(counts * valid). Equal, bitwise, to the ``counts`` of
+    ``dense_lists_half`` and to ``mask_slot_counts`` of its masks.
+
+    Kernel: ``csrc/count_half.cu``, replacing ``_count_half_kernel`` of
+    md_neighbor_list_tpu/ops/pallas_force.py. Bound by fp32 operations (the
+    list kernel's distance tests with no mask to write); counts come from one
+    warp ballot per own slot, integers throughout (the TPU body sums f32 and
+    casts). CPU tensors take ``counts_half_plain``."""
+    _check_state(pos4, spec)
+    if not pos4.is_cuda:
+        return counts_half_plain(pos4, spec, radius)
+    counts = torch.empty((spec.rows, spec.mc, spec.cap), dtype=torch.int32,
+                         device=pos4.device)
+    _cuda.launch("count_half", pos4, counts, spec.mc, spec.cap, _f32(spec.L),
+                 _f32(radius * radius))
+    return counts
 
 
 # ------------------------------------------------------------- K3: forces
@@ -274,6 +332,146 @@ def dense_pe_virial(pos4: torch.Tensor, spec, rc: float):
     _cuda.launch("pe_virial_half", pos4, pe, vir, spec.mc, spec.cap,
                  _f32(spec.L), _f32(rc * rc), _f32(lj_shift(rc)))
     return pe, vir
+
+
+# ------------------------------------------------ full sweep: windows, K6, K7
+def make_windows(pos4: torch.Tensor, valid: torch.Tensor,
+                 spec) -> torch.Tensor:
+    """(R, 3, mc, 3cap) candidate windows: channels x, y, z; lane segments
+    [x-1 | x | x+1] of every cell row, the wrapped segments' x moved by
+    -L/+L. Slots with ``valid`` False sit on the park lattice, so validity is
+    geometry: no pair with such a slot passes any cutoff.
+
+    The input of the full sweep's plain versions. The CUDA kernels do not
+    read a window array (it would triple the bytes they move): they read the
+    state and ``valid`` and apply the shifts themselves."""
+    mc = spec.mc
+    w3 = park_positions(pos4, valid, spec)  # (3, R, mc, cap)
+    left = torch.roll(w3, 1, dims=2)  # cell x holds x-1's data
+    right = torch.roll(w3, -1, dims=2)
+    xcell = torch.arange(mc, device=pos4.device)[None, :, None]
+    fL = _f32(spec.L)
+    left[0] += torch.where(xcell == 0, -fL, 0.0).to(torch.float32)
+    right[0] += torch.where(xcell == mc - 1, fL, 0.0).to(torch.float32)
+    out = torch.cat([left, w3, right], dim=-1)  # (3, R, mc, 3cap)
+    return out.permute(1, 0, 2, 3).contiguous()
+
+
+def _full_layer_pairs(windows: torch.Tensor, spec, z: int, r2cut: float):
+    """For own z-layer ``z`` of ``windows`` (R, 3, mc, 3cap), yield per
+    neighbour row (dz, dy): (dxv, dyv, dzv, r2, hit), each
+    (mcy, mcx, cap, 3cap), d = own - partner; the self pair of the centre
+    cell is no hit."""
+    mc, cap = spec.mc, spec.cap
+    dev = windows.device
+    fL = _f32(spec.L)
+    win = windows.reshape(mc, mc, 3, mc, 3 * cap)  # (z, y, channel, x, lane)
+    own = win[z, :, :, :, cap:2 * cap]  # (mcy, 3, mcx, cap)
+    yrow = torch.arange(mc, device=dev)[:, None, None, None]
+    slot = torch.arange(cap, device=dev)[:, None]
+    lane = torch.arange(3 * cap, device=dev)[None, :]
+    not_self = lane - cap != slot  # (cap, 3cap)
+    for dz in (-1, 0, 1):
+        zsh = fL * float((z + dz) // mc)  # -L, 0 or +L
+        for dy in (-1, 0, 1):
+            nbr = torch.roll(win[(z + dz) % mc], -dy, dims=0)  # row y+dy at y
+            ysh = fL * torch.div(yrow + dy, mc, rounding_mode="floor").to(
+                torch.float32)
+            dxv = own[:, 0, :, :, None] - nbr[:, 0, :, None, :]
+            dyv = own[:, 1, :, :, None] - (nbr[:, 1, :, None, :] + ysh)
+            dzv = own[:, 2, :, :, None] - (nbr[:, 2, :, None, :] + zsh)
+            r2 = dxv * dxv + dyv * dyv + dzv * dzv
+            hit = r2 < r2cut
+            if dz == 0 and dy == 0:
+                hit = hit & not_self
+            yield dxv, dyv, dzv, r2, hit
+
+
+def forces_full_plain(pos4: torch.Tensor, valid: torch.Tensor, spec,
+                      rc: float, want_pe: bool = True):
+    """Plain PyTorch version of ``dense_forces``, one z-layer at a time over
+    ``make_windows``."""
+    mc, cap = spec.mc, spec.cap
+    windows = make_windows(pos4, valid, spec)
+    r2cut = _f32(rc * rc)
+    ushift = lj_shift(rc)
+    force = torch.zeros_like(_grid(pos4, spec))
+    pe = torch.zeros_like(force[0]) if want_pe else None
+    for z in range(mc):
+        for dxv, dyv, dzv, r2, hit in _full_layer_pairs(windows, spec, z,
+                                                        r2cut):
+            s2, s6 = _lj_terms(r2, hit)
+            f = torch.where(hit, 24.0 * s6 * (2.0 * s6 - 1.0) * s2, 0.0)
+            for c, d in enumerate((dxv, dyv, dzv)):
+                force[c, z] += (f * d).sum(dim=-1)
+            if want_pe:
+                pe[z] += torch.where(hit, 4.0 * (s6 * s6 - s6) - ushift,
+                                     0.0).sum(dim=-1)
+    shape = (spec.rows, mc, cap)
+    return (force.reshape((3,) + shape),
+            pe.reshape(shape) if want_pe else None)
+
+
+def dense_forces(pos4: torch.Tensor, valid: torch.Tensor, spec, rc: float,
+                 want_pe: bool = True):
+    """LJ forces (3, R, mc, cap) by the full symmetric sweep and, when
+    ``want_pe``, the per-slot shifted potential (R, mc, cap), else None. Every
+    pair is evaluated at both partners and nothing is reacted: total
+    PE = 0.5 * sum(pe * valid). The parity pass for ``dense_forces_half``.
+
+    Kernel: ``csrc/force_full.cu``, replacing ``_force_kernel`` of
+    md_neighbor_list_tpu/ops/pallas_force.py. Bound by fp32 operations (27*cap
+    distance tests per slot). A thread per own slot and z-group keeps its sums
+    in registers and the block adds them in a fixed order: no atomics, so the
+    result is bitwise the same from run to run. 1/r2 is an exact divide in
+    both forms. CPU tensors take ``forces_full_plain``."""
+    _check_state(pos4, spec)
+    _check_valid(valid, pos4, spec)
+    if not pos4.is_cuda:
+        return forces_full_plain(pos4, valid, spec, rc, want_pe)
+    force = torch.empty_like(pos4)
+    geom = (spec.mc, spec.cap, _f32(spec.L), _f32(rc * rc))
+    if not want_pe:
+        _cuda.launch("force_full", pos4, valid, force, *geom)
+        return force, None
+    pe = torch.empty_like(pos4[0])
+    _cuda.launch("force_full_pe", pos4, valid, force, pe, *geom,
+                 _f32(lj_shift(rc)))
+    return force, pe
+
+
+def counts_full_plain(pos4: torch.Tensor, valid: torch.Tensor, spec,
+                      radius: float) -> torch.Tensor:
+    """Plain PyTorch version of ``dense_counts``."""
+    windows = make_windows(pos4, valid, spec)
+    r2cut = _f32(radius * radius)
+    counts = torch.zeros((spec.mc,) * 3 + (spec.cap,), dtype=torch.int32,
+                         device=pos4.device)
+    for z in range(spec.mc):
+        for *_, hit in _full_layer_pairs(windows, spec, z, r2cut):
+            counts[z] += hit.sum(dim=-1, dtype=torch.int32)
+    return counts.reshape(spec.rows, spec.mc, spec.cap)
+
+
+def dense_counts(pos4: torch.Tensor, valid: torch.Tensor, spec,
+                 radius: float) -> torch.Tensor:
+    """Per-slot full neighbour counts (R, mc, cap) i32 within ``radius``,
+    each pair counted at both partners: pair count = sum(counts * valid) / 2.
+    The symmetric parity pass for the half sweep's pair count.
+
+    Kernel: ``csrc/count_full.cu``, replacing ``_count_kernel`` of
+    md_neighbor_list_tpu/ops/pallas_force.py. Bound by fp32 operations (27*cap
+    distance tests per slot); the force kernel's sweep with integer counts.
+    CPU tensors take ``counts_full_plain``."""
+    _check_state(pos4, spec)
+    _check_valid(valid, pos4, spec)
+    if not pos4.is_cuda:
+        return counts_full_plain(pos4, valid, spec, radius)
+    counts = torch.empty((spec.rows, spec.mc, spec.cap), dtype=torch.int32,
+                         device=pos4.device)
+    _cuda.launch("count_full", pos4, valid, counts, spec.mc, spec.cap,
+                 _f32(spec.L), _f32(radius * radius))
+    return counts
 
 
 def mask_slot_counts(masks: torch.Tensor, cap: int) -> torch.Tensor:

@@ -4,7 +4,9 @@ This system has no weights; its state is what weights are elsewhere. The
 functions here take exactly the arrays ``np.asarray`` gives from the JAX
 package's ``System`` / ``DenseState`` / ``DenseCarry`` (same shapes and
 dtypes: (3, R, mc, cap) f32, (R, mc, cap) i32, (N, 3) f32, (N,) i32) and
-return the port's NamedTuples on ``device``, and back. The module imports
+return the port's NamedTuples on ``device``, and back; likewise the list
+artifact ``(counts, masks)`` of ``dense_lists_half``, whose layout is the same
+in both packages, so either package's decoder reads either's masks. The module imports
 neither package's counterpart: the caller does the ``np.asarray``.
 """
 
@@ -65,3 +67,14 @@ def carry_to_numpy(carry: DenseCarry):
     order of ``carry_from_numpy``."""
     return dense_state_to_numpy(carry.state) + tuple(
         t.cpu().numpy() for t in carry[1:])
+
+
+def lists_from_numpy(counts, masks, device="cuda"):
+    """The list artifact (counts (R, mc, cap) i32, masks
+    (5, words, R, mc, 3cap) i32) as tensors on ``device``."""
+    return (_tensor(counts, torch.int32, device),
+            _tensor(masks, torch.int32, device))
+
+
+def lists_to_numpy(counts: torch.Tensor, masks: torch.Tensor):
+    return counts.cpu().numpy(), masks.cpu().numpy()

@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from md_neighbor_list_tpu_torch.ops import _cuda, dense_cells, dense_force
-from torch_port_util import CASES, RC, RS, numpy_system, torch_state
+from torch_port_util import (CASES, RC, RS, clustered_system, numpy_system,
+                             torch_state)
 
 pytestmark = pytest.mark.gpu
 
@@ -59,18 +60,76 @@ def test_kernels_match_plain_versions(card, case):
     np.testing.assert_allclose(pe4.cpu(), pe4_p.cpu(), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(vir4.cpu(), vir4_p.cpu(), rtol=1e-4, atol=1e-3)
 
+    # K5, K7: integers, bitwise; K5 is K2's count
+    valid = new.valid()
+    half = dense_force.dense_counts_half(new.pos, spec, RS)
+    assert torch.equal(half, dense_force.counts_half_plain(new.pos, spec, RS))
+    assert torch.equal(half, counts)
+    full = dense_force.dense_counts(new.pos, valid, spec, RS)
+    assert torch.equal(full, dense_force.counts_full_plain(new.pos, valid,
+                                                           spec, RS))
+    assert int(full[valid].sum()) == 2 * int(half[valid].sum())
+
+    # K6: fixed summation order: bitwise from run to run, rounding-level
+    # agreement with the plain version; against K3, the other sweep, the
+    # force-parity gate of 2e-4 of the largest component
+    ff_p, pef_p = dense_force.forces_full_plain(new.pos, valid, spec, RC, True)
+    for want_pe in (False, True):
+        ff, pef = dense_force.dense_forces(new.pos, valid, spec, RC, want_pe)
+        again, _ = dense_force.dense_forces(new.pos, valid, spec, RC, want_pe)
+        assert torch.equal(ff, again)
+        np.testing.assert_allclose(ff.cpu(), ff_p.cpu(), rtol=1e-4,
+                                   atol=2e-5 * scale)
+        np.testing.assert_allclose(ff.cpu(), f_p.cpu(), rtol=0,
+                                   atol=2e-4 * scale)
+        assert float(ff[:, ~valid].abs().sum()) == 0.0
+    np.testing.assert_allclose(pef.cpu(), pef_p.cpu(), rtol=1e-4, atol=1e-4)
+
     # each wrapper launched its kernel exactly once per call above
     after = _cuda.LAUNCHES
-    assert after["expand"] == before["expand"] + 1
-    assert after["lists_half"] == before["lists_half"] + 1
-    assert after["forces_half"] == before["forces_half"] + 1
-    assert after["forces_half_pe"] == before["forces_half_pe"] + 1
-    assert after["pe_virial_half"] == before["pe_virial_half"] + 1
+    once = ("expand", "lists_half", "forces_half", "forces_half_pe",
+            "pe_virial_half", "count_half", "count_full")
+    for name in once:
+        assert after[name] == before[name] + 1, name
+    assert after["force_full"] == before["force_full"] + 2
+    assert after["force_full_pe"] == before["force_full_pe"] + 2
+
+
+@pytest.mark.parametrize("cap", [152, 304])
+def test_kernels_take_caps_beyond_four_mask_words(card, cap):
+    """A cluster in one cell at mc = 3: the caps the growth ladder reaches
+    after 128 (5 and 10 mask words) launch and equal the plain versions."""
+    n = 700
+    pos, vel, pid = clustered_system(cap - 12, seed=13, n=n)
+    state, spec, _ = torch_state(pos, vel, pid, cap)
+    state = dense_cells.DenseState(*(t.to(card) for t in state))
+    new, _ = dense_cells.rebuild_dense(state, spec)
+    valid = new.valid()
+    assert int(valid.sum()) == n and int(valid.sum(dim=-1).max()) > 128
+    counts, masks = dense_force.dense_lists_half(new.pos, spec, RS)
+    counts_p, masks_p = dense_force.lists_half_plain(new.pos, spec, RS)
+    assert torch.equal(counts, counts_p) and torch.equal(masks, masks_p)
+    assert torch.equal(dense_force.dense_counts_half(new.pos, spec, RS),
+                       counts)
+    full = dense_force.dense_counts(new.pos, valid, spec, RS)
+    assert torch.equal(full, dense_force.counts_full_plain(new.pos, valid,
+                                                           spec, RS))
+    f_p, _ = dense_force.forces_half_plain(new.pos, spec, RC)
+    scale = max(float(f_p.abs().max()), 1.0)
+    f = dense_force.dense_forces_half(new.pos, spec, RC)[0]
+    np.testing.assert_allclose(f.cpu(), f_p.cpu(), rtol=1e-4,
+                               atol=2e-5 * scale)
+    ff = dense_force.dense_forces(new.pos, valid, spec, RC, False)[0]
+    np.testing.assert_allclose(ff.cpu(), f_p.cpu(), rtol=0, atol=2e-4 * scale)
 
 
 def test_cap_beyond_kernel_limit_raises(card):
     n = 1728
     pos, vel, pid = numpy_system(n, seed=12)
-    state, spec, _ = torch_state(pos, vel, pid, dense_force.MAX_CAP + 8)
-    with pytest.raises(ValueError):
+    state, spec, _ = torch_state(pos, vel, pid, dense_force.MAX_CAP + 3)
+    assert dense_force.MAX_CAP == 341
+    with pytest.raises(ValueError, match="341"):
         dense_force.dense_forces_half(state.pos.to(card), spec, RC)
+    with pytest.raises(ValueError, match="341"):
+        dense_force.dense_counts(state.pos.to(card), state.valid().to(card),
+                                 spec, RS)

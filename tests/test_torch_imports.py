@@ -35,13 +35,30 @@ def test_no_jax_import(path):
 def test_expected_modules_and_sources_exist():
     names = {str(p.relative_to(PORT)) for p in SOURCES[:-1]}
     for want in ("core/box.py", "core/config.py", "core/system.py",
-                 "ops/common.py", "ops/oracle.py", "ops/dense_cells.py",
-                 "ops/dense_ref.py", "ops/dense_force.py", "ops/_cuda.py",
-                 "models/dense_lj.py", "utils/convert.py", "__init__.py"):
+                 "core/capacity.py", "ops/common.py", "ops/oracle.py",
+                 "ops/dense_cells.py", "ops/dense_ref.py",
+                 "ops/dense_force.py", "ops/decode.py", "ops/_cuda.py",
+                 "models/dense_lj.py", "utils/convert.py", "utils/native.py",
+                 "api.py", "__init__.py"):
         assert want in names
-    for cu in ("geom.cuh", "expand.cu", "lists_half.cu", "force_half.cu",
-               "pe_virial_half.cu"):
-        assert (PORT / "csrc" / cu).exists()
+    for src in ("geom.cuh", "expand.cu", "lists_half.cu", "force_half.cu",
+                "pe_virial_half.cu", "count_half.cu", "force_full.cu",
+                "count_full.cu", "decode.cpp"):
+        assert (PORT / "csrc" / src).exists()
+
+
+def test_every_kernel_has_an_entry_a_counter_and_a_source():
+    from md_neighbor_list_tpu_torch.ops import _cuda
+
+    assert set(_cuda._ENTRIES) == set(_cuda.LAUNCHES) == {
+        "expand", "lists_half", "forces_half", "forces_half_pe",
+        "pe_virial_half", "count_half", "force_full", "force_full_pe",
+        "count_full"}
+    sources = "".join(p.read_text() for p in _cuda._sources()[0])
+    for name in _cuda._ENTRIES:
+        assert f"int mdnl_{name}(" in sources, name
+    # the host decoder is no CUDA source: nvcc never sees it
+    assert all(p.suffix == ".cu" for p in _cuda._sources()[0])
 
 
 def test_import_needs_no_cuda_toolchain():
@@ -52,11 +69,27 @@ def test_import_needs_no_cuda_toolchain():
         importlib.import_module(".".join(rel.parts).removesuffix(".__init__"))
     import md_neighbor_list_tpu_torch as port
 
-    assert port.__all__ == ["MDConfig", "PRESETS", "DenseSimulator"]
+    assert port.__all__ == ["MDConfig", "PRESETS", "DenseSimulator",
+                            "neighbor_list", "pair_list"]
     from md_neighbor_list_tpu_torch.ops import _cuda
 
     assert _cuda._lib is None  # nothing was built or loaded by importing
     assert set(_cuda.LAUNCHES.values()) == {0}
+
+
+def test_import_builds_no_host_decoder():
+    """``utils/native.py`` builds with g++ at first decode, not at import. A
+    fresh interpreter, since other tests of this process do decode."""
+    import subprocess
+    import sys
+
+    code = ("import md_neighbor_list_tpu_torch as p, sys\n"
+            "from md_neighbor_list_tpu_torch.ops import decode\n"
+            "from md_neighbor_list_tpu_torch.utils import native\n"
+            "assert native._lib is None\n"
+            "assert 'jax' not in sys.modules\n"
+            "assert 'md_neighbor_list_tpu' not in sys.modules\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT)
 
 
 def test_cuda_default_entry_points_raise_without_a_card():
@@ -74,6 +107,23 @@ def test_cuda_default_entry_points_raise_without_a_card():
     assert sim.device.type == "cpu"
 
 
+def test_api_runs_on_the_card_by_default_and_raises_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    import numpy as np
+
+    from md_neighbor_list_tpu_torch import neighbor_list, pair_list
+
+    pos = np.random.default_rng(0).uniform(0, 9.0, (300, 3))
+    for backend in ("auto", "dense"):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            neighbor_list(pos, 9.0, 2.8, backend=backend)
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            pair_list(pos, 9.0, 2.8, backend=backend)
+    idx, cnt = neighbor_list(pos, 9.0, 2.8, device="cpu")  # asked for
+    assert idx.device.type == "cpu" and idx.shape[0] == 300
+
+
 def test_kernel_wrappers_do_not_build_for_cpu_tensors():
     """On CPU tensors the wrappers take the plain versions and count no
     launch; without nvcc the build itself raises."""
@@ -86,6 +136,10 @@ def test_kernel_wrappers_do_not_build_for_cpu_tensors():
     dense_force.dense_lists_half(new.pos, spec, 2.8)
     dense_force.dense_forces_half(new.pos, spec, 2.5)
     dense_force.dense_pe_virial(new.pos, spec, 2.5)
+    dense_force.dense_counts_half(new.pos, spec, 2.8)
+    dense_force.dense_forces(new.pos, new.valid(), spec, 2.5)
+    dense_force.dense_forces(new.pos, new.valid(), spec, 2.5, False)
+    dense_force.dense_counts(new.pos, new.valid(), spec, 2.8)
     assert set(_cuda.LAUNCHES.values()) == {0}
     if shutil.which("nvcc") is None and not (
             pathlib.Path("/usr/local/cuda/bin/nvcc").exists()):

@@ -21,6 +21,11 @@ CASES = {"mc4_cap32": (1728, 32), "mc4_cap40": (1728, 40),
          "mc3_cap48": (700, 48)}
 RS, RC = 2.8, 2.5
 
+# The suite runs in several worker processes at once. The plain versions issue
+# many small tensor ops, and PyTorch's intra-op threads of one worker spin
+# against those of the others; one thread per worker is several times faster.
+torch.set_num_threads(1)
+
 
 def numpy_system(n: int, seed: int, jitter: float = 0.05, rho: float = 1.0):
     """Jittered simple-cubic lattice and Maxwell velocities, all numpy f32."""
@@ -36,6 +41,26 @@ def numpy_system(n: int, seed: int, jitter: float = 0.05, rho: float = 1.0):
     vel -= vel.mean(axis=0, keepdims=True)
     return ((pos % L).astype(np.float32), vel.astype(np.float32),
             np.arange(n, dtype=np.int32))
+
+
+def clustered_system(k: int, seed: int, n: int = 700, rs: float = RS):
+    """``numpy_system(n)`` (mc = 3 at n = 700) with ``k`` particles moved
+    onto a fine jittered lattice inside cell (0, 0, 0) and nobody else left
+    in that cell: one cell holds exactly ``k``, pairs stay apart."""
+    pos, vel, pid = numpy_system(n, seed)
+    L = float(n) ** (1.0 / 3.0)
+    cell = L / int(L / rs)
+    inside = np.all(pos < cell, axis=1)
+    assert k >= inside.sum()
+    movers = np.concatenate([np.nonzero(inside)[0],
+                             np.nonzero(~inside)[0][:k - inside.sum()]])
+    m = math.ceil(k ** (1.0 / 3.0))
+    idx = np.arange(k)
+    fine = np.stack([idx % m, (idx // m) % m, idx // (m * m)], -1)
+    rng = np.random.default_rng(seed + 1)
+    pos[movers] = (0.15 + (fine + 0.5) * ((cell - 0.3) / m)
+                   + rng.uniform(-0.02, 0.02, (k, 3))).astype(np.float32)
+    return pos, vel, pid
 
 
 def jax_state(pos, vel, pid, cap, rs=RS, rho=1.0):
