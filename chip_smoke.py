@@ -5,9 +5,10 @@
 
 Builds the CUDA kernels from ``md_neighbor_list_tpu_torch/csrc``, holds each
 against its plain PyTorch version (at small shapes that exercise wrap-around,
-cell capacities from 28 to 304, overflow and cleared validity, then at the
-full N = 1,000,000 size), and drives two paths through the entry points a user
-calls, each with the launch counters set to 0 just before and read just after:
+cell capacities from 28 to 480 — beyond 341 the sweep kernels' lane-strided
+forms —, overflow and cleared validity, then at the full N = 1,000,000 size),
+and drives three paths through the entry points a user calls, each with the
+launch counters set to 0 just before and read just after:
 
   main_path      the dense LJ engine (init -> list build -> NVE steps ->
                  observables) through ``DenseSimulator``;
@@ -15,12 +16,22 @@ calls, each with the launch counters set to 0 just before and read just after:
                  list kernel, host decode, built here with g++), held against
                  the half and full count kernels and a brute-force search of
                  1,000 sampled rows, then the full-sweep parity passes
-                 (counts, forces, energy) of the lattice start.
+                 (counts, forces, energy) of the lattice start, and one
+                 ``neighbor_list`` call on a clustered input that needs
+                 cap > 341, against a brute-force search of every row;
+  incremental    ``DenseSimulator(incremental=True)``: the lattice start (its
+                 from_packed seed trips the mover window, so the engine takes
+                 the full rebuild), 1000 NVE steps whose rebuilds go through
+                 the merge kernel, and the list build through the incremental
+                 rebuild. Before it, at N = 1,000,000: the merge kernel
+                 against its plain version, the incremental rebuild against
+                 its order-exact twin and against the full rebuild.
 
 Each phase prints one JSON line; any failure ends the run with a non-zero exit
 code. Without a CUDA device the script fails at once. ``--profile`` adds a
-``torch.profiler`` breakdown by device kernel of 50 steps and of one
-``neighbor_list`` call (information only).
+``torch.profiler`` breakdown by device kernel of 50 steps of each engine, of
+one ``neighbor_list`` call and of ten incremental and ten full rebuilds
+(information only).
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -39,9 +50,10 @@ import torch
 from md_neighbor_list_tpu_torch import (PRESETS, DenseSimulator, MDConfig,
                                         neighbor_list, pair_list)
 from md_neighbor_list_tpu_torch.core.box import Box
-from md_neighbor_list_tpu_torch.core.system import System
+from md_neighbor_list_tpu_torch.core.system import System, init_lattice
 from md_neighbor_list_tpu_torch.ops import (_cuda, decode, dense_cells,
-                                            dense_force, dense_ref, oracle)
+                                            dense_force, dense_ref,
+                                            incremental, oracle)
 from md_neighbor_list_tpu_torch.utils import native
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): device memory and fp32
@@ -287,10 +299,11 @@ def compare_full_sweep(pos, valid, spec, cfg, label: str, f_half=None) -> dict:
 
 
 def small_shapes(device) -> None:
-    """Wrap-around (mc = 3), one to ten mask words (cap = 152 and 304 with a
-    cluster in one cell: the caps the growth ladder reaches beyond 128), an
-    overflowing cell, validity cleared on in-box slots, and the port on the
-    card against the O(N^2) oracle."""
+    """Wrap-around (mc = 3), one to fifteen mask words (cap = 152, 304, 384
+    and 480 with a cluster in one cell: the caps the growth ladder reaches
+    beyond 128; above 341 the lane-strided kernels), an overflowing cell,
+    validity cleared on in-box slots, and the port on the card against the
+    O(N^2) oracle."""
     cases = []
     for n, rho, cap, jitter, cluster, label in (
             (1728, 1.0, 32, 0.1, 0, "mc4_cap32"),
@@ -298,6 +311,8 @@ def small_shapes(device) -> None:
             (700, 1.0, 56, 0.25, 0, "mc3_cap56"),
             (700, 1.0, 152, 0.1, 140, "mc3_cap152_cluster"),
             (700, 1.0, 304, 0.1, 292, "mc3_cap304_cluster"),
+            (700, 1.0, 384, 0.1, 372, "mc3_cap384_cluster"),
+            (700, 1.0, 480, 0.1, 468, "mc3_cap480_cluster"),
             (1728, 1.0, 28, 0.6, 0, "mc4_cap28_overflow")):
         cfg = MDConfig(n=n, rho=rho)
         system, box = jittered_system(n, rho, seed=n + cap, jitter=jitter,
@@ -438,7 +453,13 @@ SOURCES = {
                       "md_neighbor_list_tpu/ops/pallas_force.py:185"),
     "count_full": ("md_neighbor_list_tpu_torch/csrc/count_full.cu",
                    "md_neighbor_list_tpu/ops/pallas_force.py:230"),
+    "merge": ("md_neighbor_list_tpu_torch/csrc/merge.cu",
+              "md_neighbor_list_tpu/ops/incremental.py:127"),
 }
+# K1b: the blocked, fuse_keys and split_dma forms of the expand are TPU
+# layouts of K1's function; the port maps them onto K1, so K1's row names them
+ALSO_REPLACES = {"expand": ["md_neighbor_list_tpu/ops/dense_cells.py:358",
+                            "md_neighbor_list_tpu/ops/dense_cells.py:709"]}
 
 
 def full_width(sim: DenseSimulator) -> list[dict]:
@@ -496,6 +517,8 @@ def full_width(sim: DenseSimulator) -> list[dict]:
             # no single PyTorch call computes any of these functions
             "library_ms": None,
         })
+        if name in ALSO_REPLACES:
+            rows[-1]["also_replaces"] = ALSO_REPLACES[name]
     emit("kernels_full_width", n=cfg.n, mc=spec.mc, cap=spec.cap,
          slots=spec.slots, hits_rc=hits, launches_so_far=dict(_cuda.LAUNCHES),
          bounds=bound, kernels=rows)
@@ -721,6 +744,7 @@ def list_delivery(sim: DenseSimulator) -> dict:
           f"list_delivery: lattice start has {k7_total} / 2 pairs by the "
           f"full sweep, {k2_total} by the list kernel, want 40000000")
 
+    clustered = clustered_neighbor_list(dev)
     launches = dict(_cuda.LAUNCHES)
     emit("list_delivery", n=n, cap=spec.cap, pairs=half_total,
          full_sweep_count=full_total, pairs_in_cutoff_band=in_band,
@@ -731,7 +755,7 @@ def list_delivery(sim: DenseSimulator) -> dict:
                   "masks_to_host": t_copy, "native_decode_half": t_decode},
          mask_bytes=masks_h.nbytes, force_err_half_vs_full_sweep=f_err,
          pe_half_sweep=pe_half, pe_full_sweep=pe_full,
-         lattice_pairs=k7_total // 2)
+         lattice_pairs=k7_total // 2, clustered=clustered)
     need = {"expand": 4, "lists_half": 4, "count_half": 1, "count_full": 2,
             "force_full": 1, "force_full_pe": 1}
     for name, least in need.items():
@@ -741,6 +765,182 @@ def list_delivery(sim: DenseSimulator) -> dict:
     emit("launches", path="list_delivery", launches=launches,
          expected_at_least=need)
     return launches
+
+
+CLUSTER_N, CLUSTER_K = 8000, 400  # L = 20, mc = 7; 400 in one cell
+
+
+def clustered_neighbor_list(dev) -> dict:
+    """One ``neighbor_list`` call on an input with 400 particles in one cell,
+    so the API grows cap from 40 to 480 and the list kernel runs its
+    lane-strided form; every full row against a brute-force search."""
+    system, box = jittered_system(CLUSTER_N, 1.0, seed=17, jitter=0.1,
+                                  device=dev, cluster=CLUSTER_K)
+    n, rs = CLUSTER_N, MDConfig(n=CLUSTER_N).rs
+    spec40 = dense_cells.make_spec(box, rs, 40)
+    t0 = time.perf_counter()
+    idx, cnt = neighbor_list(system.pos, box.L, rs, half=False,
+                             backend="dense")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want, near = brute_force_rows(system.pos, box.L, rs,
+                                  torch.arange(n, device=dev), chunk=500)
+    got = torch.zeros((n, n + 1), dtype=torch.bool, device=dev)
+    got.scatter_(1, idx.long(), True)
+    differ = got[:, :n] ^ want
+    check(int((differ & ~near).sum()) == 0,
+          f"clustered neighbor_list: {int(differ.sum())} entries differ from "
+          "the brute force, some outside the cutoff band")
+    check(bool((got[:, :n].sum(dim=1) == cnt).all()),
+          "clustered neighbor_list: a row repeats a neighbour")
+    # the cap the call had to reach: the growth ladder from 40 up to the
+    # largest cell of this input
+    mc = spec40.mc
+    cells = torch.clamp(torch.floor(system.pos / spec40.cell_size).long(), 0,
+                        mc - 1)
+    most = int(torch.bincount(cells[:, 0] + mc * (cells[:, 1] + mc
+                                                   * cells[:, 2])).max())
+    cap = 40
+    while cap < most:
+        cap = dense_cells.grow_cap(cap)
+    check(most >= CLUSTER_K and cap > 341,
+          f"clustered neighbor_list: largest cell {most}, cap {cap}: the "
+          "input does not need cap > 341")
+    return {"n": n, "largest_cell": most, "cap": cap,
+            "mask_words": dense_force.mask_words(cap),
+            "pairs_full_rows": int(cnt.sum()), "k": idx.shape[1],
+            "entries_in_cutoff_band": int(differ.sum()), "seconds": seconds}
+
+
+# ------------------------------------------------------------ incremental
+def drifted_state(sim: DenseSimulator, state):
+    """``state`` drifted ballistically so that the largest displacement is
+    skin/2: the state a rebuild sees when the displacement vote fires."""
+    v2 = torch.sum(state.vel * state.vel, dim=0)
+    tau = 0.5 * sim.config.skin / torch.sqrt(torch.max(v2))
+    return state._replace(pos=state.pos + tau * state.vel)
+
+
+def per_cell_sets(pid: torch.Tensor, spec) -> torch.Tensor:
+    """Each cell's pids in ascending order, empty slots last."""
+    rows = pid.reshape(spec.ncells, spec.cap).to(torch.int64)
+    return torch.sort(torch.where(rows >= 0, rows, 1 << 40), dim=1).values
+
+
+def incremental_kernels(sim: DenseSimulator, state) -> tuple[dict, dict]:
+    """At N = 1M, on ``state`` (the incremental run's last state) drifted by
+    skin/2: K8 bitwise against its plain version, the incremental rebuild
+    bitwise against its twin and as the same partition per cell as the full
+    rebuild; and the window predicate tripped by a from_packed seed. Returns
+    (the K8 row of the kernels line, numbers for the phase)."""
+    cfg, spec, dev = sim.config, sim.spec, sim.device
+    system, _ = init_lattice(cfg.n, cfg.rho,
+                             torch.Generator(dev).manual_seed(5),
+                             cfg.temperature, dev)
+    seed = dense_cells.from_packed(system.pos, system.vel, system.pid, spec)
+    _, seed_overflow = incremental.rebuild_dense_incremental(seed, spec)
+    check(bool(seed_overflow), "incremental: a from_packed seed did not trip "
+          "the mover window")
+    del seed, system
+    state = drifted_state(sim, state)
+
+    args, row_start = incremental.merge_inputs(state, spec)
+    movers_n = int((args[2].pid >= 0).sum())
+    check(0 < movers_n < cfg.n // 2,
+          f"incremental: {movers_n} movers after a skin/2 drift")
+    got = incremental.merge(*args, spec)
+    torch.cuda.synchronize()
+    want = incremental.merge_plain(*args, spec)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "incremental: the merge kernel differs from its plain version")
+    new, overflow = incremental.rebuild_dense_incremental(state, spec)
+    check(not bool(overflow) and not bool(incremental.window_overflow(
+        row_start)), "incremental: a skin/2 drift tripped the mover window")
+    twin = incremental.rebuild_reference_incremental(state, spec)
+    check(all(torch.equal(a, b) for a, b in zip(new, twin)),
+          "incremental: the rebuild differs from its order-exact twin")
+    full, _ = dense_cells.rebuild_dense(state, spec)
+    kept = int(new.valid().sum())
+    check(kept == cfg.n, f"incremental: {kept} particles kept of {cfg.n}")
+    check(torch.equal(per_cell_sets(new.pid, spec),
+                      per_cell_sets(full.pid, spec)),
+          "incremental: not the same partition per cell as the full rebuild")
+
+    S = spec.slots
+    stayers_n = int((args[1] >= 0).sum())
+    # read: each slot's stayer pid (a stayer's pid is not read again), each
+    # particle's pos and vel once from the side it comes from, each mover's
+    # pid and one end-of-movers pid per cell; written: each slot once
+    nbytes = (S * 4 + (stayers_n + movers_n) * 24 + movers_n * 4
+              + spec.ncells * 4 + S * 28)
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    row = {"name": "merge", "route": "cuda", "source": SOURCES["merge"][0],
+           "replaces": SOURCES["merge"][1], "launches": None,
+           "max_abs_err": 0.0,
+           "ms": time_ms(lambda: incremental.merge(*args, spec), 20),
+           "plain_ms": time_ms(lambda: incremental.merge_plain(*args, spec),
+                               3),
+           "bound_ms": bound, "bound_by": "bytes",
+           # no PyTorch call merges two slot arrays per cell
+           "library_ms": None}
+    numbers = {"movers": movers_n, "mover_share": movers_n / cfg.n,
+               "stayers": stayers_n,
+               "merge_bytes": nbytes,
+               "merge_bytes_all_slots": 21 * 4 * S,
+               "keys_sort_expand_movers_ms": time_ms(
+                   lambda: incremental.merge_inputs(state, spec), 10),
+               "rebuild_incremental_ms": time_ms(
+                   lambda: incremental.rebuild_dense_incremental(state, spec),
+                   10),
+               "rebuild_full_ms": time_ms(
+                   lambda: dense_cells.rebuild_dense(state, spec), 10)}
+    return row, numbers
+
+
+def incremental_path(sim: DenseSimulator):
+    """``DenseSimulator(incremental=True)``: init, 1000 NVE steps, energies,
+    and the list build through the incremental rebuild. Returns the launch
+    counts of this path and the last carry."""
+    cfg = sim.config
+    _cuda.reset_launches()
+    carry = sim.init()
+    check(sim.full_fallbacks == 1 and sim.incremental_rebuilds == 0,
+          "incremental: the lattice seed did not take the full rebuild")
+    ke0, pe0 = (float(x) for x in sim.energies(carry))
+    e0 = ke0 + pe0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry = sim.run(carry, cfg.steps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    ke1, pe1 = (float(x) for x in sim.energies(carry))
+    drift = abs((ke1 + pe1) - e0) / abs(e0)
+    kept = int(carry.state.valid().sum())
+    rebuilds = int(carry.n_rebuilds)
+    launches = dict(_cuda.LAUNCHES)  # read before anything else launches
+    taken = (sim.incremental_rebuilds, sim.full_fallbacks)
+
+    check(math.isfinite(e0) and math.isfinite(ke1 + pe1),
+          "incremental: energies not finite")
+    check(drift <= 1e-4, f"incremental: |dE/E| = {drift} > 1e-4")
+    check(kept == cfg.n, f"incremental: {kept} particles kept of {cfg.n}")
+    check(launches["merge"] > 0 and taken[0] > 0,
+          "incremental: the merge kernel was not launched on the path")
+    build_ms = chained_builds_ms(sim, carry.state)
+    emit("incremental", n=cfg.n, cap=sim.spec.cap, steps=cfg.steps,
+         energy_drift=drift, e0=e0, e1=ke1 + pe1, n_rebuilds=rebuilds,
+         kept=kept, steps_per_s=cfg.steps / run_s, build_ms=build_ms,
+         incremental_rebuilds=taken[0], full_fallbacks=taken[1],
+         chained_builds_incremental=sim.incremental_rebuilds - taken[0])
+    need = {"merge": rebuilds - 1, "expand": rebuilds + taken[1],
+            "forces_half": cfg.steps + 1}
+    for name, least in need.items():
+        check(launches[name] >= least,
+              f"launches: {name} launched {launches[name]} times on the "
+              f"incremental path, expected at least {least}")
+    emit("launches", path="incremental", launches=launches,
+         expected_at_least=need)
+    return launches, carry
 
 
 def traced(fn) -> tuple[float, list]:
@@ -760,12 +960,12 @@ def traced(fn) -> tuple[float, list]:
     return wall_ms, sorted(rows, key=lambda r: -r[1])
 
 
-def profile_paths(sim: DenseSimulator, carry, steps: int = 50) -> None:
-    """Device time of ``steps`` NVE steps by kernel, and of one
-    ``neighbor_list`` call at full width, each with the device's busy share
-    of the traced window (tracing slows the host side down, so the share in
-    an untraced run is higher: compare ``device_busy_ms / steps`` with the
-    main path's time per step)."""
+def profile_steps(sim: DenseSimulator, carry, path: str,
+                  steps: int = 50) -> None:
+    """Device time of ``steps`` NVE steps by kernel, with the device's busy
+    share of the traced window (tracing slows the host side down, so the
+    share in an untraced run is higher: compare ``device_busy_ms / steps``
+    with the path's time per step)."""
     at = [carry]  # the steps update the carry's tensors in place
 
     def advance(nsteps: int) -> None:
@@ -775,12 +975,16 @@ def profile_paths(sim: DenseSimulator, carry, steps: int = 50) -> None:
     before = int(at[0].n_rebuilds)
     wall_ms, rows = traced(lambda: advance(steps))
     busy_ms = sum(r[1] for r in rows)
-    emit("profile", steps=steps, wall_ms=wall_ms, device_busy_ms=busy_ms,
-         device_busy_share=busy_ms / wall_ms,
+    emit("profile", path=path, steps=steps, wall_ms=wall_ms,
+         device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
          rebuilds=int(at[0].n_rebuilds) - before,
          kernels=[{"name": k[:70], "ms": ms, "calls": c}
                   for k, ms, c in rows[:14]])
 
+
+def profile_neighbor_list(sim: DenseSimulator) -> None:
+    """Device time by kernel of one ``neighbor_list`` call at full width,
+    with the device's busy share of the call."""
     cfg = sim.config
     pos, box = caller_positions(sim)
     wall_ms, rows = traced(lambda: neighbor_list(
@@ -790,6 +994,24 @@ def profile_paths(sim: DenseSimulator, carry, steps: int = 50) -> None:
          device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
          kernels=[{"name": k[:70], "ms": ms, "calls": c}
                   for k, ms, c in rows[:8]])
+
+
+def profile_rebuilds(sim: DenseSimulator, state, reps: int = 10) -> None:
+    """Device time by kernel of ``reps`` incremental and ``reps`` full
+    rebuilds of one skin/2-drifted state, with the device's busy share and
+    the device operations per rebuild: what bounds a rebuild."""
+    runs = (("incremental",
+             lambda: incremental.rebuild_dense_incremental(state, sim.spec)),
+            ("full", lambda: dense_cells.rebuild_dense(state, sim.spec)))
+    for path, fn in runs:
+        traced(fn)  # the first trace pays the set-up
+        wall_ms, rows = traced(lambda: [fn() for _ in range(reps)])
+        busy_ms = sum(r[1] for r in rows)
+        emit("profile_rebuild", path=path, reps=reps, wall_ms=wall_ms,
+             device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+             device_ops_per_rebuild=sum(r[2] for r in rows) / reps,
+             kernels=[{"name": k[:70], "ms": ms, "calls": c}
+                      for k, ms, c in rows[:8]])
 
 
 def main() -> int:
@@ -811,7 +1033,8 @@ def main() -> int:
     emit("build", seconds=t_kernels,
          decoder_seconds=time.perf_counter() - t0 - t_kernels,
          ptxas=[line for text in _cuda.build_log for line in text.splitlines()
-                if "registers" in line or "error" in line.lower()])
+                if "registers" in line or "entry function" in line
+                or "spill" in line or "error" in line.lower()])
 
     device = torch.device("cuda")
     small_shapes(device)
@@ -820,15 +1043,28 @@ def main() -> int:
     sim = DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device)
     launches, carry = main_path(sim)
     if "--profile" in sys.argv[1:]:
-        profile_paths(sim, carry)
+        profile_steps(sim, carry, "main_path")
+        profile_neighbor_list(sim)
     del carry
     delivery = list_delivery(
         DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device))
-    for row in rows:  # launches on the two driven paths, and their sum
-        name = row["name"]
-        row["launches"] = launches[name] + delivery[name]
-        row["launches_by_path"] = {"main_path": launches[name],
-                                   "list_delivery": delivery[name]}
+    sim = DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device,
+                         incremental=True)
+    inc, carry = incremental_path(sim)
+    row_k8, numbers = incremental_kernels(sim, carry.state)
+    if "--profile" in sys.argv[1:]:
+        profile_rebuilds(sim, drifted_state(sim, carry.state))
+        profile_steps(sim, carry, "incremental")
+    del carry
+    emit("incremental_kernels", n=sim.config.n, cap=sim.spec.cap,
+         kernels=[row_k8], **numbers)
+    rows.append(row_k8)
+    by_path = {"main_path": launches, "list_delivery": delivery,
+               "incremental": inc}
+    for row in rows:  # launches on the three driven paths, and their sum
+        row["launches_by_path"] = {p: c[row["name"]]
+                                   for p, c in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi.splitlines()[0], flush=True)
     print(json.dumps({"ok": True, "device": {

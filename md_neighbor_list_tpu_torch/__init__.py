@@ -5,7 +5,9 @@ engine whose hot kernels are hand-written CUDA for NVIDIA Hopper.
 Ported so far: the dense LJ engine (build -> lists -> NVE steps) with its
 expand, half-list, half-force and pe/virial kernels; the one-call
 ``neighbor_list`` / ``pair_list`` API over it with the host-side mask decode;
-and the half-count and full-sweep force and count kernels (parity passes). The module layout mirrors
+the half-count and full-sweep force and count kernels (parity passes); and the
+incremental rebuild (``DenseSimulator(incremental=True)``) with its merge
+kernel. The module layout mirrors
 the JAX package (``core/``, ``ops/``, ``models/``, ``utils/``), so a module's
 counterpart is found by its path; ``ops/dense_force.py`` stands for
 ``ops/pallas_force.py``. The two packages share no code.

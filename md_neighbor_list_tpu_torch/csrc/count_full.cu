@@ -14,6 +14,13 @@
 // are added at the end. The self pair is excluded on the centre cell's
 // diagonal only.
 //
+// Above cap = kLaneCap the `_strided` kernel takes over, as in force_full.cu:
+// a thread per own slot (i, i + blockDim, ...), the nine rows staged one at a
+// time, each slot's count kept in shared memory by the thread that serves it.
+// One body for every cap (the 27-row staging with a strided (z-group, slot)
+// loop) ran 3-5 % slower at cap = 40 (NVIDIA H100 80GB HBM3 at 700 W,
+// tools/port_ab.py), hence two.
+//
 // Bound: operations (27*cap distance tests per slot) against 13 bytes read
 // and 4 written per slot.
 #include "geom.cuh"
@@ -63,13 +70,66 @@ count_full_kernel(const float* __restrict__ pos,
   if (t < cap) counts[own] = part[t] + part[cap + t] + part[2 * cap + t];
 }
 
+__global__ void MDNL_STRIDED_BOUND
+count_full_kernel_strided(const float* __restrict__ pos,
+                          const unsigned char* __restrict__ valid,
+                          int* __restrict__ counts, int mc, int cap, float L,
+                          float r2cut) {
+  extern __shared__ float smem[];
+  const int W = 3 * cap;
+  float* sx = smem;  // one staged row
+  float* sy = sx + W;
+  float* sz = sy + W;
+  float* ox = sz + W;  // own positions
+  float* oy = ox + cap;
+  float* oz = oy + cap;
+  int* acc = (int*)(oz + cap);  // [cap]
+  const CellId c = cell_of_block(blockIdx.x, mc);
+  const size_t S = (size_t)mc * mc * mc * cap;
+  const size_t cell0 = (size_t)c.cell * cap;
+  load_own(pos, S, cap, c.cell, ox, oy, oz);
+  for (int i = threadIdx.x; i < cap; i += blockDim.x) acc[i] = 0;
+
+  for (int dy = -1; dy <= 1; ++dy) {
+    for (int g = 0; g < 3; ++g) {
+      __syncthreads();  // the previous row has been swept
+      stage_row_full(pos, valid, S, mc, cap, L, c, g - 1, dy, sx, sy, sz);
+      __syncthreads();
+      for (int i = threadIdx.x; i < cap; i += blockDim.x) {
+        if (!valid[cell0 + i]) continue;
+        const int self = self_lane(g, dy, i, cap);
+        int cnt = 0;
+        for (int l = 0; l < W; ++l) {
+          float dx, dyv, dz;
+          const float r2 =
+              pair_r2(ox[i], oy[i], oz[i], sx[l], sy[l], sz[l], dx, dyv, dz);
+          cnt += (r2 < r2cut && l != self) ? 1 : 0;
+        }
+        acc[i] += cnt;
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < cap; i += blockDim.x) counts[cell0 + i] = acc[i];
+}
+
 }  // namespace mdnl
 
 extern "C" int mdnl_count_full(const void* pos, const void* valid,
                                void* counts, int mc, int cap, float L,
                                float r2cut, void* stream) {
   using namespace mdnl;
-  if (cap < 1 || cap > kMaxCap) return (int)cudaErrorInvalidValue;
+  if (cap < 1) return (int)cudaErrorInvalidValue;
+  if (cap > kLaneCap) {
+    const size_t smem = (size_t)cap * 13 * sizeof(float);
+    const cudaError_t err = fit_shared(count_full_kernel_strided, smem);
+    if (err != cudaSuccess) return (int)err;
+    count_full_kernel_strided<<<mc * mc * mc, kStridedThreads, smem,
+                                (cudaStream_t)stream>>>(
+        (const float*)pos, (const unsigned char*)valid, (int*)counts, mc, cap,
+        L, r2cut);
+    return (int)cudaGetLastError();
+  }
   const int threads = round_up32(3 * cap);
   const size_t smem = (size_t)cap * 27 * sizeof(float);
   count_full_kernel<<<mc * mc * mc, threads, smem, (cudaStream_t)stream>>>(

@@ -21,9 +21,15 @@
 
 namespace mdnl {
 
-// Slots per cell the kernels take: a block has one thread per window lane,
-// 3*cap <= 1024 threads.
-constexpr int kMaxCap = 341;
+// Slots per cell up to which a block has one thread per window lane,
+// 3*cap <= 1024 threads. Above it every sweep kernel launches its
+// lane-strided form: blocks of kStridedThreads threads, each serving window
+// lanes (or own slots) t, t + blockDim, ..., so any cap runs whose shared
+// memory fits a block (`fit_shared`, 227 KB): the list and half-count
+// kernels take the most, 76 bytes a slot, so every kernel runs up to 3,058
+// slots per cell (the full-sweep kernels up to 3,632, the others beyond).
+constexpr int kLaneCap = 341;
+constexpr int kStridedThreads = 512;
 // Blocks of up to 1024 threads need a launch bound (64 registers a thread).
 // The list and full-sweep kernels carry it at every cap. The half-force,
 // pe/virial and half-count kernels are compiled in two forms over one body:
@@ -39,6 +45,17 @@ constexpr int kNarrowCap = 128;
 #define MDNL_NARROW __launch_bounds__(MDNL_NARROW_BOUND)
 #endif
 #define MDNL_BLOCK_BOUND __launch_bounds__(1024)
+#define MDNL_STRIDED_BOUND __launch_bounds__(kStridedThreads)
+
+// Allow `kernel` the dynamic shared memory `bytes`: above 48 KB a block may
+// take it only after this opt-in, up to 227 KB (beyond, the call fails and
+// the launch is not made).
+template <typename Kernel>
+inline cudaError_t fit_shared(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
 
 struct CellId {
   int z, y, x, row, cell;
@@ -151,6 +168,21 @@ __device__ __forceinline__ void stage_rows_full(
     sx[e] = valid[idx] ? xj : __int_as_float(0x7f800000);
     sy[e] = yj;
     sz[e] = zj;
+  }
+}
+
+// Stage one row (dz, dy) of the full sweep: sx/sy/sz hold 3*cap floats. The
+// lane-strided full-sweep kernels stage the nine rows one at a time.
+__device__ __forceinline__ void stage_row_full(
+    const float* __restrict__ pos, const unsigned char* __restrict__ valid,
+    size_t S, int mc, int cap, float L, const CellId& c, int dz, int dy,
+    float* sx, float* sy, float* sz) {
+  for (int l = threadIdx.x; l < 3 * cap; l += blockDim.x) {
+    float xj, yj, zj;
+    const int idx = load_partner_at(pos, S, mc, cap, L, c, dz, dy, l, xj, yj, zj);
+    sx[l] = valid[idx] ? xj : __int_as_float(0x7f800000);
+    sy[l] = yj;
+    sz[l] = zj;
   }
 }
 

@@ -21,6 +21,16 @@
 // above, the W = 11 form serves every word count up to the 11 of cap = 341
 // and takes the real count at run time.
 //
+// Above cap = kLaneCap (3*cap > 1024, 11 or more words) the `_strided` kernel
+// takes over: blocks of kStridedThreads threads walk the window in chunks of
+// blockDim lanes, and for each lane the own slots in chunks of kChunkWords
+// words (the W = 11 registers), writing each chunk's words before the next.
+// The counts then live in shared memory, one counter per warp and own slot
+// that only lane (i % 32) of that warp touches, as in the half-count kernel.
+// One body for every cap (both chunk loops, counts in shared memory) ran 4-6 %
+// slower at cap = 40 (NVIDIA H100 80GB HBM3 at 700 W, tools/port_ab.py),
+// hence two.
+//
 // Bound: the mask write, 5*words*3 words per slot against 3 floats read; the
 // ~15*cap distance tests per slot (9 flops each) come second on this card.
 // Mask stores run along l and coalesce.
@@ -96,15 +106,91 @@ lists_half_kernel(const float* __restrict__ pos, int* __restrict__ masks,
   }
 }
 
+constexpr int kChunkWords = 11;
+
+__global__ void MDNL_STRIDED_BOUND
+lists_half_kernel_strided(const float* __restrict__ pos,
+                          int* __restrict__ masks, int* __restrict__ counts,
+                          int mc, int cap, float L, float r2cut) {
+  const int words = (cap + 31) / 32;
+  const int warps = blockDim.x >> 5;
+  extern __shared__ float smem[];
+  float* sx = smem;
+  float* sy = sx + cap;
+  float* sz = sy + cap;
+  int* scnt = (int*)(sz + cap);  // [warps][cap]
+  const CellId c = cell_of_block(blockIdx.x, mc);
+  const size_t R = (size_t)mc * mc;
+  const size_t S = R * mc * cap;
+  load_own(pos, S, cap, c.cell, sx, sy, sz);
+  for (int e = threadIdx.x; e < warps * cap; e += blockDim.x) scnt[e] = 0;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  int* mine = scnt + (threadIdx.x >> 5) * cap;
+  for (int base = 0; base < 3 * cap; base += blockDim.x) {  // block-uniform
+    const int l = base + threadIdx.x;
+    const bool active = l < 3 * cap;
+    for (int k = 0; k < 5; ++k) {
+      float xj = 0.f, yj = 0.f, zj = 0.f;
+      if (active) load_partner(pos, S, mc, cap, L, c, k, l, xj, yj, zj);
+      for (int w0 = 0; w0 < words; w0 += kChunkWords) {
+        uint32_t bits[kChunkWords];
+#pragma unroll
+        for (int w = 0; w < kChunkWords; ++w) {
+          bits[w] = 0u;
+          const int n = min(32, cap - 32 * (w0 + w));  // <= 0 past the end
+          for (int b = 0; b < n; ++b) {
+            const int i = 32 * (w0 + w) + b;
+            float dx, dy, dz;
+            const float r2 = pair_r2(sx[i], sy[i], sz[i], xj, yj, zj, dx, dy, dz);
+            const bool hit = active && half_keep(k, l, i, cap) && r2 < r2cut;
+            const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+            if (lane == b) mine[i] += __popc(ballot);
+            bits[w] |= (uint32_t)hit << b;
+          }
+        }
+        if (active) {
+#pragma unroll
+          for (int w = 0; w < kChunkWords; ++w) {
+            if (w0 + w < words) {
+              const size_t o =
+                  ((((size_t)k * words + w0 + w) * R + c.row) * mc + c.x) *
+                      (3 * cap) + l;
+              masks[o] = (int)bits[w];
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < cap; i += blockDim.x) {
+    int total = 0;
+    for (int w = 0; w < warps; ++w) total += scnt[w * cap + i];
+    counts[(size_t)c.cell * cap + i] = total;
+  }
+}
+
 }  // namespace mdnl
 
 extern "C" int mdnl_lists_half(const void* pos, void* masks, void* counts,
                                int mc, int cap, float L, float r2cut,
                                void* stream) {
   using namespace mdnl;
-  if (cap < 1 || cap > kMaxCap) return (int)cudaErrorInvalidValue;
-  const int threads = round_up32(3 * cap);
+  if (cap < 1) return (int)cudaErrorInvalidValue;
   const int blocks = mc * mc * mc;
+  if (cap > kLaneCap) {
+    const size_t smem = (size_t)cap * (3 * sizeof(float) +
+                                       (kStridedThreads / 32) * sizeof(int));
+    const cudaError_t err = fit_shared(lists_half_kernel_strided, smem);
+    if (err != cudaSuccess) return (int)err;
+    lists_half_kernel_strided<<<blocks, kStridedThreads, smem,
+                                (cudaStream_t)stream>>>(
+        (const float*)pos, (int*)masks, (int*)counts, mc, cap, L, r2cut);
+    return (int)cudaGetLastError();
+  }
+  const int threads = round_up32(3 * cap);
   const size_t smem = (size_t)cap * (3 * sizeof(float) + (threads / 32) * sizeof(int));
   const int words = (cap + 31) / 32;
   auto kernel = lists_half_kernel<11>;  // 5..11 words, cap <= 341

@@ -22,6 +22,13 @@ Which implementation runs is decided by the device alone: tensors on a CUDA
 device go through the CUDA kernels, tensors on the CPU through their plain
 versions. The default device is the card; ``device="cpu"`` is for the caller
 to ask for.
+
+``incremental=True`` sends every rebuild through the incremental rebuild
+(``ops/incremental.py``: only the particles that changed cell are sorted and
+merged in by the K8 kernel), and through the full rebuild when the mover
+stream trips the JAX package's window predicate. The branch costs one host
+read per rebuild. Unlike the JAX package, whose ``"jnp"`` engine ignores the
+flag, the port honours it on the CPU too, where it runs the plain versions.
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ from md_neighbor_list_tpu_torch.ops.dense_cells import (DenseState,
                                                         make_spec,
                                                         rebuild_dense,
                                                         to_packed)
+from md_neighbor_list_tpu_torch.ops.incremental import \
+    rebuild_dense_incremental
 
 
 class DenseCarry(NamedTuple):
@@ -61,8 +70,14 @@ def _clone(carry: DenseCarry) -> DenseCarry:
 class DenseSimulator:
     """LJ/NVE on the dense cell layout, on ``device`` (default: the card)."""
 
-    def __init__(self, config: MDConfig, cap: int = 40, device="cuda"):
+    def __init__(self, config: MDConfig, cap: int = 40, device="cuda",
+                 incremental: bool = False):
         self.config = config
+        self.incremental = incremental
+        # rebuilds by branch: incremental ones kept, and full rebuilds taken
+        # because the mover stream tripped the window predicate
+        self.incremental_rebuilds = 0
+        self.full_fallbacks = 0
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -82,8 +97,22 @@ class DenseSimulator:
         return dense_force.dense_forces_half(state.pos, self.spec,
                                              self.config.rc, want_pe)
 
+    def _rebuild_state(self, state: DenseState) -> DenseState:
+        """The rebuild of the step loop and of ``_rebuild_and_lists``: the
+        full one, or with ``incremental`` the incremental one unless its
+        window predicate holds (the JAX engine's ``lax.cond``, here one host
+        read). Taking the full path is the reference's own algorithm, never a
+        response to a kernel's failure."""
+        if self.incremental:
+            new, window_overflow = rebuild_dense_incremental(state, self.spec)
+            if not bool(window_overflow):
+                self.incremental_rebuilds += 1
+                return new
+            self.full_fallbacks += 1
+        return rebuild_dense(state, self.spec)[0]
+
     def _do_rebuild(self, carry: DenseCarry) -> DenseCarry:
-        state = rebuild_dense(carry.state, self.spec)[0]
+        state = self._rebuild_state(carry.state)
         kept = torch.sum(state.valid())
         return carry._replace(
             state=state,
@@ -139,7 +168,7 @@ class DenseSimulator:
         one-pass half-list kernel emitting the complete artifact — packed hit
         masks and half counts (total pairs = sum of counts over valid
         slots). Returns (new_state, counts, masks, total)."""
-        new = rebuild_dense(state, self.spec)[0]
+        new = self._rebuild_state(state)
         counts, masks = dense_force.dense_lists_half(new.pos, self.spec,
                                                      self.config.rs)
         total = torch.sum(torch.where(new.valid(), counts, 0))

@@ -54,6 +54,9 @@ _ENTRIES = {
     "force_full_pe": [_P, _P, _P, _P, _I, _I, _F, _F, _F],
     # pos, valid, counts, mc, cap, L, r2cut
     "count_full": [_P, _P, _P, _I, _I, _F, _F],
+    # stayer pos, vel, pid, mover pos, vel, pid, out pos, vel, pid, rows, mc,
+    # cap, park_step
+    "merge": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F],
 }
 
 # kernel launches so far, by kernel; reset_launches() zeroes them

@@ -184,7 +184,13 @@ def expand(chans: torch.Tensor, pid_s: torch.Tensor, keys_s: torch.Tensor,
     md_neighbor_list_tpu/ops/dense_cells.py. Bound by bytes on this card
     (every record read once, every slot written once); the design is one
     indexed, coalesced copy per slot — the TPU body's log-step rolls stand in
-    for exactly that copy. CPU tensors take ``expand_plain``."""
+    for exactly that copy. The JAX package's other forms of that kernel —
+    ``_expand_kernel_blocked`` and the ``fuse_keys``/``split_dma`` forms —
+    are DMA and matrix-unit layouts of the same function with the same bits,
+    so this one kernel stands for them all and ``rebuild_dense`` takes no such
+    flag; nor does the port need the JAX ``group``/``window`` sizing, which
+    sets the TPU's DMA window (``ops/incremental.py`` keeps its overflow
+    predicate). CPU tensors take ``expand_plain``."""
     if not chans.is_cuda:
         return expand_plain(chans, pid_s, keys_s, row_start, spec)
     _cuda.check_cuda(chans, pid_s, keys_s, row_start)

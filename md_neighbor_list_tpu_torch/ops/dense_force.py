@@ -25,6 +25,11 @@ CONTRACT of the half sweep: ``pos4`` satisfies the park invariant
 (``dense_cells``): empty slots sit on the park lattice, so no validity input
 exists and they receive exactly zero force, count and mask bits.
 
+Every kernel takes any cap: up to 341 slots per cell (3*cap <= 1024) a block
+has one thread per window lane (half sweep) or per z-group and own slot (full
+sweep); above, each kernel's lane-strided form runs blocks of 512 threads that
+serve lanes or own slots t, t + 512, ... (``csrc/geom.cuh``).
+
 Full sweep: every pair is visited from both partners over all nine (dz, dy)
 rows, nothing is written outside the own cell, and totals over slots count
 each pair twice. It takes ``valid`` and honours it whatever the state holds:
@@ -44,9 +49,6 @@ from md_neighbor_list_tpu_torch.ops.dense_cells import park_positions
 HALF_OFFSETS5 = [(0, 0), (0, 1), (1, -1), (1, 0), (1, 1)]
 
 MASK_BITS = 32  # bits per packed i32 mask word
-# Slots per cell the CUDA kernels take (csrc/geom.cuh): a block has one
-# thread per window lane, 3*cap <= 1024.
-MAX_CAP = 341
 
 
 def mask_words(cap: int) -> int:
@@ -69,11 +71,6 @@ def _check_state(pos4: torch.Tensor, spec) -> None:
         raise ValueError("the sweep kernels take the cubic layout only")
     if pos4.is_cuda:
         _cuda.check_cuda(pos4)
-        if spec.cap > MAX_CAP:
-            raise ValueError(
-                f"cap={spec.cap} exceeds the CUDA kernels' limit of "
-                f"{MAX_CAP} slots per cell (one thread per window lane, "
-                "3*cap <= 1024)")
 
 
 def _check_valid(valid: torch.Tensor, pos4: torch.Tensor, spec) -> None:

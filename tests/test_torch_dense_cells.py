@@ -3,6 +3,8 @@ against the JAX package (Pallas expand in interpret mode, and the scatter
 reference) on the same numpy inputs. State comparisons are bitwise: both sides
 do the same f32 operations and sort stably."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -168,3 +170,45 @@ def test_packed_round_trip_and_convert():
         np.testing.assert_array_equal(back, np.asarray(want))
     p2, _ = tdc.to_packed(state, n, spec.L)
     np.testing.assert_array_equal(p2, np.mod(pos, np.float32(spec.L)))
+
+
+# K1b: the JAX expand variants are TPU layouts of one function; the port maps
+# them all onto its one expand kernel, whose plain version runs here
+K1B_VARIANTS = [(fuse, split, False) for fuse in (False, True)
+                for split in (0, 2, 4)] + [(False, 0, True)]
+
+
+@functools.lru_cache(maxsize=None)
+def _drifted_dense():
+    """A state rebuilt once and drifted by 0.05 * vel off the lattice, as
+    ``tests/test_dense.py::test_expand_variants_bitwise`` takes it."""
+    n, cap = CASES["mc4_cap32"]
+    pos, vel, pid = numpy_system(n, 3)
+    js, jspec, _ = jax_state(pos, vel, pid, cap)
+    ts, tspec, _ = torch_state(pos, vel, pid, cap)
+    js, ts = jdc.rebuild_dense(js, jspec, True)[0], tdc.rebuild_dense(ts,
+                                                                     tspec)[0]
+    return (js._replace(pos=js.pos + 0.05 * js.vel), jspec,
+            ts._replace(pos=ts.pos + 0.05 * ts.vel), tspec)
+
+
+@pytest.mark.parametrize("fuse,split,blocked", K1B_VARIANTS,
+                         ids=[f"fuse{int(f)}-split{s}-blocked{int(b)}"
+                              for f, s, b in K1B_VARIANTS])
+def test_expand_variants_map_to_one_kernel(fuse, split, blocked):
+    """Every JAX expand variant (``fuse_keys`` x ``split_dma``, and the
+    blocked layout), run in interpret mode, against the port's
+    ``rebuild_dense``, which takes no such flag: pid bitwise, pos/vel of valid
+    slots bitwise; parked slots on ``park_lattice`` with zero velocity on the
+    port's side (the JAX expand in interpret mode may park a slot one ulp off,
+    see ``assert_state_equal``)."""
+    js, jspec, ts, tspec = _drifted_dense()
+    j_new, j_rs = jdc.rebuild_dense(js, jspec, True, fuse, split, blocked)
+    t_new, t_rs = tdc.rebuild_dense(ts, tspec)
+    assert_state_equal(t_new, j_new, parked_pos=False)
+    np.testing.assert_array_equal(t_rs.numpy(), np.asarray(j_rs))
+    empty = ~t_new.valid()
+    assert torch.equal(t_new.pos[:, empty],
+                       tdc.park_lattice(tspec, "cpu")[:, empty])
+    assert float(t_new.vel[:, empty].abs().sum()) == 0.0
+    assert float(np.abs(np.asarray(j_new.vel)[:, empty.numpy()]).sum()) == 0.0

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from md_neighbor_list_tpu_torch.ops import _cuda, dense_cells, dense_force
+from md_neighbor_list_tpu_torch.ops import (_cuda, dense_cells, dense_force,
+                                            incremental)
 from torch_port_util import (CASES, RC, RS, clustered_system, numpy_system,
                              torch_state)
 
@@ -123,13 +124,74 @@ def test_kernels_take_caps_beyond_four_mask_words(card, cap):
     np.testing.assert_allclose(ff.cpu(), f_p.cpu(), rtol=0, atol=2e-4 * scale)
 
 
-def test_cap_beyond_kernel_limit_raises(card):
+@pytest.mark.parametrize("cap", [384, 480])
+def test_kernels_take_caps_beyond_one_thread_per_lane(card, cap):
+    """3*cap > 1024 (12 and 15 mask words): the lane-strided forms of every
+    sweep kernel against the plain versions, a cluster of more than 341
+    particles in one cell at mc = 3."""
+    n = 700
+    pos, vel, pid = clustered_system(cap - 12, seed=13, n=n)
+    state, spec, _ = torch_state(pos, vel, pid, cap)
+    state = dense_cells.DenseState(*(t.to(card) for t in state))
+    new, _ = dense_cells.rebuild_dense(state, spec)
+    valid = new.valid()
+    assert int(valid.sum()) == n and int(valid.sum(dim=-1).max()) > 341
+    counts, masks = dense_force.dense_lists_half(new.pos, spec, RS)
+    counts_p, masks_p = dense_force.lists_half_plain(new.pos, spec, RS)
+    assert masks.shape[1] == dense_force.mask_words(cap) >= 12
+    assert torch.equal(counts, counts_p) and torch.equal(masks, masks_p)
+    assert torch.equal(dense_force.dense_counts_half(new.pos, spec, RS),
+                       counts)
+    full = dense_force.dense_counts(new.pos, valid, spec, RS)
+    assert torch.equal(full, dense_force.counts_full_plain(new.pos, valid,
+                                                           spec, RS))
+    assert int(full[valid].sum()) == 2 * int(counts[valid].sum())
+    f_p, pe_p = dense_force.forces_half_plain(new.pos, spec, RC, True)
+    scale = max(float(f_p.abs().max()), 1.0)
+    for want_pe in (False, True):
+        f, pe = dense_force.dense_forces_half(new.pos, spec, RC, want_pe)
+        np.testing.assert_allclose(f.cpu(), f_p.cpu(), rtol=1e-4,
+                                   atol=2e-5 * scale)
+        ff, _ = dense_force.dense_forces(new.pos, valid, spec, RC, want_pe)
+        again, _ = dense_force.dense_forces(new.pos, valid, spec, RC, want_pe)
+        assert torch.equal(ff, again)
+        np.testing.assert_allclose(ff.cpu(), f_p.cpu(), rtol=0,
+                                   atol=2e-4 * scale)
+    pe_scale = max(float(pe_p.abs().max()), 1.0)
+    np.testing.assert_allclose(pe.cpu(), pe_p.cpu(), rtol=1e-4,
+                               atol=2e-5 * pe_scale)
+    pe4, vir4 = dense_force.dense_pe_virial(new.pos, spec, RC)
+    pe4_p, vir4_p = dense_force.pe_virial_half_plain(new.pos, spec, RC)
+    np.testing.assert_allclose(pe4.cpu(), pe4_p.cpu(), rtol=1e-4,
+                               atol=2e-5 * pe_scale)
+    np.testing.assert_allclose(vir4.cpu(), vir4_p.cpu(), rtol=1e-4,
+                               atol=2e-5 * max(float(vir4_p.abs().max()), 1.0))
+
+
+@pytest.mark.parametrize("cap", [32, 40])
+def test_merge_and_incremental_rebuild(card, cap):
+    """K8 bitwise against its plain version, and the incremental rebuild on
+    the card bitwise against its order-exact twin, on a state drifted off
+    its cells."""
     n = 1728
-    pos, vel, pid = numpy_system(n, seed=12)
-    state, spec, _ = torch_state(pos, vel, pid, dense_force.MAX_CAP + 3)
-    assert dense_force.MAX_CAP == 341
-    with pytest.raises(ValueError, match="341"):
-        dense_force.dense_forces_half(state.pos.to(card), spec, RC)
-    with pytest.raises(ValueError, match="341"):
-        dense_force.dense_counts(state.pos.to(card), state.valid().to(card),
-                                 spec, RS)
+    pos, vel, pid = numpy_system(n, seed=14, jitter=0.2)
+    state, spec, _ = torch_state(pos, vel, pid, cap)
+    state = dense_cells.rebuild_dense(
+        dense_cells.DenseState(*(t.to(card) for t in state)), spec)[0]
+    drift = 0.3 * torch.randn(state.pos.shape, device=card,
+                              generator=torch.Generator(card).manual_seed(3))
+    state = state._replace(pos=state.pos + torch.where(state.valid()[None],
+                                                       drift, 0.0))
+    before = _cuda.LAUNCHES["merge"]
+    new, overflow = incremental.rebuild_dense_incremental(state, spec)
+    assert _cuda.LAUNCHES["merge"] == before + 1 and not bool(overflow)
+    twin = incremental.rebuild_reference_incremental(state, spec)
+    for a, b in zip(new, twin):
+        assert torch.equal(a, b)
+    assert int(new.valid().sum()) == n
+    # K8 alone on the same inputs as the rebuild gave it
+    args, _ = incremental.merge_inputs(state, spec)
+    got = incremental.merge(*args, spec)
+    want = incremental.merge_plain(*args, spec)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -38,12 +38,13 @@ def test_expected_modules_and_sources_exist():
                  "core/capacity.py", "ops/common.py", "ops/oracle.py",
                  "ops/dense_cells.py", "ops/dense_ref.py",
                  "ops/dense_force.py", "ops/decode.py", "ops/_cuda.py",
+                 "ops/incremental.py",
                  "models/dense_lj.py", "utils/convert.py", "utils/native.py",
                  "api.py", "__init__.py"):
         assert want in names
     for src in ("geom.cuh", "expand.cu", "lists_half.cu", "force_half.cu",
                 "pe_virial_half.cu", "count_half.cu", "force_full.cu",
-                "count_full.cu", "decode.cpp"):
+                "count_full.cu", "merge.cu", "decode.cpp"):
         assert (PORT / "csrc" / src).exists()
 
 
@@ -53,7 +54,7 @@ def test_every_kernel_has_an_entry_a_counter_and_a_source():
     assert set(_cuda._ENTRIES) == set(_cuda.LAUNCHES) == {
         "expand", "lists_half", "forces_half", "forces_half_pe",
         "pe_virial_half", "count_half", "force_full", "force_full_pe",
-        "count_full"}
+        "count_full", "merge"}
     sources = "".join(p.read_text() for p in _cuda._sources()[0])
     for name in _cuda._ENTRIES:
         assert f"int mdnl_{name}(" in sources, name
@@ -127,7 +128,8 @@ def test_api_runs_on_the_card_by_default_and_raises_without_one():
 def test_kernel_wrappers_do_not_build_for_cpu_tensors():
     """On CPU tensors the wrappers take the plain versions and count no
     launch; without nvcc the build itself raises."""
-    from md_neighbor_list_tpu_torch.ops import _cuda, dense_cells, dense_force
+    from md_neighbor_list_tpu_torch.ops import (_cuda, dense_cells, dense_force,
+                                                incremental)
     from torch_port_util import numpy_system, torch_state
 
     pos, vel, pid = numpy_system(1728, seed=0)
@@ -140,6 +142,7 @@ def test_kernel_wrappers_do_not_build_for_cpu_tensors():
     dense_force.dense_forces(new.pos, new.valid(), spec, 2.5)
     dense_force.dense_forces(new.pos, new.valid(), spec, 2.5, False)
     dense_force.dense_counts(new.pos, new.valid(), spec, 2.8)
+    incremental.rebuild_dense_incremental(new, spec)
     assert set(_cuda.LAUNCHES.values()) == {0}
     if shutil.which("nvcc") is None and not (
             pathlib.Path("/usr/local/cuda/bin/nvcc").exists()):

@@ -16,9 +16,9 @@ nvcc; ``-DMDNL_NARROW_BOUND=<threads>`` puts a launch bound on the kernels
 that ``csrc/geom.cuh`` leaves unbounded at cap <= 128).
 
 Prints one JSON line per run — the card, each kernel's ``ms`` from the run's
-``kernels`` line, ``steps_per_s`` and ``build_ms`` of its main path — and a
-last line with each label's mean over the rounds. A run that fails ends the
-script with its exit code.
+``kernels`` line, ``steps_per_s`` and ``build_ms`` of its main path and, where
+the tree has it, of its incremental path — and a last line with each label's
+mean over the rounds. A run that fails ends the script with its exit code.
 """
 
 from __future__ import annotations
@@ -50,6 +50,9 @@ def run_smoke(tree: pathlib.Path, flags: str) -> dict:
         elif rec.get("phase") == "main_path":
             out["steps_per_s"] = rec["steps_per_s"]
             out["build_ms"] = rec["build_ms"]
+        elif rec.get("phase") == "incremental":  # trees that have the path
+            out["incremental"] = {k: rec[k] for k in ("steps_per_s",
+                                                      "build_ms")}
         elif "kernels" in rec and "phase" not in rec:
             out["ms"] = {row["name"]: row["ms"] for row in rec["kernels"]}
     return out
