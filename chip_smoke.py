@@ -7,7 +7,7 @@ Builds the CUDA kernels from ``md_neighbor_list_tpu_torch/csrc``, holds each
 against its plain PyTorch version (at small shapes that exercise wrap-around,
 cell capacities from 28 to 480 — beyond 341 the sweep kernels' lane-strided
 forms —, overflow and cleared validity, then at the full N = 1,000,000 size),
-and drives three paths through the entry points a user calls, each with the
+and drives four paths through the entry points a user calls, each with the
 launch counters set to 0 just before and read just after:
 
   main_path      the dense LJ engine (init -> list build -> NVE steps ->
@@ -25,13 +25,28 @@ launch counters set to 0 just before and read just after:
                  the merge kernel, and the list build through the incremental
                  rebuild. Before it, at N = 1,000,000: the merge kernel
                  against its plain version, the incremental rebuild against
-                 its order-exact twin and against the full rebuild.
+                 its order-exact twin and against the full rebuild;
+  dense_slab     ``DenseSlabSimulator`` (the slab domain decomposition) in its
+                 P = 1 self-halo mode on a one-rank NCCL group at
+                 N = 1,000,000: 40,000,000 pairs, 1000 NVE steps through the
+                 slab forms of K1-K3, the trajectory of the cube engine after
+                 100 steps. Before it, phase ``small_slab_shapes`` holds the
+                 slab forms against their plain versions and the oracle at
+                 nz = 1 and at cap 384 (a cluster in one cell), and grows the
+                 P = 1 engine's cap past 341; phase ``slab_kernels`` holds the
+                 slab forms against their plain versions at N = 1,000,000 and
+                 emulates P = 5 and P = 7 slabs of the cube state serially
+                 (counts bitwise, forces to rounding), and phase
+                 ``slab_c5_geometry`` cuts the ``c5_dd`` deployment
+                 (N = 8,000,000, P = 8, mc = 71, mc_z = 64) into its eight
+                 slabs by the slab rebuild and holds them, one after the
+                 other on the one card, against the cube engine at N = 8M.
 
 Each phase prints one JSON line; any failure ends the run with a non-zero exit
 code. Without a CUDA device the script fails at once. ``--profile`` adds a
 ``torch.profiler`` breakdown by device kernel of 50 steps of each engine, of
-one ``neighbor_list`` call and of ten incremental and ten full rebuilds
-(information only).
+one ``neighbor_list`` call, of ten incremental and ten full rebuilds, and of
+50 steps of the slab engine (information only).
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -53,7 +68,10 @@ from md_neighbor_list_tpu_torch.core.box import Box
 from md_neighbor_list_tpu_torch.core.system import System, init_lattice
 from md_neighbor_list_tpu_torch.ops import (_cuda, decode, dense_cells,
                                             dense_force, dense_ref,
-                                            incremental, oracle)
+                                            incremental, oracle, slab_kernels)
+from md_neighbor_list_tpu_torch.parallel import mesh
+from md_neighbor_list_tpu_torch.parallel.dense_slab import (
+    DenseSlabSimulator, make_slab_spec)
 from md_neighbor_list_tpu_torch.utils import native
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): device memory and fp32
@@ -423,6 +441,14 @@ def bounds(spec, valid: torch.Tensor, records: int, hits: int) -> dict:
                           + 2 * hits * (FLOPS_HIT_FORCE_FULL + FLOPS_HIT_PE)),
         "count_full": (full_read + S * 4, tests_full * FLOPS_TEST),
     }
+    out = bound_times(work)
+    out["distance_tests"] = {"half_sweep": tests, "full_sweep": tests_full}
+    return out
+
+
+def bound_times(work: dict) -> dict:
+    """{name: (bytes, operations)} -> the bound of each: the larger of the
+    two times at the card's peak rates, and which one it is."""
     out = {}
     for name, (nbytes, flops) in work.items():
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -430,7 +456,6 @@ def bounds(spec, valid: torch.Tensor, records: int, hits: int) -> dict:
         out[name] = {"bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "bytes": nbytes, "operations": flops}
-    out["distance_tests"] = {"half_sweep": tests, "full_sweep": tests_full}
     return out
 
 
@@ -455,11 +480,24 @@ SOURCES = {
                    "md_neighbor_list_tpu/ops/pallas_force.py:230"),
     "merge": ("md_neighbor_list_tpu_torch/csrc/merge.cu",
               "md_neighbor_list_tpu/ops/incremental.py:127"),
+    # K9: the slab forms of K1-K3, where ops/slab_kernels.py runs them
+    "expand_slab": ("md_neighbor_list_tpu_torch/csrc/expand.cu",
+                    "md_neighbor_list_tpu/ops/slab_kernels.py:333"),
+    "lists_half_slab": ("md_neighbor_list_tpu_torch/csrc/lists_half.cu",
+                        "md_neighbor_list_tpu/ops/slab_kernels.py:288"),
+    "forces_half_slab": ("md_neighbor_list_tpu_torch/csrc/force_half.cu",
+                         "md_neighbor_list_tpu/ops/slab_kernels.py:113"),
+    "forces_half_slab_pe": ("md_neighbor_list_tpu_torch/csrc/force_half.cu",
+                            "md_neighbor_list_tpu/ops/slab_kernels.py:113"),
 }
 # K1b: the blocked, fuse_keys and split_dma forms of the expand are TPU
-# layouts of K1's function; the port maps them onto K1, so K1's row names them
+# layouts of K1's function; the port maps them onto K1, so K1's row names them.
+# The slab half-force form also stands for the interior and boundary passes.
 ALSO_REPLACES = {"expand": ["md_neighbor_list_tpu/ops/dense_cells.py:358",
-                            "md_neighbor_list_tpu/ops/dense_cells.py:709"]}
+                            "md_neighbor_list_tpu/ops/dense_cells.py:709"],
+                 "forces_half_slab": [
+                     "md_neighbor_list_tpu/ops/slab_kernels.py:170",
+                     "md_neighbor_list_tpu/ops/slab_kernels.py:238"]}
 
 
 def full_width(sim: DenseSimulator) -> list[dict]:
@@ -943,6 +981,602 @@ def incremental_path(sim: DenseSimulator):
     return launches, carry
 
 
+# ------------------------------------------------------------ dense slab
+SLAB_EMULATED = (5, 7)  # slab counts emulated at N = 1M (mc = 35)
+
+
+def cube_slabs(spec, p: int) -> slab_kernels.SlabSpec:
+    """P slabs of the cube's own cells (mc_z = mc), as the P = 1 engine and
+    the serial emulation cut them."""
+    return slab_kernels.SlabSpec(mc=spec.mc, nz=spec.mc // p, mc_z=spec.mc,
+                                 cap=spec.cap, L=spec.L,
+                                 cell_size=spec.cell_size,
+                                 cell_z=spec.cell_size)
+
+
+def ghost_layer(pos, valid, spec, last: bool) -> tuple:
+    """The right-ghost layer a slab receives from the next one, whose rows
+    start at ``pos``/``valid``: that slab's first layer, with the ring seam's
+    +L on z where it wraps."""
+    gpos = pos[:, :spec.mc].clone()
+    if last:
+        gpos[2] += float(np.float32(spec.L))
+    return gpos, valid[:spec.mc]
+
+
+def slab_half_tests(ext_valid: torch.Tensor, mc: int) -> int:
+    """Distance tests a slab half sweep needs on these inputs: for each
+    occupied own slot of the walked layers, the occupied slots of the 13
+    forward neighbour cells and the later slots of its own cell. Over a
+    cube (ghost = first layer) it is ``window_tests // 2``."""
+    occ = ext_valid.sum(dim=-1, dtype=torch.int64).reshape(-1, mc, mc)
+    own, up = occ[:-1], occ[1:]
+
+    def around_x(a):  # the x-1, x, x+1 cells of each cell's row
+        return sum(torch.roll(a, dx, dims=2) for dx in (-1, 0, 1))
+
+    fwd = torch.roll(own, -1, dims=2) + around_x(torch.roll(own, -1, dims=1))
+    fwd = fwd + sum(around_x(torch.roll(up, -dy, dims=1)) for dy in (-1, 0, 1))
+    return int((own * fwd).sum() + (own * (own - 1) // 2).sum())
+
+
+def slab_bounds(spec, ext_valid: torch.Tensor, records: int,
+                hits: int) -> dict:
+    """``bounds`` for the slab forms on an extended state: the state read is
+    the extended array's (nz+1 layers), the outputs the owned layers', and
+    the distance tests those the slab's own occupancy needs."""
+    S = spec.slots
+    S_ext = spec.ext().slots
+    words = dense_force.mask_words(spec.cap)
+    tests = slab_half_tests(ext_valid, spec.mc)
+    work = {
+        "expand_slab": (records * 32 + (spec.rows + 1) * 4 + S * 28, 0),
+        "lists_half_slab": (S_ext * 12 + 5 * words * S * 3 * 4 + S * 4,
+                            tests * FLOPS_TEST),
+        "forces_half_slab": (S_ext * 24,
+                             tests * FLOPS_TEST + hits * FLOPS_HIT_FORCE),
+        "forces_half_slab_pe": (S_ext * 24 + S * 4, tests * FLOPS_TEST
+                                + hits * (FLOPS_HIT_FORCE + FLOPS_HIT_PE)),
+    }
+    out = bound_times(work)
+    out["distance_tests"] = tests
+    return out
+
+
+def slab_records(system: System, spec, z0: int, wrap: bool = True):
+    """The slab rebuild's input over every packed record: keys relative to
+    the slab at z-cell ``z0``, the (6, N) pos|vel channels (positions
+    wrapped) and the pids."""
+    rec = torch.remainder(system.pos.T, spec.L)
+    valid = torch.ones(system.n, dtype=torch.bool, device=rec.device)
+    keys = slab_kernels.slab_keys(rec, valid, spec, z0, wrap=wrap)
+    return keys, torch.cat([rec, system.vel.T]), system.pid
+
+
+def slab_state(system: System, spec, z0: int, wrap: bool = True):
+    """A slab's state by the slab rebuild over every record (the K1 slab
+    form, launched once)."""
+    state, _ = slab_kernels.slab_sort_expand(
+        *slab_records(system, spec, z0, wrap), spec)
+    return state
+
+
+def expand_args(system: System, spec, z0: int, wrap: bool = True):
+    """The K1 slab form's arguments as ``slab_sort_expand`` makes them:
+    the records sorted stably by key, and the row starts; and key_base."""
+    keys, chans, pid = slab_records(system, spec, z0, wrap)
+    keys_s, order = torch.sort(keys, stable=True)
+    base = spec.mc * spec.mc
+    row_start = dense_cells.row_starts(keys_s, spec, base)
+    return (chans[:, order].contiguous(), pid[order], keys_s,
+            row_start), base
+
+
+def emulate_slabs(cube_state, cube_spec, p: int, cfg, split: bool):
+    """P slabs cut from a rebuilt cube state, serially, the seams handed on
+    by hand: (per-slot counts at rs, forces at rc), each in the cube's row
+    order. Each slab's empty slots are re-parked at slab-local rows, as the
+    slab rebuild parks them. ``split``: forces by the interior and boundary
+    passes instead of the combined one."""
+    spec = cube_slabs(cube_spec, p)
+    mc, rows = spec.mc, spec.rows
+    valid = cube_state.valid()
+    park = dense_cells.park_lattice(spec, cube_state.pos.device)
+    forces, seams, counts = [], [], []
+    for r in range(p):
+        own = slice(r * rows, (r + 1) * rows)
+        pos = torch.where(valid[own][None], cube_state.pos[:, own], park)
+        g0 = ((r + 1) % p) * rows
+        gpos, gvalid = ghost_layer(cube_state.pos[:, g0:], valid[g0:], spec,
+                                   last=r == p - 1)
+        ext = torch.cat([pos, gpos], dim=1)
+        ext_v = torch.cat([valid[own], gvalid], dim=0)
+        counts.append(slab_kernels.slab_lists_half(ext, ext_v, spec,
+                                                   cfg.rs)[0])
+        if split:
+            low, top = slab_kernels.slab_forces_interior(pos, spec, cfg.rc)
+            last, seam = slab_kernels.slab_forces_boundary(
+                pos[:, (spec.nz - 1) * mc:], gpos, gvalid, spec, cfg.rc)
+            forces.append(torch.cat([low, last + top], dim=1))
+        else:
+            f, seam, _ = slab_kernels.slab_forces_half(ext, ext_v, spec,
+                                                       cfg.rc)
+            forces.append(f.clone())
+        seams.append(seam)
+    for r in range(p):
+        forces[(r + 1) % p][:, :mc] += seams[r]
+    return torch.cat(counts), torch.cat(forces, dim=1)
+
+
+SLAB_SMALL = (  # n, cap, cluster, P, label; P = mc gives nz = 1
+    (1728, 40, 0, 4, "mc4_cap40_p4"),
+    (700, 384, 372, 1, "mc3_cap384_cluster_p1"),
+    (700, 384, 372, 3, "mc3_cap384_cluster_p3"),
+)
+
+
+def small_slab_shapes(device) -> None:
+    """The slab forms at small size: nz = 1 slabs (a ghost's empty slots lie
+    on the receiver's own park rows until re-parked) at cap 40 and 384, and
+    the lane-strided forms (cap 384, a cluster of 372 in one cell) with the
+    interior/boundary split at P = 1. Each slab is built by the slab rebuild
+    from every record; each form is held against its plain version, the
+    slabs together against the oracle. Then the P = 1 engine builds the
+    clustered start from cap 40, growing cap on the card past 341."""
+    cases = []
+    for n, cap, cluster, p, label in SLAB_SMALL:
+        cfg = MDConfig(n=n, rho=1.0)
+        system, box = jittered_system(n, cfg.rho, seed=n + cap, jitter=0.1,
+                                      device=device, cluster=cluster)
+        spec = cube_slabs(dense_cells.make_spec(box, cfg.rs, cap), p)
+        mc, nz = spec.mc, spec.nz
+        states = [slab_state(system, spec, r * nz, wrap=p > 1)
+                  for r in range(p)]
+        kept = sum(int(st.valid().sum()) for st in states)
+        check(kept == n, f"{label}: {kept} particles kept of {n}")
+        errs, forces, seams, pairs = {}, [], [], 0
+        for r in range(p):
+            st, nxt = states[r], states[(r + 1) % p]
+            gpos, gvalid = ghost_layer(nxt.pos, nxt.valid(), spec,
+                                       last=r == p - 1)
+            ext = torch.cat([st.pos, gpos], dim=1)
+            ext_v = torch.cat([st.valid(), gvalid], dim=0)
+            windows = slab_kernels._repark_ghost(ext, ext_v, spec)
+            counts, masks = dense_force.dense_lists_half_slab(windows, spec,
+                                                              cfg.rs)
+            torch.cuda.synchronize()
+            counts_p, masks_p = dense_force.lists_half_plain(
+                windows, spec, cfg.rs, zwrap=False)
+            check(torch.equal(counts, counts_p) and torch.equal(masks, masks_p),
+                  f"{label}: lists_half_slab differs from its plain version "
+                  f"on slab {r}")
+            pairs += int(counts[st.valid()].sum())
+            f_p, pe_p = dense_force.forces_half_plain(windows, spec, cfg.rc,
+                                                      True, zwrap=False)
+            for want_pe in (False, True):
+                f, pe = dense_force.dense_forces_half_slab(windows, spec,
+                                                           cfg.rc, want_pe)
+                torch.cuda.synchronize()
+                ok, err = force_close(f, f_p)
+                check(ok and bool(torch.isfinite(f).all()),
+                      f"{label}: forces_half_slab (pe={want_pe}) off its "
+                      f"plain version by {err} on slab {r}")
+                errs["combined"] = max(errs.get("combined", 0.0), err)
+            ok, err = force_close(pe, pe_p)
+            check(ok, f"{label}: forces_half_slab_pe potential off by {err}")
+            if nz >= 2:  # the interior (owned) and boundary ([last | ghost])
+                for name, arr in (("interior", st.pos),
+                                  ("boundary", windows[:, (nz - 1) * mc:])):
+                    arr = arr.contiguous()
+                    f, _ = dense_force.dense_forces_half_slab(arr, spec, cfg.rc)
+                    torch.cuda.synchronize()
+                    want, _ = dense_force.forces_half_plain(arr, spec, cfg.rc,
+                                                            zwrap=False)
+                    ok, err = force_close(f, want)
+                    check(ok, f"{label}: forces_half_slab ({name}) off its "
+                          f"plain version by {err}")
+                    errs[name] = err
+            # the module's passes as the engine calls them
+            if nz >= 2:
+                low, top = slab_kernels.slab_forces_interior(st.pos, spec,
+                                                             cfg.rc)
+                last, seam = slab_kernels.slab_forces_boundary(
+                    st.pos[:, (nz - 1) * mc:], gpos, gvalid, spec, cfg.rc)
+                forces.append(torch.cat([low, last + top], dim=1))
+            else:
+                f, seam, _ = slab_kernels.slab_forces_half(ext, ext_v, spec,
+                                                           cfg.rc)
+                forces.append(f.clone())
+            seams.append(seam)
+        for r in range(p):
+            forces[(r + 1) % p][:, :mc] += seams[r]
+        f_slab = torch.empty((n, 3), dtype=torch.float32, device=device)
+        for st, f in zip(states, forces):
+            keep = st.valid().reshape(-1)
+            f_slab[st.pid.reshape(-1)[keep].long()] = \
+                f.reshape(3, -1)[:, keep].T
+        pos_t = torch.remainder(system.pos, box.L)
+        want = int(oracle.pair_count(pos_t, box, cfg.rs))
+        check(pairs == want, f"{label}: {pairs} pairs over the slabs, oracle "
+              f"{want}")
+        f_o, _ = oracle.forces_energy(pos_t, box, cfg.rc)
+        ok, err = within_force_gate(f_slab, f_o)
+        check(ok, f"{label}: slab forces vs oracle off by {err}")
+        largest = max(int(st.valid().sum(dim=-1).max()) for st in states)
+        cases.append({"case": label, "p": p, "nz": nz, "cap": cap,
+                      "largest_cell": largest, "pairs": pairs,
+                      "max_abs_err": errs, "oracle_force_err": err})
+
+    # the engine grows cap on the card from 40 until the cluster fits
+    n, _, cluster, _, label = SLAB_SMALL[1]
+    cfg = MDConfig(n=n, rho=1.0)
+    system, box = jittered_system(n, cfg.rho, seed=n + 384, jitter=0.1,
+                                  device=device, cluster=cluster)
+    sim = DenseSlabSimulator(cfg, cap=40, device=device)
+    carry = sim.build(system)
+    check(sim.spec.cap >= cluster and not bool(carry.overflow),
+          f"{label}: the slab engine grew cap to {sim.spec.cap} only")
+    _, pairs = sim.lists(carry)
+    pos_t = torch.remainder(system.pos, box.L)
+    want = int(oracle.pair_count(pos_t, box, cfg.rs))
+    check(pairs == want, f"{label}: engine {pairs} pairs, oracle {want}")
+    f_o, u_o = oracle.forces_energy(pos_t, box, cfg.rc)
+    ok, err = within_force_gate(sim.gather(carry).force, f_o)
+    check(ok, f"{label}: engine forces vs oracle off by {err}")
+    _, pe = sim.energies(carry)
+    check(abs(float(pe) - float(u_o)) <= 1e-4 * abs(float(u_o)) + 1e-2,
+          f"{label}: engine PE {float(pe)} vs oracle {float(u_o)}")
+    emit("small_slab_shapes", cases=cases, engine={
+        "case": label, "grown_cap": sim.spec.cap, "pairs": pairs,
+        "oracle_force_err": err, "pe": float(pe), "oracle_pe": float(u_o)})
+
+
+def slab_kernels_phase(sim: DenseSimulator) -> list[dict]:
+    """The slab forms of K1-K3 against their plain versions at N = 1M,
+    cap = 40, on the P = 1 extended state of the jittered system, with
+    times; K1's slab form on a stream with records keyed below key_base;
+    P = 5 and P = 7 slabs emulated serially against the cube's sweeps.
+    Returns the kernel rows."""
+    cfg, cube_spec, dev = sim.config, sim.spec, sim.device
+    system, _ = jittered_system(cfg.n, cfg.rho, seed=7, jitter=0.1, device=dev)
+    spec = cube_slabs(cube_spec, 1)
+    mc, L = spec.mc, spec.L
+
+    # K1: the P = 1 slab rebuild (unwrapped keys), bitwise
+    recs, base = expand_args(system, spec, 0, wrap=False)
+    posvel, pid = dense_cells.expand(*recs, spec, base)
+    torch.cuda.synchronize()
+    posvel_p, pid_p = dense_cells.expand_plain(*recs, spec, base)
+    check(torch.equal(pid, pid_p) and torch.equal(posvel, posvel_p),
+          "slab_kernels: expand_slab differs from its plain version")
+    state = dense_cells.DenseState(pos=posvel[:3].contiguous(),
+                                   vel=posvel[3:].contiguous(), pid=pid)
+    check(int(state.valid().sum()) == cfg.n, "slab_kernels: lost particles")
+    # K1 on a stream that holds records keyed below key_base and beyond the
+    # owned range: a middle slab of P = 5 (wrapped keys) keeps exactly its
+    # own records
+    p5 = SLAB_EMULATED[0]
+    s5, r5 = cube_slabs(cube_spec, p5), p5 // 2
+    recs5, base5 = expand_args(system, s5, r5 * s5.nz)
+    keys5 = recs5[2]
+    below = int((keys5 < base5).sum())
+    owned = int(((keys5 >= base5) & (keys5 < base5 + s5.rows * mc)).sum())
+    got5 = dense_cells.expand(*recs5, s5, base5)
+    torch.cuda.synchronize()
+    want5 = dense_cells.expand_plain(*recs5, s5, base5)
+    check(all(torch.equal(a, b) for a, b in zip(got5, want5)),
+          "slab_kernels: expand_slab differs from its plain version on a "
+          "stream with emigrants")
+    iz = torch.clamp(torch.floor(system.pos[:, 2] * float(np.float32(
+        1.0 / s5.cell_z))).long(), 0, s5.mc_z - 1)
+    mine = int(((iz >= r5 * s5.nz) & (iz < (r5 + 1) * s5.nz)).sum())
+    kept5 = int((got5[1] >= 0).sum())
+    check(below > 0 and kept5 == owned == mine,
+          f"slab_kernels: slab {r5} of {p5} kept {kept5} records, {owned} "
+          f"keyed owned, {mine} in its layers ({below} keyed below key_base)")
+    del recs5, got5, want5
+
+    # K2, K3 over the extended state: [owned | seam-shifted first layer]
+    gpos, gvalid = ghost_layer(state.pos, state.valid(), spec, last=True)
+    ext = torch.cat([state.pos, gpos], dim=1)
+    ext_v = torch.cat([state.valid(), gvalid], dim=0)
+    windows = slab_kernels._repark_ghost(ext, ext_v, spec)
+    counts, masks = dense_force.dense_lists_half_slab(windows, spec, cfg.rs)
+    torch.cuda.synchronize()
+    counts_p, masks_p = dense_force.lists_half_plain(windows, spec, cfg.rs,
+                                                     zwrap=False)
+    check(torch.equal(counts, counts_p) and torch.equal(masks, masks_p),
+          "slab_kernels: lists_half_slab differs from its plain version")
+    errs = {"expand_slab": 0.0, "lists_half_slab": 0.0}
+    f_p, pe_p = dense_force.forces_half_plain(windows, spec, cfg.rc, True,
+                                              zwrap=False)
+    for name, want_pe in (("forces_half_slab", False),
+                          ("forces_half_slab_pe", True)):
+        f, pe = dense_force.dense_forces_half_slab(windows, spec, cfg.rc,
+                                                   want_pe)
+        torch.cuda.synchronize()
+        ok, errs[name] = force_close(f, f_p)
+        check(ok, f"slab_kernels: {name} forces off by {errs[name]}")
+    ok, pe_err = force_close(pe, pe_p)
+    check(ok, f"slab_kernels: forces_half_slab_pe potential off by {pe_err}")
+    errs["forces_half_slab_pe"] = max(errs["forces_half_slab_pe"], pe_err)
+    # the interior (owned layers) and boundary ([last | ghost]) arrays
+    for label, arr in (("interior", state.pos),
+                       ("boundary", windows[:, (spec.nz - 1) * mc:])):
+        f, _ = dense_force.dense_forces_half_slab(arr.contiguous(), spec,
+                                                  cfg.rc)
+        torch.cuda.synchronize()
+        want, _ = dense_force.forces_half_plain(arr.contiguous(), spec,
+                                                cfg.rc, zwrap=False)
+        ok, err = force_close(f, want)
+        check(ok, f"slab_kernels: forces_half_slab ({label}) off by {err}")
+        errs["forces_half_slab"] = max(errs["forces_half_slab"], err)
+    # at P = 1 the slab sweep is the cube's: the same slots, counts, forces
+    cube, _ = dense_cells.rebuild_dense(dense_cells.from_packed(
+        system.pos, system.vel, system.pid, cube_spec), cube_spec)
+    check(torch.equal(cube.pid, state.pid) and torch.equal(cube.pos,
+                                                           state.pos),
+          "slab_kernels: the P = 1 slab rebuild differs from the cube's")
+    counts_cube = dense_force.dense_counts_half(cube.pos, cube_spec, cfg.rs)
+    f_cube, _ = dense_force.dense_forces_half(cube.pos, cube_spec, cfg.rc)
+    check(torch.equal(counts, counts_cube),
+          "slab_kernels: P = 1 slab counts differ from the cube's K5")
+
+    # serial emulation of P = 5 and 7 slabs of the cube state
+    scale = max(float(f_cube.abs().max()), 1.0)
+    emulated = {}
+    for p in SLAB_EMULATED:
+        for split in (False, True):
+            c, f = emulate_slabs(cube, cube_spec, p, cfg, split)
+            err = float((f - f_cube).abs().max())
+            check(torch.equal(c, counts_cube),
+                  f"slab_kernels: P = {p} emulated counts differ from K5")
+            check(err <= 1e-5 * scale,
+                  f"slab_kernels: P = {p} emulated forces off the cube's K3 "
+                  f"by {err} (split={split})")
+            emulated[f"P{p}{'_split' if split else ''}"] = err
+
+    hits = int(dense_force.dense_lists_half_slab(
+        windows, spec, cfg.rc)[0][state.valid()].sum())
+    bound = slab_bounds(spec, ext_v, recs[2].shape[0], hits)
+    check(bound["distance_tests"] == window_tests(cube.valid(), cube_spec) // 2,
+          "slab_kernels: the slab's distance tests differ from the cube's")
+    runs = {
+        "expand_slab": (lambda: dense_cells.expand(*recs, spec, base),
+                        lambda: dense_cells.expand_plain(*recs, spec, base)),
+        "lists_half_slab": (
+            lambda: dense_force.dense_lists_half_slab(windows, spec, cfg.rs),
+            lambda: dense_force.lists_half_plain(windows, spec, cfg.rs,
+                                                 zwrap=False)),
+        "forces_half_slab": (
+            lambda: dense_force.dense_forces_half_slab(windows, spec, cfg.rc),
+            lambda: dense_force.forces_half_plain(windows, spec, cfg.rc,
+                                                  zwrap=False)),
+        "forces_half_slab_pe": (
+            lambda: dense_force.dense_forces_half_slab(windows, spec, cfg.rc,
+                                                       True),
+            lambda: dense_force.forces_half_plain(windows, spec, cfg.rc, True,
+                                                  zwrap=False)),
+    }
+    rows = []
+    for name, (kernel, plain) in runs.items():
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1], "launches": None,
+            "max_abs_err": errs[name],
+            "ms": time_ms(kernel, 10), "plain_ms": time_ms(plain, 1),
+            "bound_ms": bound[name]["bound_ms"],
+            "bound_by": bound[name]["bound_by"],
+            # no single PyTorch call computes any of these functions
+            "library_ms": None,
+        })
+        if name in ALSO_REPLACES:
+            rows[-1]["also_replaces"] = ALSO_REPLACES[name]
+    cube_ms = {"forces_half": time_ms(lambda: dense_force.dense_forces_half(
+        cube.pos, cube_spec, cfg.rc), 10)}
+    emit("slab_kernels", n=cfg.n, mc=mc, cap=spec.cap, ext_slots=spec.ext().slots,
+         hits_rc=hits, records_below_key_base=below,
+         emulated_max_force_err=emulated, force_scale=scale,
+         cube_ms_same_run=cube_ms, bounds=bound, kernels=rows)
+    return rows
+
+
+C5_SEED = 13
+
+
+def slab_c5_geometry(device, cfg=PRESETS["c5_dd"]) -> dict:
+    """The ``c5_dd`` deployment at full scale (N = 8M, P = 8, mc = 71,
+    mc_z = 64, nz = 8, cell_z = 3.125): its eight slabs built one after the
+    other on the one card by the slab rebuild over all N records, the seams
+    handed on, held against the cube engine's sweeps at N = 8M: pairs
+    within the cutoff band, forces by pid within the 2e-4 gate, and within
+    1e-5 of the largest away from the x/y periodic faces."""
+    p = cfg.mesh_devices
+    system, box = jittered_system(cfg.n, cfg.rho, seed=C5_SEED, jitter=0.1,
+                                  device=device)
+    spec = make_slab_spec(box, cfg.rs, p, 40)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states = [slab_state(system, spec, r * spec.nz) for r in range(p)]
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    kept = sum(int(s.valid().sum()) for s in states)
+    check(kept == cfg.n, f"slab_c5_geometry: {kept} particles kept of {cfg.n}")
+    forces, seams, pairs, largest = [], [], 0, 0
+    slab_ms = None
+    for r in range(p):
+        nxt = states[(r + 1) % p]
+        gpos, gvalid = ghost_layer(nxt.pos, nxt.valid(), spec,
+                                   last=r == p - 1)
+        ext = torch.cat([states[r].pos, gpos], dim=1)
+        ext_v = torch.cat([states[r].valid(), gvalid], dim=0)
+        f, seam, _ = slab_kernels.slab_forces_half(ext, ext_v, spec, cfg.rc)
+        forces.append(f.clone())
+        seams.append(seam)
+        counts, _ = slab_kernels.slab_lists_half(ext, ext_v, spec, cfg.rs)
+        pairs += int(counts[states[r].valid()].sum())
+        largest = max(largest, int(states[r].valid().sum(dim=-1).max()))
+        if r == 0:
+            slab_ms = time_ms(lambda: slab_kernels.slab_forces_half(
+                ext, ext_v, spec, cfg.rc), 5)
+    for r in range(p):
+        forces[(r + 1) % p][:, :spec.mc] += seams[r]
+    n = cfg.n
+    f_slab = torch.empty((n, 3), dtype=torch.float32, device=device)
+    for st, f in zip(states, forces):
+        keep = st.valid().reshape(-1)
+        f_slab[st.pid.reshape(-1)[keep].long()] = f.reshape(3, -1)[:, keep].T
+    del states, forces, seams
+
+    cube_spec = dense_cells.make_spec(box, cfg.rs, 40)
+    cube, _ = dense_cells.rebuild_dense(dense_cells.from_packed(
+        system.pos, system.vel, system.pid, cube_spec), cube_spec)
+    valid = cube.valid()
+    check(int(valid.sum()) == n, "slab_c5_geometry: the cube lost particles")
+    cube_pairs = int(dense_force.dense_counts_half(cube.pos, cube_spec,
+                                                   cfg.rs)[valid].sum())
+    in_band = band_pairs(cube.pos, valid, cube_spec, cfg.rs)
+    f3, _ = dense_force.dense_forces_half(cube.pos, cube_spec, cfg.rc)
+    cube_ms = time_ms(lambda: dense_force.dense_forces_half(
+        cube.pos, cube_spec, cfg.rc), 5)
+    keep = valid.reshape(-1)
+    f_cube = torch.empty_like(f_slab)
+    f_cube[cube.pid.reshape(-1)[keep].long()] = f3.reshape(3, -1)[:, keep].T
+    ok, err = within_force_gate(f_slab, f_cube)
+    # the z grids differ, so a pair may be evaluated from its other side;
+    # only across the x or y periodic faces does that change its arithmetic
+    # (own - (partner +- L) rounds differently from the other side)
+    xy = system.pos[:, :2]
+    near_face = torch.minimum(xy, box.L - xy).min(dim=1).values < cfg.rc
+    diff = (f_slab - f_cube).abs().max(dim=1).values
+    scale = max(float(f_cube.abs().max()), 1.0)
+    check(abs(pairs - cube_pairs) <= in_band,
+          f"slab_c5_geometry: {pairs} pairs over the slabs, {cube_pairs} by "
+          f"the cube, more apart than the {in_band} pairs in the cutoff band")
+    check(ok, f"slab_c5_geometry: forces by pid off the cube's by {err}")
+    err_off = float(diff[~near_face].max())
+    check(err_off <= 1e-5 * scale,
+          f"slab_c5_geometry: forces by pid off the cube's by {err_off} away "
+          "from the x/y faces, where only the summation order differs")
+    result = {"n": n, "p": p, "mc": spec.mc, "mc_z": spec.mc_z, "nz": spec.nz,
+              "cell_z": spec.cell_z, "cap": spec.cap,
+              "slab_slots": spec.slots, "cube_slots": cube_spec.slots,
+              "largest_slab_cell": largest, "pairs": pairs,
+              "cube_pairs": cube_pairs, "pairs_in_cutoff_band": in_band,
+              "max_force_err": err, "force_scale": scale,
+              "force_gate": FORCE_GATE * scale,
+              "particles_near_xy_faces": int(near_face.sum()),
+              "max_force_err_near_xy_faces": float(diff[near_face].max()),
+              "max_force_err_off_xy_faces": err_off,
+              "pairs_in_rc_band": band_pairs(cube.pos, valid, cube_spec,
+                                             cfg.rc),
+              "slab_rebuilds_s": t_build,
+              "slab0_forces_half_slab_ms": slab_ms,
+              "cube_forces_half_ms": cube_ms}
+    emit("slab_c5_geometry", **result)
+    return result
+
+
+def slab_build(sim: DenseSlabSimulator, carry):
+    """One list build of the slab engine: its rebuild, the ghost refresh
+    and the slab list pass."""
+    carry = sim._rebuild(carry)
+    carry = sim._refresh_ghosts(carry)
+    slab_kernels.slab_lists_half(*sim._ext(carry), sim.spec, sim.config.rs)
+    return carry
+
+
+def dense_slab_path(device, cfg=PRESETS["c4_sorted"]
+                    ) -> tuple[dict, object, DenseSlabSimulator]:
+    """``DenseSlabSimulator`` at P = 1 on a one-rank NCCL group, N = 1M,
+    cap = 40, from the lattice start: the pair count (40 per particle on
+    the lattice), 1000 NVE steps, and after the first 100 the trajectory of
+    the cube engine. Returns the launch counts of the path, the carry and
+    the engine."""
+    # the cube engine's 100 steps come first: they are not this path's
+    cube = DenseSimulator(cfg, cap=40, device=device)
+    cc = cube.run(cube.init(), 100)
+    cube_pos, _, _ = cube.to_system(cc)
+    cube_rebuilds = int(cc.n_rebuilds)
+    del cube, cc
+
+    # a group of one process needs no rendezvous: an in-process store
+    ring = mesh.init_ring(device, world_size=1, rank=0,
+                          store=torch.distributed.HashStore())
+    _cuda.reset_launches()
+    sim = DenseSlabSimulator(cfg, cap=40, device=device, ring=ring)
+    carry = sim.init()
+    _, pairs = sim.lists(carry)
+    check(pairs == 40 * cfg.n, f"dense_slab: {pairs} pairs, want {40 * cfg.n}")
+    ke0, pe0 = (float(x) for x in sim.energies(carry))
+    e0 = ke0 + pe0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry = sim.run(carry, 100)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    pos100 = sim.gather(carry).pos.cpu().numpy()
+    d = np.abs(pos100 - cube_pos)
+    gap = float(np.minimum(d, sim.box.L - d).max())
+    rebuilds100 = int(carry.n_rebuilds)
+    migrated = int(carry.n_migrated)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry = sim.run(carry, cfg.steps - 100)
+    torch.cuda.synchronize()
+    run_s += time.perf_counter() - t0
+    ke1, pe1 = (float(x) for x in sim.energies(carry))
+    drift = abs((ke1 + pe1) - e0) / abs(e0)
+    kept = int((carry.pid >= 0).sum())
+    rebuilds = int(carry.n_rebuilds)
+    launches = dict(_cuda.LAUNCHES)  # read before anything else launches
+
+    check(gap <= 5e-4, f"dense_slab: positions after 100 steps {gap} off the "
+          "cube engine's")
+    check(rebuilds100 == cube_rebuilds,
+          f"dense_slab: {rebuilds100} rebuilds in 100 steps, the cube engine "
+          f"{cube_rebuilds}")
+    check(migrated == 0 and int(carry.n_migrated) == 0,
+          "dense_slab: particles migrated at P = 1")
+    check(not bool(carry.overflow), "dense_slab: overflow")
+    check(math.isfinite(e0) and math.isfinite(ke1 + pe1),
+          "dense_slab: energies not finite")
+    check(drift <= 1e-4, f"dense_slab: |dE/E| = {drift} > 1e-4")
+    check(kept == cfg.n, f"dense_slab: {kept} particles kept of {cfg.n}")
+    check(bool(torch.isfinite(carry.force).all()),
+          "dense_slab: forces not finite")
+
+    def chain(reps=10):
+        st = carry
+        for _ in range(reps):
+            v2 = torch.sum(st.vel * st.vel, dim=0)
+            tau = 0.5 * cfg.skin / torch.sqrt(torch.max(v2))
+            st = slab_build(sim, st._replace(pos=st.pos + tau * st.vel))
+
+    build_ms = time_ms(chain, 1) / 10
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    emit("dense_slab_p1", n=cfg.n, p=sim.p, cap=sim.spec.cap, nz=sim.spec.nz,
+         pairs=pairs, steps=cfg.steps, energy_drift=drift, e0=e0,
+         e1=ke1 + pe1, n_rebuilds=rebuilds, n_migrated=int(carry.n_migrated),
+         kept=kept, max_position_gap_100_steps=gap,
+         cube_rebuilds_100_steps=cube_rebuilds,
+         steps_per_s=cfg.steps / run_s, build_ms=build_ms, card=smi,
+         backend=mesh.backend_for(device))
+    need = {"expand_slab": rebuilds, "lists_half_slab": 1,
+            "forces_half_slab": 2 * cfg.steps + 1, "forces_half_slab_pe": 2}
+    for name, least in need.items():
+        check(launches[name] >= least,
+              f"launches: {name} launched {launches[name]} times on the "
+              f"dense_slab path, expected at least {least}")
+    check(launches["expand"] == launches["forces_half"] == 0,
+          "launches: the cube forms ran on the dense_slab path")
+    emit("launches", path="dense_slab", launches=launches,
+         expected_at_least=need)
+    return launches, carry, sim
+
+
 def traced(fn) -> tuple[float, list]:
     """Host ms of ``fn()`` under ``torch.profiler`` (synchronised), and its
     device kernels as (name, device ms, calls), longest first."""
@@ -1059,9 +1693,22 @@ def main() -> int:
     emit("incremental_kernels", n=sim.config.n, cap=sim.spec.cap,
          kernels=[row_k8], **numbers)
     rows.append(row_k8)
+    small_slab_shapes(device)
+    rows += slab_kernels_phase(
+        DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device))
+    c5 = slab_c5_geometry(device)
+    check((c5["mc"], c5["mc_z"], c5["nz"]) == (71, 64, 8)
+          and abs(c5["cell_z"] - 3.125) < 1e-9,
+          f"slab_c5_geometry: not the c5_dd geometry: {c5}")
+    torch.cuda.empty_cache()
+    slab, carry, sim = dense_slab_path(device)
+    if "--profile" in sys.argv[1:]:
+        profile_steps(sim, carry, "dense_slab")
+    del carry, sim
+    torch.distributed.destroy_process_group()
     by_path = {"main_path": launches, "list_delivery": delivery,
-               "incremental": inc}
-    for row in rows:  # launches on the three driven paths, and their sum
+               "incremental": inc, "dense_slab": slab}
+    for row in rows:  # launches on the four driven paths, and their sum
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())

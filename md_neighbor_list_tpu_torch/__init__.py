@@ -5,10 +5,13 @@ engine whose hot kernels are hand-written CUDA for NVIDIA Hopper.
 Ported so far: the dense LJ engine (build -> lists -> NVE steps) with its
 expand, half-list, half-force and pe/virial kernels; the one-call
 ``neighbor_list`` / ``pair_list`` API over it with the host-side mask decode;
-the half-count and full-sweep force and count kernels (parity passes); and the
+the half-count and full-sweep force and count kernels (parity passes); the
 incremental rebuild (``DenseSimulator(incremental=True)``) with its merge
-kernel. The module layout mirrors
-the JAX package (``core/``, ``ops/``, ``models/``, ``utils/``), so a module's
+kernel; and the slab domain decomposition
+(``parallel.dense_slab.DenseSlabSimulator`` on ``torch.distributed``) with the
+slab forms of the expand, half-list and half-force kernels. The module layout
+mirrors the JAX package (``core/``, ``ops/``, ``models/``, ``parallel/``,
+``utils/``), so a module's
 counterpart is found by its path; ``ops/dense_force.py`` stands for
 ``ops/pallas_force.py``. The two packages share no code.
 """

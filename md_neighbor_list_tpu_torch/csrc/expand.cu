@@ -10,6 +10,12 @@
 // velocity and pid -1. Runs longer than cap are truncated (the caller's
 // particle count detects the loss).
 //
+// Cell keys start at key_base: 0 for the cube; mc*mc for a slab, whose sort
+// stream also holds emigrants keyed below the owned range and foreign records
+// above it (md_neighbor_list_tpu/ops/slab_kernels.py::slab_sort_expand). Row
+// r's cells are keys key_base + r*mc + x; the row starts leave the records
+// outside [key_base, key_base + rows*mc) out of every row, so none is read.
+//
 // Bound: bytes. Every record is read once (7 channels + key) and every slot
 // written once (7 channels); no arithmetic to speak of. Reads along a cell's
 // run and writes along a row are contiguous, so both coalesce.
@@ -23,12 +29,12 @@ __global__ void expand_kernel(const float* __restrict__ chans,
                               const int* __restrict__ row_start,
                               float* __restrict__ posvel,
                               int* __restrict__ pid_out, int M, int rows,
-                              int mc, int cap, float step) {
+                              int mc, int cap, float step, int key_base) {
   extern __shared__ int off[];  // mc + 1 run starts of this row's cells
   const int r = blockIdx.x;
   const int lo0 = row_start[r], hi0 = row_start[r + 1];
   for (int x = threadIdx.x; x <= mc; x += blockDim.x) {
-    const int target = r * mc + x;  // cell key
+    const int target = key_base + r * mc + x;  // cell key
     int lo = lo0, hi = hi0;  // first index in [lo0, hi0) with key >= target
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
@@ -63,14 +69,36 @@ __global__ void expand_kernel(const float* __restrict__ chans,
 
 }  // namespace mdnl
 
-extern "C" int mdnl_expand(const void* chans, const void* pid_s,
-                           const void* keys_s, const void* row_start,
-                           void* posvel, void* pid_out, int M, int rows,
-                           int mc, int cap, float step, void* stream) {
+namespace {
+
+int launch_expand(const void* chans, const void* pid_s, const void* keys_s,
+                  const void* row_start, void* posvel, void* pid_out, int M,
+                  int rows, int mc, int cap, float step, int key_base,
+                  void* stream) {
   const size_t smem = (size_t)(mc + 1) * sizeof(int);
   mdnl::expand_kernel<<<rows, 256, smem, (cudaStream_t)stream>>>(
       (const float*)chans, (const int*)pid_s, (const int*)keys_s,
       (const int*)row_start, (float*)posvel, (int*)pid_out, M, rows, mc, cap,
-      step);
+      step, key_base);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int mdnl_expand(const void* chans, const void* pid_s,
+                           const void* keys_s, const void* row_start,
+                           void* posvel, void* pid_out, int M, int rows,
+                           int mc, int cap, float step, void* stream) {
+  return launch_expand(chans, pid_s, keys_s, row_start, posvel, pid_out, M,
+                       rows, mc, cap, step, 0, stream);
+}
+
+// The slab form: cell keys from key_base on.
+extern "C" int mdnl_expand_slab(const void* chans, const void* pid_s,
+                                const void* keys_s, const void* row_start,
+                                void* posvel, void* pid_out, int M, int rows,
+                                int mc, int cap, float step, int key_base,
+                                void* stream) {
+  return launch_expand(chans, pid_s, keys_s, row_start, posvel, pid_out, M,
+                       rows, mc, cap, step, key_base, stream);
 }

@@ -35,17 +35,26 @@
 // into the body above, even as a loop of one trip, made the want_pe form 3 %
 // slower at cap = 40 (NVIDIA H100 80GB HBM3 at 700 W, by tools/port_ab.py).
 //
+// The slab forms (ZWRAP = false, entries mdnl_forces_half_slab[_pe]) replace
+// the same kernel as md_neighbor_list_tpu/ops/slab_kernels.py reaches it
+// (slab_forces_half, slab_forces_interior, slab_forces_boundary): the grid
+// walks the first nz_grid layers of an array of nz_arr, and `force` has the
+// array's layers. The reactions onto the layer past the grid land in that
+// layer, which the caller reads as the seam (or the interior pass's top
+// reaction); the TPU kernel's reaction output maps are this same sum. `pe`
+// has the grid's layers.
+//
 // Bound: operations. About 15*cap distance tests per slot (9 flops) plus
 // ~20 flops per hit on the fp32 cores; the state read is tiny beside that.
 #include "geom.cuh"
 
 namespace mdnl {
 
-template <bool WANT_PE>
+template <bool WANT_PE, bool ZWRAP>
 __device__ __forceinline__ void
 force_half_body(const float* __restrict__ pos, float* __restrict__ force,
                 float* __restrict__ pe, int mc, int cap, float L, float r2cut,
-                float ushift) {
+                float ushift, int nz_arr) {
   extern __shared__ float smem[];
   float* sx = smem;
   float* sy = sx + cap;
@@ -55,7 +64,7 @@ force_half_body(const float* __restrict__ pos, float* __restrict__ force,
   float* sfz = sfy + cap;
   float* spe = sfz + cap;
   const CellId c = cell_of_block(blockIdx.x, mc);
-  const size_t S = (size_t)mc * mc * mc * cap;
+  const size_t S = state_slots<ZWRAP>(mc, cap, nz_arr);
   load_own(pos, S, cap, c.cell, sx, sy, sz);
   for (int i = threadIdx.x; i < cap; i += blockDim.x) {
     sfx[i] = 0.f; sfy[i] = 0.f; sfz[i] = 0.f;
@@ -68,7 +77,8 @@ force_half_body(const float* __restrict__ pos, float* __restrict__ force,
     const int i0 = l % cap;
     for (int k = 0; k < 5; ++k) {
       float xj, yj, zj;
-      const int pj = load_partner(pos, S, mc, cap, L, c, k, l, xj, yj, zj);
+      const int pj =
+          load_partner<ZWRAP>(pos, S, mc, cap, L, c, k, l, xj, yj, zj);
       float rx = 0.f, ry = 0.f, rz = 0.f;
       bool any = false;
       int i = i0;
@@ -108,28 +118,31 @@ force_half_body(const float* __restrict__ pos, float* __restrict__ force,
   }
 }
 
-template <bool WANT_PE>
+template <bool WANT_PE, bool ZWRAP>
 __global__ void MDNL_NARROW
 force_half_kernel(const float* __restrict__ pos, float* __restrict__ force,
                   float* __restrict__ pe, int mc, int cap, float L,
-                  float r2cut, float ushift) {
-  force_half_body<WANT_PE>(pos, force, pe, mc, cap, L, r2cut, ushift);
+                  float r2cut, float ushift, int nz_arr) {
+  force_half_body<WANT_PE, ZWRAP>(pos, force, pe, mc, cap, L, r2cut, ushift,
+                                  nz_arr);
 }
 
-template <bool WANT_PE>
+template <bool WANT_PE, bool ZWRAP>
 __global__ void MDNL_BLOCK_BOUND
 force_half_kernel_wide(const float* __restrict__ pos,
                        float* __restrict__ force, float* __restrict__ pe,
-                       int mc, int cap, float L, float r2cut, float ushift) {
-  force_half_body<WANT_PE>(pos, force, pe, mc, cap, L, r2cut, ushift);
+                       int mc, int cap, float L, float r2cut, float ushift,
+                       int nz_arr) {
+  force_half_body<WANT_PE, ZWRAP>(pos, force, pe, mc, cap, L, r2cut, ushift,
+                                  nz_arr);
 }
 
-template <bool WANT_PE>
+template <bool WANT_PE, bool ZWRAP>
 __global__ void MDNL_STRIDED_BOUND
 force_half_kernel_strided(const float* __restrict__ pos,
                           float* __restrict__ force, float* __restrict__ pe,
                           int mc, int cap, float L, float r2cut,
-                          float ushift) {
+                          float ushift, int nz_arr) {
   extern __shared__ float smem[];
   float* sx = smem;
   float* sy = sx + cap;
@@ -139,7 +152,7 @@ force_half_kernel_strided(const float* __restrict__ pos,
   float* sfz = sfy + cap;
   float* spe = sfz + cap;
   const CellId c = cell_of_block(blockIdx.x, mc);
-  const size_t S = (size_t)mc * mc * mc * cap;
+  const size_t S = state_slots<ZWRAP>(mc, cap, nz_arr);
   load_own(pos, S, cap, c.cell, sx, sy, sz);
   for (int i = threadIdx.x; i < cap; i += blockDim.x) {
     sfx[i] = 0.f; sfy[i] = 0.f; sfz[i] = 0.f;
@@ -150,7 +163,8 @@ force_half_kernel_strided(const float* __restrict__ pos,
   for (int l = threadIdx.x; l < 3 * cap; l += blockDim.x) {
     for (int k = 0; k < 5; ++k) {
       float xj, yj, zj;
-      const int pj = load_partner(pos, S, mc, cap, L, c, k, l, xj, yj, zj);
+      const int pj =
+          load_partner<ZWRAP>(pos, S, mc, cap, L, c, k, l, xj, yj, zj);
       float rx = 0.f, ry = 0.f, rz = 0.f;
       bool any = false;
       int i = l % cap;
@@ -194,26 +208,31 @@ force_half_kernel_strided(const float* __restrict__ pos,
 
 namespace {
 
-template <bool WANT_PE>
+// The grid: one block per own cell of the first nz_grid layers.
+template <bool WANT_PE, bool ZWRAP>
 int launch_force_half(const void* pos, void* force, void* pe, int mc, int cap,
-                      float L, float r2cut, float ushift, void* stream) {
+                      float L, float r2cut, float ushift, int nz_grid,
+                      int nz_arr, void* stream) {
   using namespace mdnl;
-  if (cap < 1) return (int)cudaErrorInvalidValue;
+  if (cap < 1 || nz_grid < 1 || (!ZWRAP && nz_grid >= nz_arr))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = nz_grid * mc * mc;
   const size_t smem = (size_t)cap * 7 * sizeof(float);
   if (cap > kLaneCap) {
-    const auto kernel = force_half_kernel_strided<WANT_PE>;
+    const auto kernel = force_half_kernel_strided<WANT_PE, ZWRAP>;
     const cudaError_t err = fit_shared(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    kernel<<<mc * mc * mc, kStridedThreads, smem, (cudaStream_t)stream>>>(
+    kernel<<<blocks, kStridedThreads, smem, (cudaStream_t)stream>>>(
         (const float*)pos, (float*)force, (float*)pe, mc, cap, L, r2cut,
-        ushift);
+        ushift, nz_arr);
     return (int)cudaGetLastError();
   }
   const int threads = round_up32(3 * cap);
-  const auto kernel = cap <= kNarrowCap ? force_half_kernel<WANT_PE>
-                                        : force_half_kernel_wide<WANT_PE>;
-  kernel<<<mc * mc * mc, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)pos, (float*)force, (float*)pe, mc, cap, L, r2cut, ushift);
+  const auto kernel = cap <= kNarrowCap ? force_half_kernel<WANT_PE, ZWRAP>
+                                        : force_half_kernel_wide<WANT_PE, ZWRAP>;
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)pos, (float*)force, (float*)pe, mc, cap, L, r2cut, ushift,
+      nz_arr);
   return (int)cudaGetLastError();
 }
 
@@ -221,13 +240,29 @@ int launch_force_half(const void* pos, void* force, void* pe, int mc, int cap,
 
 extern "C" int mdnl_forces_half(const void* pos, void* force, int mc, int cap,
                                 float L, float r2cut, void* stream) {
-  return launch_force_half<false>(pos, force, nullptr, mc, cap, L, r2cut, 0.f,
-                                  stream);
+  return launch_force_half<false, true>(pos, force, nullptr, mc, cap, L, r2cut,
+                                        0.f, mc, mc, stream);
 }
 
 extern "C" int mdnl_forces_half_pe(const void* pos, void* force, void* pe,
                                    int mc, int cap, float L, float r2cut,
                                    float ushift, void* stream) {
-  return launch_force_half<true>(pos, force, pe, mc, cap, L, r2cut, ushift,
-                                 stream);
+  return launch_force_half<true, true>(pos, force, pe, mc, cap, L, r2cut,
+                                       ushift, mc, mc, stream);
+}
+
+// Slab forms: pos and force (3, nz_arr*mc, mc, cap), pe (nz_grid*mc, mc, cap).
+extern "C" int mdnl_forces_half_slab(const void* pos, void* force, int mc,
+                                     int cap, float L, float r2cut,
+                                     int nz_grid, int nz_arr, void* stream) {
+  return launch_force_half<false, false>(pos, force, nullptr, mc, cap, L,
+                                         r2cut, 0.f, nz_grid, nz_arr, stream);
+}
+
+extern "C" int mdnl_forces_half_slab_pe(const void* pos, void* force, void* pe,
+                                        int mc, int cap, float L, float r2cut,
+                                        float ushift, int nz_grid, int nz_arr,
+                                        void* stream) {
+  return launch_force_half<true, false>(pos, force, pe, mc, cap, L, r2cut,
+                                        ushift, nz_grid, nz_arr, stream);
 }

@@ -10,6 +10,13 @@
 // The half sweep visits the five rows HALF_OFFSETS5[k]; the full sweep visits
 // all nine, every pair from both partners.
 //
+// The slab forms of the half sweep (template argument ZWRAP = false) read an
+// array of nz_arr z-layers (3, nz_arr*mc, mc, cap) and walk the first nz_grid
+// of them, nz_grid < nz_arr: the partner layer is z + dz itself, with no wrap
+// and no z image shift (the caller has moved the z of a layer that lies across
+// the box's face). x and y wrap as in the cube. The cube is ZWRAP = true with
+// nz_grid = nz_arr = mc.
+//
 // r2 is computed with explicit round-to-nearest multiplies and adds in the
 // association (dx*dx + dy*dy) + dz*dz. The compiler would otherwise contract
 // the sum into fused multiply-adds, and a pair within one ulp of the cutoff
@@ -87,7 +94,8 @@ __device__ __forceinline__ float wrap_cell(int& c, int mc, float L) {
 
 // Load the image-shifted position of window lane l of neighbour row (dz, dy);
 // returns the partner's flat slot index (cell * cap + slot) in the
-// (R, mc, cap) arrays.
+// (R, mc, cap) arrays. ZWRAP = false: layer z + dz as it is (slab forms).
+template <bool ZWRAP = true>
 __device__ __forceinline__ int load_partner_at(const float* __restrict__ pos,
                                                size_t S, int mc, int cap,
                                                float L, const CellId& c,
@@ -97,7 +105,7 @@ __device__ __forceinline__ int load_partner_at(const float* __restrict__ pos,
   int zz = c.z + dz, yy = c.y + dy;
   const int seg = l / cap;
   int xx = c.x + seg - 1;
-  const float zs = wrap_cell(zz, mc, L);
+  const float zs = ZWRAP ? wrap_cell(zz, mc, L) : 0.f;
   const float ys = wrap_cell(yy, mc, L);
   const float xs = wrap_cell(xx, mc, L);
   const int idx = ((zz * mc + yy) * mc + xx) * cap + (l - seg * cap);
@@ -108,13 +116,21 @@ __device__ __forceinline__ int load_partner_at(const float* __restrict__ pos,
 }
 
 // The same for half offset row k.
+template <bool ZWRAP = true>
 __device__ __forceinline__ int load_partner(const float* __restrict__ pos,
                                             size_t S, int mc, int cap, float L,
                                             const CellId& c, int k, int l,
                                             float& xj, float& yj, float& zj) {
   int dz, dy;
   half_offset(k, dz, dy);
-  return load_partner_at(pos, S, mc, cap, L, c, dz, dy, l, xj, yj, zj);
+  return load_partner_at<ZWRAP>(pos, S, mc, cap, L, c, dz, dy, l, xj, yj, zj);
+}
+
+// Slots of the state array a half-sweep kernel reads: the cube's mc layers,
+// or a slab form's nz_arr.
+template <bool ZWRAP>
+__device__ __forceinline__ size_t state_slots(int mc, int cap, int nz_arr) {
+  return (size_t)(ZWRAP ? mc : nz_arr) * mc * mc * cap;
 }
 
 __device__ __forceinline__ float pair_r2(float xi, float yi, float zi,

@@ -31,6 +31,11 @@
 // slower at cap = 40 (NVIDIA H100 80GB HBM3 at 700 W, tools/port_ab.py),
 // hence two.
 //
+// The slab form (ZWRAP = false, entry mdnl_lists_half_slab) replaces the same
+// kernels as md_neighbor_list_tpu/ops/slab_kernels.py::slab_lists_half runs
+// them: the grid walks the first nz_grid layers of an array of nz_arr, and the
+// masks and counts have the grid's nz_grid*mc rows.
+//
 // Bound: the mask write, 5*words*3 words per slot against 3 floats read; the
 // ~15*cap distance tests per slot (9 flops each) come second on this card.
 // Mask stores run along l and coalesce.
@@ -38,11 +43,11 @@
 
 namespace mdnl {
 
-template <int W>
+template <int W, bool ZWRAP>
 __global__ void MDNL_BLOCK_BOUND
 lists_half_kernel(const float* __restrict__ pos, int* __restrict__ masks,
                   int* __restrict__ counts, int mc, int cap, float L,
-                  float r2cut, int words_rt) {
+                  float r2cut, int words_rt, int nz_arr) {
   const int words = W <= 4 ? W : words_rt;
   extern __shared__ float smem[];
   float* sx = smem;
@@ -50,8 +55,8 @@ lists_half_kernel(const float* __restrict__ pos, int* __restrict__ masks,
   float* sz = sy + cap;
   int* scnt = (int*)(sz + cap);  // [warps][cap]
   const CellId c = cell_of_block(blockIdx.x, mc);
-  const size_t R = (size_t)mc * mc;
-  const size_t S = R * mc * cap;
+  const size_t R = ZWRAP ? (size_t)mc * mc : (size_t)gridDim.x / mc;  // rows
+  const size_t S = state_slots<ZWRAP>(mc, cap, nz_arr);
   load_own(pos, S, cap, c.cell, sx, sy, sz);
   __syncthreads();
 
@@ -64,7 +69,7 @@ lists_half_kernel(const float* __restrict__ pos, int* __restrict__ masks,
 
   for (int k = 0; k < 5; ++k) {
     float xj = 0.f, yj = 0.f, zj = 0.f;
-    if (active) load_partner(pos, S, mc, cap, L, c, k, l, xj, yj, zj);
+    if (active) load_partner<ZWRAP>(pos, S, mc, cap, L, c, k, l, xj, yj, zj);
     uint32_t bits[W];
 #pragma unroll
     for (int w = 0; w < W; ++w) {
@@ -108,10 +113,11 @@ lists_half_kernel(const float* __restrict__ pos, int* __restrict__ masks,
 
 constexpr int kChunkWords = 11;
 
+template <bool ZWRAP>
 __global__ void MDNL_STRIDED_BOUND
 lists_half_kernel_strided(const float* __restrict__ pos,
                           int* __restrict__ masks, int* __restrict__ counts,
-                          int mc, int cap, float L, float r2cut) {
+                          int mc, int cap, float L, float r2cut, int nz_arr) {
   const int words = (cap + 31) / 32;
   const int warps = blockDim.x >> 5;
   extern __shared__ float smem[];
@@ -120,8 +126,8 @@ lists_half_kernel_strided(const float* __restrict__ pos,
   float* sz = sy + cap;
   int* scnt = (int*)(sz + cap);  // [warps][cap]
   const CellId c = cell_of_block(blockIdx.x, mc);
-  const size_t R = (size_t)mc * mc;
-  const size_t S = R * mc * cap;
+  const size_t R = ZWRAP ? (size_t)mc * mc : (size_t)gridDim.x / mc;  // rows
+  const size_t S = state_slots<ZWRAP>(mc, cap, nz_arr);
   load_own(pos, S, cap, c.cell, sx, sy, sz);
   for (int e = threadIdx.x; e < warps * cap; e += blockDim.x) scnt[e] = 0;
   __syncthreads();
@@ -133,7 +139,7 @@ lists_half_kernel_strided(const float* __restrict__ pos,
     const bool active = l < 3 * cap;
     for (int k = 0; k < 5; ++k) {
       float xj = 0.f, yj = 0.f, zj = 0.f;
-      if (active) load_partner(pos, S, mc, cap, L, c, k, l, xj, yj, zj);
+      if (active) load_partner<ZWRAP>(pos, S, mc, cap, L, c, k, l, xj, yj, zj);
       for (int w0 = 0; w0 < words; w0 += kChunkWords) {
         uint32_t bits[kChunkWords];
 #pragma unroll
@@ -174,33 +180,58 @@ lists_half_kernel_strided(const float* __restrict__ pos,
 
 }  // namespace mdnl
 
-extern "C" int mdnl_lists_half(const void* pos, void* masks, void* counts,
-                               int mc, int cap, float L, float r2cut,
-                               void* stream) {
+namespace {
+
+// The grid: one block per own cell of the first nz_grid layers.
+template <bool ZWRAP>
+int launch_lists_half(const void* pos, void* masks, void* counts, int mc,
+                      int cap, float L, float r2cut, int nz_grid, int nz_arr,
+                      void* stream) {
   using namespace mdnl;
-  if (cap < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = mc * mc * mc;
+  if (cap < 1 || nz_grid < 1 || (!ZWRAP && nz_grid >= nz_arr))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = nz_grid * mc * mc;
   if (cap > kLaneCap) {
     const size_t smem = (size_t)cap * (3 * sizeof(float) +
                                        (kStridedThreads / 32) * sizeof(int));
-    const cudaError_t err = fit_shared(lists_half_kernel_strided, smem);
+    const auto kernel = lists_half_kernel_strided<ZWRAP>;
+    const cudaError_t err = fit_shared(kernel, smem);
     if (err != cudaSuccess) return (int)err;
-    lists_half_kernel_strided<<<blocks, kStridedThreads, smem,
-                                (cudaStream_t)stream>>>(
-        (const float*)pos, (int*)masks, (int*)counts, mc, cap, L, r2cut);
+    kernel<<<blocks, kStridedThreads, smem, (cudaStream_t)stream>>>(
+        (const float*)pos, (int*)masks, (int*)counts, mc, cap, L, r2cut,
+        nz_arr);
     return (int)cudaGetLastError();
   }
   const int threads = round_up32(3 * cap);
   const size_t smem = (size_t)cap * (3 * sizeof(float) + (threads / 32) * sizeof(int));
   const int words = (cap + 31) / 32;
-  auto kernel = lists_half_kernel<11>;  // 5..11 words, cap <= 341
+  auto kernel = lists_half_kernel<11, ZWRAP>;  // 5..11 words, cap <= 341
   switch (words) {
-    case 1: kernel = lists_half_kernel<1>; break;
-    case 2: kernel = lists_half_kernel<2>; break;
-    case 3: kernel = lists_half_kernel<3>; break;
-    case 4: kernel = lists_half_kernel<4>; break;
+    case 1: kernel = lists_half_kernel<1, ZWRAP>; break;
+    case 2: kernel = lists_half_kernel<2, ZWRAP>; break;
+    case 3: kernel = lists_half_kernel<3, ZWRAP>; break;
+    case 4: kernel = lists_half_kernel<4, ZWRAP>; break;
   }
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)pos, (int*)masks, (int*)counts, mc, cap, L, r2cut, words);
+      (const float*)pos, (int*)masks, (int*)counts, mc, cap, L, r2cut, words,
+      nz_arr);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int mdnl_lists_half(const void* pos, void* masks, void* counts,
+                               int mc, int cap, float L, float r2cut,
+                               void* stream) {
+  return launch_lists_half<true>(pos, masks, counts, mc, cap, L, r2cut, mc, mc,
+                                 stream);
+}
+
+// Slab form: pos (3, nz_arr*mc, mc, cap); masks (5, words, nz_grid*mc, mc,
+// 3*cap) and counts (nz_grid*mc, mc, cap).
+extern "C" int mdnl_lists_half_slab(const void* pos, void* masks, void* counts,
+                                    int mc, int cap, float L, float r2cut,
+                                    int nz_grid, int nz_arr, void* stream) {
+  return launch_lists_half<false>(pos, masks, counts, mc, cap, L, r2cut,
+                                  nz_grid, nz_arr, stream);
 }

@@ -44,6 +44,12 @@ _ENTRIES = {
     "forces_half": [_P, _P, _I, _I, _F, _F],
     # pos, force, pe, mc, cap, L, r2cut, ushift (the want_pe form)
     "forces_half_pe": [_P, _P, _P, _I, _I, _F, _F, _F],
+    # the slab forms of K1-K3: the expand's arguments and key_base; the
+    # sweeps' arguments and nz_grid, nz_arr (layers walked, layers read)
+    "expand_slab": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I],
+    "lists_half_slab": [_P, _P, _P, _I, _I, _F, _F, _I, _I],
+    "forces_half_slab": [_P, _P, _I, _I, _F, _F, _I, _I],
+    "forces_half_slab_pe": [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I],
     # pos, pe, vir, mc, cap, L, r2cut, ushift
     "pe_virial_half": [_P, _P, _P, _I, _I, _F, _F, _F],
     # pos, counts, mc, cap, L, r2cut

@@ -134,25 +134,29 @@ def cell_keys(state: DenseState, spec: DenseSpec) -> torch.Tensor:
                        torch.full_like(key, spec.ncells))
 
 
-def row_starts(sorted_keys: torch.Tensor, spec) -> torch.Tensor:
+def row_starts(sorted_keys: torch.Tensor, spec,
+               key_base: int = 0) -> torch.Tensor:
     """(R+1,) i32 first sorted index of each (z, y) row: row r's cells span
-    keys [r*mc, (r+1)*mc), so start[r] = #keys < r*mc."""
-    q = torch.arange(spec.rows + 1, dtype=sorted_keys.dtype,
-                     device=sorted_keys.device) * spec.mc
+    keys [key_base + r*mc, key_base + (r+1)*mc), so start[r] = #keys below
+    that. Records keyed below ``key_base`` (a slab's left emigrants) lie
+    before row 0 and those keyed at or beyond ``key_base + R*mc`` after the
+    last row: no row holds them."""
+    q = key_base + torch.arange(spec.rows + 1, dtype=sorted_keys.dtype,
+                                device=sorted_keys.device) * spec.mc
     return torch.searchsorted(sorted_keys, q, out_int32=True)
 
 
 # ------------------------------------------------------------ expand kernel
 def expand_plain(chans: torch.Tensor, pid_s: torch.Tensor,
-                 keys_s: torch.Tensor, row_start: torch.Tensor,
-                 spec) -> tuple[torch.Tensor, torch.Tensor]:
+                 keys_s: torch.Tensor, row_start: torch.Tensor, spec,
+                 key_base: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ``expand`` (same arguments, same outputs):
     a batched gather. ``row_start`` is not needed here; the kernel uses it to
     bound its per-row searches."""
     mc, cap = spec.mc, spec.cap
     dev = chans.device
     ncell = spec.rows * mc
-    cells = torch.arange(ncell + 1, dtype=keys_s.dtype, device=dev)
+    cells = key_base + torch.arange(ncell + 1, dtype=keys_s.dtype, device=dev)
     off = torch.searchsorted(keys_s, cells)  # (ncell+1,) run starts
     length = (off[1:] - off[:-1])[:, None]
     slot = torch.arange(cap, device=dev)[None, :]
@@ -170,15 +174,18 @@ def expand_plain(chans: torch.Tensor, pid_s: torch.Tensor,
 
 
 def expand(chans: torch.Tensor, pid_s: torch.Tensor, keys_s: torch.Tensor,
-           row_start: torch.Tensor,
-           spec) -> tuple[torch.Tensor, torch.Tensor]:
+           row_start: torch.Tensor, spec,
+           key_base: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Key-sorted record stream -> dense cap-stride slots per cell.
 
     chans (6, M) f32 = x, y, z, vx, vy, vz in key order; pid_s (M,) i32;
-    keys_s (M,) i32 ascending; row_start (R+1,) i32 from ``row_starts``.
-    Returns posvel (6, R, mc, cap) f32 and pid (R, mc, cap) i32: cell c's
-    run of records fills slots (c, 0..len-1), cut at cap; the other slots get
-    the park lattice, zero velocity and pid -1.
+    keys_s (M,) i32 ascending; row_start (R+1,) i32 from ``row_starts`` with
+    the same ``key_base``. Returns posvel (6, R, mc, cap) f32 and pid
+    (R, mc, cap) i32: the run of records keyed ``key_base + c`` fills cell c's
+    slots (c, 0..len-1), cut at cap; the other slots get the park lattice,
+    zero velocity and pid -1. Records keyed outside [key_base,
+    key_base + R*mc) are dropped: a slab's emigrants and foreign records
+    (``ops/slab_kernels.py``, ``key_base = mc*mc``).
 
     Kernel: ``csrc/expand.cu``, replacing ``_expand_kernel`` of
     md_neighbor_list_tpu/ops/dense_cells.py. Bound by bytes on this card
@@ -190,9 +197,11 @@ def expand(chans: torch.Tensor, pid_s: torch.Tensor, keys_s: torch.Tensor,
     so this one kernel stands for them all and ``rebuild_dense`` takes no such
     flag; nor does the port need the JAX ``group``/``window`` sizing, which
     sets the TPU's DMA window (``ops/incremental.py`` keeps its overflow
-    predicate). CPU tensors take ``expand_plain``."""
+    predicate). A ``key_base`` other than 0 launches the slab form (entry
+    ``expand_slab``, its own launch count). CPU tensors take
+    ``expand_plain``."""
     if not chans.is_cuda:
-        return expand_plain(chans, pid_s, keys_s, row_start, spec)
+        return expand_plain(chans, pid_s, keys_s, row_start, spec, key_base)
     _cuda.check_cuda(chans, pid_s, keys_s, row_start)
     for t, dt in ((chans, torch.float32), (pid_s, torch.int32),
                   (keys_s, torch.int32), (row_start, torch.int32)):
@@ -206,25 +215,31 @@ def expand(chans: torch.Tensor, pid_s: torch.Tensor, keys_s: torch.Tensor,
     posvel = torch.empty((6,) + shape, dtype=torch.float32,
                          device=chans.device)
     pid = torch.empty(shape, dtype=torch.int32, device=chans.device)
-    _cuda.launch("expand", chans, pid_s, keys_s, row_start, posvel, pid,
-                 M, spec.rows, spec.mc, spec.cap, _park_step(spec))
+    geom = (M, spec.rows, spec.mc, spec.cap, _park_step(spec))
+    if key_base:
+        _cuda.launch("expand_slab", chans, pid_s, keys_s, row_start, posvel,
+                     pid, *geom, key_base)
+    else:
+        _cuda.launch("expand", chans, pid_s, keys_s, row_start, posvel, pid,
+                     *geom)
     return posvel, pid
 
 
 def sort_expand(keys: torch.Tensor, chans: torch.Tensor, pid: torch.Tensor,
-                spec) -> tuple[DenseState, torch.Tensor]:
+                spec, key_base: int = 0) -> tuple[DenseState, torch.Tensor]:
     """The rebuild core: one stable sort by cell key, row starts, and the
     expand kernel. ``keys`` (M,) i32, ``chans`` (6, M) f32, ``pid`` (M,) i32.
-    Records keyed at or beyond rows*mc (empty slots) are dropped. The
+    Records keyed outside [key_base, key_base + rows*mc) are dropped: empty
+    slots (keyed beyond), and a slab's emigrants and foreign records. The
     sort must be stable: slot order inside a cell is the records' order in the
     input, which ``dense_ref.rebuild_reference`` reproduces.
 
     Returns (DenseState, row_start). Counting the valid slots is the caller's
     overflow check."""
     keys_s, order = torch.sort(keys, stable=True)
-    row_start = row_starts(keys_s, spec)
+    row_start = row_starts(keys_s, spec, key_base)
     posvel, pid4 = expand(chans[:, order], pid[order], keys_s, row_start,
-                          spec)
+                          spec, key_base)
     return DenseState(pos=posvel[:3], vel=posvel[3:], pid=pid4), row_start
 
 

@@ -30,6 +30,14 @@ has one thread per window lane (half sweep) or per z-group and own slot (full
 sweep); above, each kernel's lane-strided form runs blocks of 512 threads that
 serve lanes or own slots t, t + 512, ... (``csrc/geom.cuh``).
 
+Slab forms of the half sweep (``dense_lists_half_slab``,
+``dense_forces_half_slab``): the same kernels over an array of nz_arr z-layers,
+(3, nz_arr*mc, mc, cap), walking its first nz_arr - 1 layers with no wrap in
+z: the partner layer of layer z is z + dz itself, and the last layer is read
+only as a partner. The slab engine (``ops/slab_kernels.py``) reads its owned
+layers followed by a ghost layer this way, or its owned layers alone, or its
+last owned layer and the ghost. x and y wrap as in the cube.
+
 Full sweep: every pair is visited from both partners over all nine (dz, dy)
 rows, nothing is written outside the own cell, and totals over slots count
 each pair twice. It takes ``valid`` and honours it whatever the state holds:
@@ -61,16 +69,24 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _check_state(pos4: torch.Tensor, spec) -> None:
-    if pos4.shape != (3, spec.rows, spec.mc, spec.cap) or \
-            pos4.dtype != torch.float32:
+def _check_state(pos4: torch.Tensor, spec, zwrap: bool = True) -> int:
+    """Check the state a half- or full-sweep wrapper reads; return its
+    z-layers. The cube forms (``zwrap``) take (3, mc*mc, mc, cap); the slab
+    forms (3, nz_arr*mc, mc, cap) with nz_arr >= 2."""
+    mc, cap = spec.mc, spec.cap
+    rows = mc * mc if zwrap or pos4.dim() != 4 else pos4.shape[1]
+    if pos4.shape != (3, rows, mc, cap) or pos4.dtype != torch.float32:
         raise ValueError(
-            f"expected f32 positions of shape {(3, spec.rows, spec.mc, spec.cap)}, "
+            f"expected f32 positions of shape {(3, rows, mc, cap)}, "
             f"got {pos4.dtype} {tuple(pos4.shape)}")
-    if spec.rows != spec.mc * spec.mc:
+    if zwrap and spec.rows != rows:
         raise ValueError("the sweep kernels take the cubic layout only")
+    if not zwrap and (rows % mc or rows < 2 * mc):
+        raise ValueError(f"a slab form reads whole z-layers of {mc} rows, at "
+                         f"least two; got {rows} rows")
     if pos4.is_cuda:
         _cuda.check_cuda(pos4)
+    return rows // mc
 
 
 def _check_valid(valid: torch.Tensor, pos4: torch.Tensor, spec) -> None:
@@ -91,10 +107,12 @@ def _half_keep(cap: int, device) -> torch.Tensor:
     return (lane >= 2 * cap) | ((lane >= cap) & (lane - cap > slot))
 
 
-def _layer_pairs(grid: torch.Tensor, spec, z: int, r2cut: float):
+def _layer_pairs(grid: torch.Tensor, spec, z: int, r2cut: float,
+                 zwrap: bool = True):
     """For own z-layer ``z`` of ``grid`` (3, mcz, mcy, mcx, cap), yield per
     offset row k: (dz, dy, dxv, dyv, dzv, hit), each (mcy, mcx, cap, 3cap),
-    d = own - partner with the partner's periodic image pre-shifted."""
+    d = own - partner with the partner's periodic image pre-shifted. Without
+    ``zwrap`` (slab forms) the partner layer is z + dz of the array as it is."""
     mc, cap = spec.mc, spec.cap
     dev = grid.device
     fL = _f32(spec.L)
@@ -105,7 +123,8 @@ def _layer_pairs(grid: torch.Tensor, spec, z: int, r2cut: float):
     yrow = torch.arange(mc, device=dev)[:, None, None, None]
     keep0 = _half_keep(cap, dev)
     for k, (dz, dy) in enumerate(HALF_OFFSETS5):
-        nbr = torch.roll(grid[:, (z + dz) % mc], -dy, dims=1)  # row y+dy at y
+        zp = (z + dz) % mc if zwrap else z + dz
+        nbr = torch.roll(grid[:, zp], -dy, dims=1)  # row y+dy at y
         left = torch.roll(nbr, 1, dims=2)  # cell x holds x-1's data
         right = torch.roll(nbr, -1, dims=2)
         wx = torch.cat([left[0] + sh_m, nbr[0], right[0] + sh_p], dim=-1)
@@ -116,7 +135,7 @@ def _layer_pairs(grid: torch.Tensor, spec, z: int, r2cut: float):
             yj = yj + torch.where(yrow + 1 >= mc, fL, 0.0).to(torch.float32)
         elif dy == -1:
             yj = yj + torch.where(yrow - 1 < 0, -fL, 0.0).to(torch.float32)
-        if dz == 1 and z + 1 >= mc:
+        if zwrap and dz == 1 and z + 1 >= mc:
             zj = zj + fL
         dxv = own[0][..., None] - xj
         dyv = own[1][..., None] - yj
@@ -129,24 +148,29 @@ def _layer_pairs(grid: torch.Tensor, spec, z: int, r2cut: float):
 
 
 def _grid(a: torch.Tensor, spec) -> torch.Tensor:
-    return a.reshape(a.shape[:-3] + (spec.mc, spec.mc, spec.mc, spec.cap))
+    """(..., layers*mc, mc, cap) -> (..., layers, mc, mc, cap)."""
+    return a.reshape(a.shape[:-3] + (-1, spec.mc, spec.mc, spec.cap))
 
 
 # -------------------------------------------------------------- K2: lists
-def lists_half_plain(pos4: torch.Tensor, spec, radius: float):
-    """Plain PyTorch version of ``dense_lists_half``, one z-layer at a time."""
+def lists_half_plain(pos4: torch.Tensor, spec, radius: float,
+                     zwrap: bool = True):
+    """Plain PyTorch version of ``dense_lists_half`` (and, without
+    ``zwrap``, of ``dense_lists_half_slab``), one z-layer at a time."""
     mc, cap = spec.mc, spec.cap
     words = mask_words(cap)
     dev = pos4.device
     grid = _grid(pos4, spec)
+    nz = mc if zwrap else grid.shape[1] - 1  # layers walked
     r2cut = _f32(radius * radius)
-    masks = torch.empty((5, words, mc, mc, mc, 3 * cap), dtype=torch.int32,
+    masks = torch.empty((5, words, nz, mc, mc, 3 * cap), dtype=torch.int32,
                         device=dev)
-    counts = torch.zeros((mc, mc, mc, cap), dtype=torch.int32, device=dev)
+    counts = torch.zeros((nz, mc, mc, cap), dtype=torch.int32, device=dev)
     weight = (torch.ones((), dtype=torch.int64, device=dev)
               << (torch.arange(cap, device=dev) % MASK_BITS))[:, None]
-    for z in range(mc):
-        for k, _, _, _, _, _, _, hit in _layer_pairs(grid, spec, z, r2cut):
+    for z in range(nz):
+        for k, _, _, _, _, _, _, hit in _layer_pairs(grid, spec, z, r2cut,
+                                                     zwrap):
             counts[z] += hit.sum(dim=-1, dtype=torch.int32)
             bits = hit * weight  # (mcy, mcx, cap, 3cap) i64, distinct bits
             for w in range(words):
@@ -154,8 +178,8 @@ def lists_half_plain(pos4: torch.Tensor, spec, radius: float):
                 # reinterpret the low 32 bits as i32 (bit 31 = sign bit)
                 word = torch.where(word >= 2**31, word - 2**32, word)
                 masks[k, w, z] = word.to(torch.int32)
-    return (counts.reshape(spec.rows, mc, cap),
-            masks.reshape(5, words, spec.rows, mc, 3 * cap))
+    return (counts.reshape(nz * mc, mc, cap),
+            masks.reshape(5, words, nz * mc, mc, 3 * cap))
 
 
 def dense_lists_half(pos4: torch.Tensor, spec, radius: float):
@@ -184,6 +208,30 @@ def dense_lists_half(pos4: torch.Tensor, spec, radius: float):
     counts = torch.empty(shape, dtype=torch.int32, device=pos4.device)
     _cuda.launch("lists_half", pos4, masks, counts, spec.mc, spec.cap,
                  _f32(spec.L), _f32(radius * radius))
+    return counts, masks
+
+
+def dense_lists_half_slab(pos: torch.Tensor, spec, radius: float):
+    """Slab form of ``dense_lists_half``: ``pos`` (3, nz_arr*mc, mc, cap),
+    the first nz_arr - 1 layers walked with no z wrap (module docstring).
+    Returns counts ((nz_arr-1)*mc, mc, cap) and masks (5, words,
+    (nz_arr-1)*mc, mc, 3cap) in ``dense_lists_half``'s layout; the pairs
+    with the last layer are attributed to the layer below it.
+
+    Kernel: ``csrc/lists_half.cu``, entry ``lists_half_slab`` (the list
+    kernel with ZWRAP = false), replacing the list kernels as
+    md_neighbor_list_tpu/ops/slab_kernels.py::slab_lists_half runs them. CPU
+    tensors take ``lists_half_plain(..., zwrap=False)``."""
+    nz_arr = _check_state(pos, spec, zwrap=False)
+    if not pos.is_cuda:
+        return lists_half_plain(pos, spec, radius, zwrap=False)
+    rows = (nz_arr - 1) * spec.mc
+    masks = torch.empty((5, mask_words(spec.cap), rows, spec.mc,
+                         3 * spec.cap), dtype=torch.int32, device=pos.device)
+    counts = torch.empty((rows, spec.mc, spec.cap), dtype=torch.int32,
+                         device=pos.device)
+    _cuda.launch("lists_half_slab", pos, masks, counts, spec.mc, spec.cap,
+                 _f32(spec.L), _f32(radius * radius), nz_arr - 1, nz_arr)
     return counts, masks
 
 
@@ -228,23 +276,25 @@ def _lj_terms(r2: torch.Tensor, hit: torch.Tensor):
 
 
 def forces_half_plain(pos4: torch.Tensor, spec, rc: float,
-                      want_pe: bool = False):
-    """Plain PyTorch version of ``dense_forces_half``, one z-layer at a
-    time: own-slot sums over window lanes, and the negated reaction summed
-    over own slots, folded from window lanes onto partner cells
+                      want_pe: bool = False, zwrap: bool = True):
+    """Plain PyTorch version of ``dense_forces_half`` (and, without
+    ``zwrap``, of ``dense_forces_half_slab``), one z-layer at a time:
+    own-slot sums over window lanes, and the negated reaction summed over own
+    slots, folded from window lanes onto partner cells
     (seg0[x+1] + seg1[x] + seg2[x-1]) and added at the partner row."""
     mc, cap = spec.mc, spec.cap
     grid = _grid(pos4, spec)
+    nz = mc if zwrap else grid.shape[1] - 1  # layers walked
     r2cut = _f32(rc * rc)
     ushift = lj_shift(rc)
     force = torch.zeros_like(grid)
-    pe = torch.zeros_like(grid[0]) if want_pe else None
-    for z in range(mc):
+    pe = torch.zeros_like(grid[0, :nz]) if want_pe else None
+    for z in range(nz):
         for _, dz, dy, dxv, dyv, dzv, r2, hit in _layer_pairs(grid, spec, z,
-                                                              r2cut):
+                                                              r2cut, zwrap):
             s2, s6 = _lj_terms(r2, hit)
             f = torch.where(hit, 24.0 * s6 * (2.0 * s6 - 1.0) * s2, 0.0)
-            zp = (z + dz) % mc
+            zp = (z + dz) % mc if zwrap else z + dz
             for c, d in enumerate((dxv, dyv, dzv)):
                 p = f * d  # (mcy, mcx, cap, 3cap)
                 force[c, z] += p.sum(dim=-1)
@@ -256,9 +306,8 @@ def forces_half_plain(pos4: torch.Tensor, spec, rc: float,
             if want_pe:
                 u = torch.where(hit, 4.0 * (s6 * s6 - s6) - ushift, 0.0)
                 pe[z] += u.sum(dim=-1)
-    shape = (spec.rows, mc, cap)
-    return (force.reshape((3,) + shape),
-            pe.reshape(shape) if want_pe else None)
+    return (force.reshape(pos4.shape),
+            pe.reshape(nz * mc, mc, cap) if want_pe else None)
 
 
 def dense_forces_half(pos4: torch.Tensor, spec, rc: float,
@@ -288,6 +337,40 @@ def dense_forces_half(pos4: torch.Tensor, spec, rc: float,
     pe = torch.empty_like(pos4[0])
     _cuda.launch("forces_half_pe", pos4, force, pe, *geom,
                  _f32(lj_shift(rc)))
+    return force, pe
+
+
+def dense_forces_half_slab(pos: torch.Tensor, spec, rc: float,
+                           want_pe: bool = False):
+    """Slab form of ``dense_forces_half``: ``pos`` (3, nz_arr*mc, mc, cap),
+    the first nz_arr - 1 layers walked with no z wrap (module docstring).
+    Returns (force shaped like ``pos``, pe ((nz_arr-1)*mc, mc, cap) | None).
+    ``force`` holds every own-slot sum and every reaction: the last layer's
+    is the reaction of the layer below onto it (the slab engine's seam, or its
+    interior pass's top reaction). PE is attributed to the own slot.
+
+    Kernel: ``csrc/force_half.cu``, entries ``forces_half_slab`` and
+    ``forces_half_slab_pe`` (the half-force kernel with ZWRAP = false),
+    replacing the half-force kernel as
+    md_neighbor_list_tpu/ops/slab_kernels.py runs it in
+    ``slab_forces_half``, ``slab_forces_interior`` and
+    ``slab_forces_boundary``: the reactions that the TPU kernel writes through
+    its output maps land here by the kernel's atomics at the partner's slot,
+    the seam layer included. CPU tensors take
+    ``forces_half_plain(..., zwrap=False)``."""
+    nz_arr = _check_state(pos, spec, zwrap=False)
+    if not pos.is_cuda:
+        return forces_half_plain(pos, spec, rc, want_pe, zwrap=False)
+    force = torch.zeros_like(pos)  # the kernel accumulates into it
+    geom = (spec.mc, spec.cap, _f32(spec.L), _f32(rc * rc))
+    layers = (nz_arr - 1, nz_arr)
+    if not want_pe:
+        _cuda.launch("forces_half_slab", pos, force, *geom, *layers)
+        return force, None
+    pe = torch.empty(((nz_arr - 1) * spec.mc, spec.mc, spec.cap),
+                     dtype=torch.float32, device=pos.device)
+    _cuda.launch("forces_half_slab_pe", pos, force, pe, *geom,
+                 _f32(lj_shift(rc)), *layers)
     return force, pe
 
 

@@ -1,0 +1,375 @@
+"""DenseSlabSimulator: slab domain decomposition of the dense engine (PyTorch
+port of ``md_neighbor_list_tpu/parallel/dense_slab.py``).
+
+One process per slab, on ``torch.distributed`` (``parallel/mesh.py``); each
+runs the dense engine over its own z-slab, and every halo payload is a
+contiguous dense layer block:
+
+  decomposition  slabs along z: nz contiguous z-layers of cell rows per rank
+                 (z leads the dense layout's rows, so a layer is one
+                 contiguous (3, mc, mc, cap) block: no send lists, no gathers)
+  per step       1 shift: my first owned layer -> the left neighbour's
+                 right-ghost block (positions only; the ghost SET stays valid
+                 between rebuilds by the skin argument), posted before the
+                 interior force pass and waited on after it; 1 shift returning
+                 the Newton-3 seam reactions; 1 scalar max for the rebuild
+                 vote, read on the host
+  per rebuild    wrap; exchange the BOUNDARY LAYERS both ways (pos, vel, pid:
+                 emigrants can only live there, having moved <= 1 cell); key
+                 own + received records relative to my slab (emigrants and
+                 foreigners sort outside the owned key range and drop out);
+                 one stable sort + the expand kernel re-bins everything; the
+                 ghost pids are refreshed from the new binning
+  forces         half-sweep kernels with dz >= 0 in their slab forms: pairs
+                 across my LOWER face are evaluated by the left neighbour,
+                 which shifts back one contiguous reaction layer (seam)
+
+Conservation: a particle is kept by exactly one rank (the key ranges partition
+the ring); the global sum of kept slots must equal N at every rebuild, else
+the sticky overflow flag triggers the host-side rollback with cap growth that
+the dense engine uses.
+
+P = 1 is the SELF-HALO mode: the whole distributed program runs on one rank
+(shifts are the identity), so the decomposition can be driven on one card. It
+keeps the JAX package's two specialisations: no boundary exchange (it would
+enter each boundary particle twice into the sort), and unwrapped keys (the
+ring mod would alias the top layer to a left-emigrant key). For production
+single-card runs ``DenseSimulator`` is the engine (no ghost layer).
+
+As in ``models/dense_lj.py`` the engine runs eagerly, one host read per step
+decides the rebuild, and a chunk updates the carry IN PLACE (``run`` clones it
+at the start of each chunk for the rollback).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from md_neighbor_list_tpu_torch.core.box import Box
+from md_neighbor_list_tpu_torch.core.config import MDConfig
+from md_neighbor_list_tpu_torch.core.system import System, init_lattice
+from md_neighbor_list_tpu_torch.ops.dense_cells import grow_cap
+from md_neighbor_list_tpu_torch.ops.slab_kernels import (SlabSpec,
+                                                         slab_forces_boundary,
+                                                         slab_forces_half,
+                                                         slab_forces_interior,
+                                                         slab_keys,
+                                                         slab_lists_half,
+                                                         slab_sort_expand)
+from md_neighbor_list_tpu_torch.parallel.mesh import Ring, rank_device
+
+
+def make_slab_spec(box: Box, rs: float, p: int, cap: int = 40) -> SlabSpec:
+    """x/y keep the finest valid grid; the GLOBAL z cell count is rounded
+    DOWN to a multiple of P (uniform slabs), coarsening only the z edge,
+    which stays >= rs (see SlabSpec)."""
+    mc = max(int(box.L / rs), 1)
+    mc_z = (mc // p) * p
+    if mc < 3 or mc_z < p:
+        raise ValueError(
+            f"box too small for a {p}-slab dense grid (mc={mc}, "
+            f"mc_z={mc_z} at L={box.L:.3g}, rs={rs}); fewer ranks or "
+            "more particles")
+    return SlabSpec(mc=mc, nz=mc_z // p, mc_z=mc_z, cap=cap, L=box.L,
+                    cell_size=box.L / mc, cell_z=box.L / mc_z)
+
+
+class SlabCarry(NamedTuple):
+    """One rank's slab state (the JAX carry's entry of this rank)."""
+
+    pos: torch.Tensor  # (3, rows, mc, cap) owned, wrapped at rebuild only
+    vel: torch.Tensor  # (3, rows, mc, cap)
+    pid: torch.Tensor  # (rows, mc, cap) i32, < 0 = empty slot
+    gpos: torch.Tensor  # (3, mc, mc, cap) right-ghost layer, seam-shifted
+    gpid: torch.Tensor  # (mc, mc, cap) i32
+    force: torch.Tensor  # (3, rows, mc, cap)
+    ref_pos: torch.Tensor  # (3, rows, mc, cap) positions at the last rebuild
+    n_rebuilds: torch.Tensor  # () i32
+    n_migrated: torch.Tensor  # () i32 particles re-homed across slabs
+    overflow: torch.Tensor  # () bool (sticky)
+
+
+def _clone(carry: SlabCarry) -> SlabCarry:
+    return SlabCarry(*(t.clone() for t in carry))
+
+
+class DenseSlabSimulator:
+    """LJ/NVE over P dense slabs, this process being rank ``ring.rank``. API
+    mirrors ``DenseSimulator``. ``ring`` is a ``parallel.mesh.Ring`` (None:
+    P = 1 with no process group); ``config.mesh_devices`` must be its size.
+    ``device`` "cuda" runs on ``cuda:rank % device_count``."""
+
+    def __init__(self, config: MDConfig, cap: int = 40, device="cuda",
+                 ring: Ring | None = None):
+        if config.mesh_devices < 1:
+            raise ValueError("DenseSlabSimulator needs mesh_devices >= 1")
+        self.ring = Ring() if ring is None else ring
+        if self.ring.size != config.mesh_devices:
+            raise ValueError(
+                f"config.mesh_devices = {config.mesh_devices} but the ring "
+                f"has {self.ring.size} ranks")
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "DenseSlabSimulator runs on a CUDA device by default and none "
+                "is available; pass device='cpu' to run the plain versions")
+        self.device = rank_device(device, self.ring.rank)
+        self.config = config
+        self.box = Box.from_density(config.n, config.rho)
+        self.p = config.mesh_devices
+        self.cap = cap
+        self.spec = make_slab_spec(self.box, config.rs, self.p, cap)
+
+    def _grow(self) -> None:
+        self.cap = grow_cap(self.cap)
+        self.spec = make_slab_spec(self.box, self.config.rs, self.p, self.cap)
+
+    # ------------------------------------------------------------ internals
+    def _seam_shift(self, layer_pos: torch.Tensor) -> torch.Tensor:
+        """The ring seam's +L on the z channel of a received right-ghost
+        layer (rank P-1's right neighbour is rank 0), added by the RECEIVER
+        with one rounded f32 add: the ghost images then equal the cube's
+        in-kernel ``z + L`` bit for bit. Returns a tensor of its own."""
+        if self.ring.rank != self.p - 1:
+            return layer_pos
+        g = layer_pos.clone()  # at P = 1 the "received" layer is my own
+        g[2] += float(np.float32(self.spec.L))
+        return g
+
+    def _refresh_ghosts(self, carry: SlabCarry) -> SlabCarry:
+        """Shift my first owned layer's positions to the left neighbour (the
+        ghost SET is frozen between rebuilds)."""
+        g = self.ring.shift_minus(carry.pos[:, :self.spec.mc])
+        return carry._replace(gpos=self._seam_shift(g))
+
+    def _rebuild(self, carry: SlabCarry) -> SlabCarry:
+        spec, ring = self.spec, self.ring
+        mc, nz = spec.mc, spec.nz
+        pos = torch.remainder(carry.pos, spec.L)
+        z0 = ring.rank * nz
+        valid = carry.pid >= 0
+        if self.p == 1:
+            # self-halo mode: every particle is resident, and a
+            # self-exchange would enter each boundary particle twice; the
+            # unwrapped keys own all mc_z layers
+            k_own = slab_keys(pos, valid, spec, z0, wrap=False)
+            keys = k_own.reshape(-1)
+            chans = torch.cat([pos.reshape(3, -1), carry.vel.reshape(3, -1)])
+            pids = carry.pid.reshape(-1)
+        else:
+            # emigrants live only in the boundary layers (they moved <= 1
+            # cell since the last rebuild), so exchanging those layers IS
+            # the migration transport; non-residents key themselves out. No
+            # seam shift: records enter the sort in the wrapped global frame
+            first = slice(0, mc)
+            last = slice((nz - 1) * mc, nz * mc)
+            recv_l = [ring.shift_plus(t) for t in (  # left nbr's top layer
+                pos[:, last], carry.vel[:, last], carry.pid[last])]
+            recv_r = [ring.shift_minus(t) for t in (  # right nbr's bottom
+                pos[:, first], carry.vel[:, first], carry.pid[first])]
+            k_own = slab_keys(pos, valid, spec, z0)
+            k_l = slab_keys(recv_l[0], recv_l[2] >= 0, spec, z0)
+            k_r = slab_keys(recv_r[0], recv_r[2] >= 0, spec, z0)
+            keys = torch.cat([k_own.reshape(-1), k_l.reshape(-1),
+                              k_r.reshape(-1)])
+            chans = torch.cat([
+                torch.cat([a.reshape(3, -1), b.reshape(3, -1), c.reshape(3, -1)],
+                          dim=1)
+                for a, b, c in ((pos, recv_l[0], recv_r[0]),
+                                (carry.vel, recv_l[1], recv_r[1]))])
+            pids = torch.cat([carry.pid.reshape(-1), recv_l[2].reshape(-1),
+                              recv_r[2].reshape(-1)])
+        new, _ = slab_sort_expand(keys, chans, pids, spec)
+
+        # conservation: every particle kept by exactly one rank
+        kept = ring.sum(torch.sum(new.pid >= 0))
+        # migration diagnostic: own records that keyed out of my slab
+        emigrant = valid & ((k_own < mc * mc) | (k_own >= mc * mc * (nz + 1)))
+        moved = ring.sum(torch.sum(emigrant))
+        # the ghost SET (pids) changes only here; the positions are refreshed
+        # by the step after the vote (left stale here on purpose)
+        gpid = ring.shift_minus(new.pid[:mc])
+        return carry._replace(
+            pos=new.pos, vel=new.vel, pid=new.pid, gpid=gpid,
+            ref_pos=new.pos.clone(),  # new.pos is drifted in place
+            n_rebuilds=carry.n_rebuilds + 1,
+            n_migrated=carry.n_migrated + moved.to(torch.int32),
+            overflow=carry.overflow | (kept != self.config.n))
+
+    def _ext(self, carry: SlabCarry):
+        """The extended (owned + ghost) positions and validity."""
+        return (torch.cat([carry.pos, carry.gpos], dim=1),
+                torch.cat([carry.pid >= 0, carry.gpid >= 0], dim=0))
+
+    def _forces(self, carry: SlabCarry, want_pe: bool = False):
+        """(force, pe_slots) by the combined slab pass, the left neighbour's
+        seam added to my first layer."""
+        force, seam, pe = slab_forces_half(*self._ext(carry), self.spec,
+                                           self.config.rc, want_pe)
+        recv = self.ring.shift_plus(seam)
+        force[:, :self.spec.mc] += recv
+        return force, pe
+
+    def step_fn(self, carry: SlabCarry) -> SlabCarry:
+        """One velocity-Verlet step. Updates ``carry``'s tensors in place."""
+        cfg, spec, ring = self.config, self.spec, self.ring
+        mc, nz = spec.mc, spec.nz
+        dt = float(np.float32(cfg.dt))
+        carry.vel.add_(carry.force, alpha=0.5 * dt)
+        carry.pos.add_(carry.vel, alpha=dt)  # unwrapped between rebuilds
+
+        need = cfg.rebuild_every_step
+        if not need:
+            disp = carry.pos - carry.ref_pos  # exact: both unwrapped
+            d2 = torch.sum(disp * disp, dim=0)
+            d2max = ring.max(torch.max(torch.where(carry.pid >= 0, d2, 0.0)))
+            # the one host read of the step: the vote decides what to launch
+            need = bool(4.0 * d2max > cfg.skin * cfg.skin)
+        if need:
+            carry = self._rebuild(carry)
+
+        # ghost positions of the post-vote state: posted before the interior
+        # pass, which does not read them, and waited on after it
+        pending = ring.shift_minus(carry.pos[:, :mc], async_op=True)
+        if nz >= 2:
+            f_low, top_rxn = slab_forces_interior(carry.pos, spec, cfg.rc)
+            carry = carry._replace(gpos=self._seam_shift(pending.wait()))
+            f_last, seam = slab_forces_boundary(
+                carry.pos[:, (nz - 1) * mc:], carry.gpos, carry.gpid >= 0,
+                spec, cfg.rc)
+            recv = ring.shift_plus(seam)
+            force = torch.cat([f_low, f_last + top_rxn], dim=1)
+            force[:, :mc] += recv
+        else:  # a single owned layer: no interior exists
+            carry = carry._replace(gpos=self._seam_shift(pending.wait()))
+            force, _ = self._forces(carry)
+        carry.vel.add_(force, alpha=0.5 * dt)
+        return carry._replace(force=force)
+
+    def _run_chunk(self, carry: SlabCarry, nsteps: int) -> SlabCarry:
+        for _ in range(nsteps):
+            carry = self.step_fn(carry)
+        return carry
+
+    def _initial_build(self, carry: SlabCarry) -> SlabCarry:
+        carry = self._rebuild(carry)
+        carry = self._refresh_ghosts(carry)  # the rebuild leaves gpos stale
+        force, _ = self._forces(carry)
+        return carry._replace(force=force)
+
+    # ----------------------------------------------------------------- host
+    def _slab_of(self, pos: torch.Tensor) -> torch.Tensor:
+        """The slab (rank) of each packed position, from its z cell."""
+        spec = self.spec
+        iz = torch.clamp((pos[:, 2] / spec.cell_z).to(torch.int64), 0,
+                         spec.mc_z - 1)
+        return iz // spec.nz
+
+    def _scatter(self, system: System, slab: torch.Tensor) -> SlabCarry:
+        """This rank's slab of a global System, in the first slots in pid
+        order (any slots: the initial rebuild sorts them into place)."""
+        spec, dev = self.spec, self.device
+        shape = (spec.rows, spec.mc, spec.cap)
+        sel = torch.nonzero(slab == self.ring.rank)[:, 0]
+        k = sel.shape[0]
+        pos = torch.zeros((3, spec.slots), dtype=torch.float32, device=dev)
+        vel = torch.zeros_like(pos)
+        pid = torch.full((spec.slots,), -1, dtype=torch.int32, device=dev)
+        pos[:, :k] = system.pos[sel].T
+        vel[:, :k] = system.vel[sel].T
+        pid[:k] = system.pid[sel]
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        ghost = (spec.mc, spec.mc, spec.cap)
+        return SlabCarry(
+            pos=pos.reshape((3,) + shape), vel=vel.reshape((3,) + shape),
+            pid=pid.reshape(shape),
+            gpos=torch.zeros((3,) + ghost, dtype=torch.float32, device=dev),
+            gpid=torch.full(ghost, -1, dtype=torch.int32, device=dev),
+            force=torch.zeros((3,) + shape, dtype=torch.float32, device=dev),
+            ref_pos=pos.reshape((3,) + shape).clone(),
+            n_rebuilds=zero, n_migrated=zero.clone(),
+            overflow=torch.zeros((), dtype=torch.bool, device=dev))
+
+    def gather(self, carry: SlabCarry) -> System:
+        """The global System in original-pid order, on every rank
+        (host-side; positions wrapped into [0, L))."""
+        pid = self.ring.gather(carry.pid).reshape(-1)
+        keep = pid >= 0
+        n = self.config.n
+        if int(keep.sum()) != n:
+            raise ValueError(f"lost particles: {int(keep.sum())} != {n}")
+        order = pid[keep].long()
+        out = {}
+        for name in ("pos", "vel", "force"):
+            a = self.ring.gather(getattr(carry, name))  # (P, 3, rows, mc, cap)
+            a = a.movedim(1, -1).reshape(-1, 3)[keep]
+            dst = torch.empty((n, 3), dtype=torch.float32, device=a.device)
+            dst[order] = a
+            out[name] = dst
+        return System(pos=torch.remainder(out["pos"], self.box.L),
+                      vel=out["vel"], force=out["force"],
+                      pid=torch.arange(n, dtype=torch.int32,
+                                       device=self.device))
+
+    # ------------------------------------------------------------------ API
+    def init(self, generator: torch.Generator | None = None) -> SlabCarry:
+        """A lattice start: every rank makes the same System (same generator,
+        same seed) and takes its own slab of it. For another start pass a
+        System to ``build``."""
+        cfg = self.config
+        system, _ = init_lattice(cfg.n, cfg.rho, generator, cfg.temperature,
+                                 self.device)
+        return self.build(system)
+
+    def build(self, system: System) -> SlabCarry:
+        """Slab carry from a global System (the same on every rank); grows
+        ``cap`` until every slab's particles have slots and no cell
+        overflows."""
+        system = System(*(t.to(self.device) for t in system))
+        while True:
+            slab = self._slab_of(system.pos)
+            fullest = int(torch.bincount(slab, minlength=self.p).max())
+            if fullest <= self.spec.slots:  # the same verdict on every rank
+                carry = self._initial_build(self._scatter(system, slab))
+                if not bool(carry.overflow):
+                    return carry
+            self._grow()
+
+    def run(self, carry: SlabCarry, nsteps: int,
+            chunk: int = 100) -> SlabCarry:
+        """Advance ``nsteps`` steps in chunks. A chunk in which any rank's
+        cell overflowed is undone on every rank (the flag is global): the
+        state at its start is gathered, rebuilt with a larger ``cap``, and
+        the chunk is redone."""
+        done = 0
+        while done < nsteps:
+            this = min(chunk, nsteps - done)
+            snapshot = _clone(carry)
+            carry = self._run_chunk(carry, this)
+            if bool(carry.overflow):
+                system = self.gather(snapshot)
+                self._grow()
+                carry = self.build(system)
+                continue
+            done += this
+        return carry
+
+    def energies(self, carry: SlabCarry):
+        """(KE, PE) summed over the ring, as 0-d tensors; PE is the shifted
+        LJ potential, by the want_pe form of the combined pass."""
+        v = carry.pid >= 0
+        ke = 0.5 * torch.sum(torch.where(v[None], carry.vel, 0.0) ** 2)
+        _, pe = self._forces(carry, want_pe=True)
+        pe = torch.sum(torch.where(v, pe, 0.0))
+        return self.ring.sum(ke), self.ring.sum(pe)
+
+    def lists(self, carry: SlabCarry):
+        """(this rank's counts (rows, mc, cap), global exact pair count): the
+        distributed list artifact at rs, each pair attributed to one rank."""
+        counts, _ = slab_lists_half(*self._ext(carry), self.spec,
+                                    self.config.rs)
+        total = self.ring.sum(torch.sum(torch.where(carry.pid >= 0, counts, 0)))
+        return counts, int(total)

@@ -1,0 +1,137 @@
+"""The ring of slab ranks on ``torch.distributed`` (PyTorch port of
+``md_neighbor_list_tpu/parallel/mesh.py``).
+
+The JAX package runs one SPMD program over a 1-D device mesh, with
+``ppermute`` halo shifts and ``psum``/``pmax`` reductions under
+``shard_map``. Here each process holds its own slab and talks to its ring
+neighbours through a process group: a shift is one ``dist.batch_isend_irecv``
+pair, a reduction one ``dist.all_reduce``. Backends: ``gloo`` for CPU tensors,
+``nccl`` for CUDA tensors (one process per card, rank r on
+``cuda:r % device_count``).
+
+With no group (P = 1) a shift is the identity and a reduction returns its
+input: the self-``ppermute`` of the JAX P = 1 mode. A group of one process
+keeps the identity shifts and still sends its reductions through the group.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+
+
+def backend_for(device) -> str:
+    """The process-group backend for tensors on ``device``."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def rank_device(device, rank: int) -> torch.device:
+    """The device rank ``rank`` works on: ``cuda:rank % device_count`` for
+    the card, else ``device`` itself."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device for an nccl rank")
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return device
+
+
+def init_ring(device, init_method: str | None = None,
+              world_size: int | None = None, rank: int | None = None,
+              store=None) -> "Ring":
+    """Start this process's member of the ring: ``init_process_group`` with
+    the backend for ``device`` and the ring over the default group. Under
+    ``torchrun`` leave ``init_method``, ``world_size`` and ``rank`` out (the
+    ``env://`` variables carry them); elsewhere give them with either an
+    ``init_method`` (e.g. ``file:///tmp/store`` or ``tcp://localhost:29500``)
+    or a ``store`` (e.g. ``dist.HashStore()`` for a group of one process,
+    which needs no rendezvous). A failure to start is an error."""
+    kwargs = {}
+    if init_method is not None:
+        kwargs = dict(init_method=init_method, world_size=world_size,
+                      rank=rank)
+    elif store is not None:
+        kwargs = dict(store=store, world_size=world_size, rank=rank)
+    backend = backend_for(device)
+    if backend == "nccl":  # the card before the group: NCCL binds to it
+        rank_id = rank if rank is not None else int(os.environ["RANK"])
+        torch.cuda.set_device(rank_device(device, rank_id))
+    dist.init_process_group(backend, **kwargs)
+    return Ring(dist.group.WORLD)
+
+
+class _Pending:
+    """A shift in flight: ``wait()`` returns the received tensor."""
+
+    def __init__(self, works, out: torch.Tensor):
+        self._works = works
+        self._out = out
+
+    def wait(self) -> torch.Tensor:
+        for w in self._works:
+            w.wait()
+        return self._out
+
+
+class Ring:
+    """The ring of P slab ranks: ``rank``, ``size``, neighbour shifts and
+    global reductions. ``group`` is a process group, or None for P = 1."""
+
+    def __init__(self, group=None):
+        self.group = group
+        if group is None:
+            self.rank, self.size = 0, 1
+        else:
+            self.rank = dist.get_rank(group)
+            self.size = dist.get_world_size(group)
+
+    def _peer(self, r: int) -> int:
+        return dist.get_global_rank(self.group, r % self.size)
+
+    def _shift(self, t: torch.Tensor, to: int, frm: int, async_op: bool):
+        if self.size == 1:
+            return _Pending([], t) if async_op else t
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, t, self._peer(to), self.group),
+            dist.P2POp(dist.irecv, out, self._peer(frm), self.group)])
+        pending = _Pending(works, out)
+        return pending if async_op else pending.wait()
+
+    def shift_plus(self, t: torch.Tensor, async_op: bool = False):
+        """Send ``t`` to rank + 1 and return what rank - 1 sent (receive from
+        the LEFT neighbour; periodic). With ``async_op`` the result is a
+        handle whose ``wait()`` returns the tensor."""
+        return self._shift(t, self.rank + 1, self.rank - 1, async_op)
+
+    def shift_minus(self, t: torch.Tensor, async_op: bool = False):
+        """Send ``t`` to rank - 1 and return what rank + 1 sent (receive from
+        the RIGHT neighbour; periodic)."""
+        return self._shift(t, self.rank - 1, self.rank + 1, async_op)
+
+    def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        if self.group is None:
+            return t
+        t = t.clone()
+        dist.all_reduce(t, op=op, group=self.group)
+        return t
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the ranks, on every rank."""
+        return self._reduce(t, dist.ReduceOp.SUM)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """The maximum of ``t`` over the ranks, on every rank."""
+        return self._reduce(t, dist.ReduceOp.MAX)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(P, *t.shape): every rank's ``t`` in rank order, on every rank
+        (host-side gathers of a whole state; not on the step path)."""
+        if self.group is None:
+            return t[None]
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        return torch.stack(parts)

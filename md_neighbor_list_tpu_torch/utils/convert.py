@@ -6,7 +6,9 @@ package's ``System`` / ``DenseState`` / ``DenseCarry`` (same shapes and
 dtypes: (3, R, mc, cap) f32, (R, mc, cap) i32, (N, 3) f32, (N,) i32) and
 return the port's NamedTuples on ``device``, and back; likewise the list
 artifact ``(counts, masks)`` of ``dense_lists_half``, whose layout is the same
-in both packages, so either package's decoder reads either's masks. The module imports
+in both packages, so either package's decoder reads either's masks; and the
+slab engine's ``SlabCarry``, whose JAX form stacks the P ranks' states on a
+leading axis and whose port form is one carry per rank. The module imports
 neither package's counterpart: the caller does the ``np.asarray``.
 """
 
@@ -18,6 +20,12 @@ import torch
 from md_neighbor_list_tpu_torch.core.system import System
 from md_neighbor_list_tpu_torch.models.dense_lj import DenseCarry
 from md_neighbor_list_tpu_torch.ops.dense_cells import DenseSpec, DenseState
+from md_neighbor_list_tpu_torch.parallel.dense_slab import SlabCarry
+
+# SlabCarry fields in order, with their types
+_SLAB_DTYPES = (torch.float32, torch.float32, torch.int32, torch.float32,
+                torch.int32, torch.float32, torch.float32, torch.int32,
+                torch.int32, torch.bool)
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -78,3 +86,23 @@ def lists_from_numpy(counts, masks, device="cuda"):
 
 def lists_to_numpy(counts: torch.Tensor, masks: torch.Tensor):
     return counts.cpu().numpy(), masks.cpu().numpy()
+
+
+def slab_carries_from_numpy(*arrays, device="cuda") -> list[SlabCarry]:
+    """The P per-rank carries of a JAX ``SlabCarry`` given as its ten arrays
+    in field order (pos, vel, pid, gpos, gpid, force, ref_pos, n_rebuilds,
+    n_migrated, overflow), each with the leading axis P."""
+    if len(arrays) != len(SlabCarry._fields):
+        raise ValueError(f"expected {len(SlabCarry._fields)} arrays, got "
+                         f"{len(arrays)}")
+    arrays = [np.asarray(a) for a in arrays]
+    return [SlabCarry(*(_tensor(a[r], dt, device)
+                        for a, dt in zip(arrays, _SLAB_DTYPES)))
+            for r in range(arrays[0].shape[0])]
+
+
+def slab_carries_to_numpy(carries) -> tuple:
+    """Inverse of ``slab_carries_from_numpy``: the ten arrays in field order,
+    the ranks stacked on the leading axis (the JAX ``SlabCarry``'s shapes)."""
+    return tuple(np.stack([c[i].cpu().numpy() for c in carries])
+                 for i in range(len(SlabCarry._fields)))

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from md_neighbor_list_tpu_torch.ops import (_cuda, dense_cells, dense_force,
-                                            incremental)
+                                            incremental, slab_kernels)
 from torch_port_util import (CASES, RC, RS, clustered_system, numpy_system,
                              torch_state)
 
@@ -195,3 +195,93 @@ def test_merge_and_incremental_rebuild(card, cap):
     want = incremental.merge_plain(*args, spec)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("p,cap", [(2, 32), (4, 40), (2, 384)])
+def test_slab_forms_match_plain_versions(card, p, cap):
+    """The slab forms of K1-K3 on the card against their plain versions:
+    slabs of a rebuilt mc = 4 cube state (P = 4 is nz = 1; cap 384 runs the
+    lane-strided forms), each rebuilt by the slab sort from every record,
+    extended by its seam-shifted ghost layer. K1 and K2 bitwise, K3 to
+    rounding; every slab form counted once per call."""
+    n = 1728
+    pos, vel, pid = numpy_system(n, seed=12, jitter=0.2)
+    _, cube, _ = torch_state(pos, vel, pid, cap)
+    mc = cube.mc
+    nz = mc // p
+    spec = slab_kernels.SlabSpec(mc=mc, nz=nz, mc_z=mc, cap=cap, L=cube.L,
+                                 cell_size=cube.cell_size,
+                                 cell_z=cube.cell_size)
+    rec = torch.from_numpy(pos.T.copy()).to(card)
+    chans = torch.cat([rec, torch.from_numpy(vel.T.copy()).to(card)])
+    pids = torch.from_numpy(pid).to(card)
+    valid = torch.ones(n, dtype=torch.bool, device=card)
+    states = []
+    for r in range(p):
+        before = _cuda.LAUNCHES["expand_slab"]
+        keys = slab_kernels.slab_keys(rec, valid, spec, r * nz)
+        st, _ = slab_kernels.slab_sort_expand(keys, chans, pids, spec)
+        assert _cuda.LAUNCHES["expand_slab"] == before + 1
+        plain, _ = slab_kernels.slab_sort_expand(
+            keys.cpu(), chans.cpu(), pids.cpu(), spec)
+        for a, b in zip(st, plain):
+            assert torch.equal(a.cpu(), b)
+        states.append(st)
+    assert sum(int(s.valid().sum()) for s in states) == n
+    for r in range(p):
+        g = states[(r + 1) % p]
+        gpos = g.pos[:, :mc].clone()
+        if r == p - 1:
+            gpos[2] += float(np.float32(spec.L))
+        ext = torch.cat([states[r].pos, gpos], dim=1)
+        ext_v = torch.cat([states[r].valid(), g.valid()[:mc]], dim=0)
+        counts, masks = slab_kernels.slab_lists_half(ext, ext_v, spec, RS)
+        counts_p, masks_p = slab_kernels.slab_lists_half(ext.cpu(),
+                                                         ext_v.cpu(), spec, RS)
+        assert torch.equal(counts.cpu(), counts_p)
+        assert torch.equal(masks.cpu(), masks_p)
+        f_p, seam_p, pe_p = slab_kernels.slab_forces_half(
+            ext.cpu(), ext_v.cpu(), spec, RC, True)
+        scale = max(float(f_p.abs().max()), float(seam_p.abs().max()), 1.0)
+        for want_pe in (False, True):
+            f, seam, pe = slab_kernels.slab_forces_half(ext, ext_v, spec, RC,
+                                                        want_pe)
+            for got, want in ((f, f_p), (seam, seam_p)):
+                np.testing.assert_allclose(got.cpu(), want, rtol=1e-4,
+                                           atol=2e-5 * scale)
+        np.testing.assert_allclose(pe.cpu(), pe_p, rtol=1e-4, atol=1e-4)
+        if nz >= 2:
+            low, top = slab_kernels.slab_forces_interior(states[r].pos, spec,
+                                                         RC)
+            last, seam2 = slab_kernels.slab_forces_boundary(
+                states[r].pos[:, (nz - 1) * mc:], gpos, g.valid()[:mc], spec,
+                RC)
+            np.testing.assert_allclose(
+                torch.cat([low, last + top], dim=1).cpu(), f_p, rtol=1e-4,
+                atol=2e-5 * scale)
+            np.testing.assert_allclose(seam2.cpu(), seam_p, rtol=1e-4,
+                                       atol=2e-5 * scale)
+
+
+def test_dense_slab_p1_on_the_card_matches_the_cube_engine(card):
+    """The P = 1 self-halo engine on the card (no process group) against
+    the cube engine on the card: 20 steps, same rebuilds, positions within
+    2e-4; the slab forms launched on its path."""
+    from md_neighbor_list_tpu_torch import DenseSimulator, MDConfig
+    from md_neighbor_list_tpu_torch.parallel.dense_slab import \
+        DenseSlabSimulator
+
+    cfg = MDConfig(n=4096, rc=1.5, skin=0.2, temperature=0.8)
+    _cuda.reset_launches()
+    dd = DenseSlabSimulator(cfg, cap=16, device=card)
+    sd = dd.run(dd.init(), 20, chunk=20)
+    launches = dict(_cuda.LAUNCHES)
+    cube = DenseSimulator(cfg, cap=16, device=card)
+    cc = cube.run(cube.init(), 20, chunk=20)
+    pos, _, _ = cube.to_system(cc)
+    d = np.abs(dd.gather(sd).pos.cpu().numpy() - pos)
+    assert np.minimum(d, dd.box.L - d).max() < 2e-4
+    assert int(sd.n_rebuilds) == int(cc.n_rebuilds)
+    assert launches["expand_slab"] == int(sd.n_rebuilds)
+    assert launches["forces_half_slab"] >= 2 * 20 + 1
+    assert launches["expand"] == launches["forces_half"] == 0

@@ -38,7 +38,9 @@ def test_expected_modules_and_sources_exist():
                  "core/capacity.py", "ops/common.py", "ops/oracle.py",
                  "ops/dense_cells.py", "ops/dense_ref.py",
                  "ops/dense_force.py", "ops/decode.py", "ops/_cuda.py",
-                 "ops/incremental.py",
+                 "ops/incremental.py", "ops/slab_kernels.py",
+                 "parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/dense_slab.py",
                  "models/dense_lj.py", "utils/convert.py", "utils/native.py",
                  "api.py", "__init__.py"):
         assert want in names
@@ -54,7 +56,8 @@ def test_every_kernel_has_an_entry_a_counter_and_a_source():
     assert set(_cuda._ENTRIES) == set(_cuda.LAUNCHES) == {
         "expand", "lists_half", "forces_half", "forces_half_pe",
         "pe_virial_half", "count_half", "force_full", "force_full_pe",
-        "count_full", "merge"}
+        "count_full", "merge", "expand_slab", "lists_half_slab",
+        "forces_half_slab", "forces_half_slab_pe"}
     sources = "".join(p.read_text() for p in _cuda._sources()[0])
     for name in _cuda._ENTRIES:
         assert f"int mdnl_{name}(" in sources, name
@@ -143,8 +146,34 @@ def test_kernel_wrappers_do_not_build_for_cpu_tensors():
     dense_force.dense_forces(new.pos, new.valid(), spec, 2.5, False)
     dense_force.dense_counts(new.pos, new.valid(), spec, 2.8)
     incremental.rebuild_dense_incremental(new, spec)
+    ext = torch.cat([new.pos, new.pos[:, :spec.mc]], dim=1)
+    dense_force.dense_lists_half_slab(ext, spec, 2.8)
+    dense_force.dense_forces_half_slab(ext, spec, 2.5, True)
+    keys = torch.full((4,), spec.mc * spec.mc, dtype=torch.int32)
+    dense_cells.sort_expand(keys, torch.zeros((6, 4)),
+                            torch.arange(4, dtype=torch.int32), spec,
+                            key_base=spec.mc * spec.mc)
     assert set(_cuda.LAUNCHES.values()) == {0}
     if shutil.which("nvcc") is None and not (
             pathlib.Path("/usr/local/cuda/bin/nvcc").exists()):
         with pytest.raises(RuntimeError):
             _cuda.library()
+
+
+def test_slab_engine_runs_on_the_card_by_default_and_raises_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from md_neighbor_list_tpu_torch import MDConfig
+    from md_neighbor_list_tpu_torch.parallel import mesh
+    from md_neighbor_list_tpu_torch.parallel.dense_slab import \
+        DenseSlabSimulator
+
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        DenseSlabSimulator(MDConfig(n=4096, rc=1.5, skin=0.2))
+    sim = DenseSlabSimulator(MDConfig(n=4096, rc=1.5, skin=0.2),
+                             device="cpu")  # asked for
+    assert sim.device.type == "cpu" and sim.ring.size == 1
+    assert mesh.backend_for("cuda") == "nccl"
+    assert mesh.backend_for("cpu") == "gloo"
+    with pytest.raises(RuntimeError):
+        mesh.rank_device("cuda", 0)
