@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile | --half-sweep-times]
 
 Builds the CUDA kernels from ``md_neighbor_list_tpu_torch/csrc``, holds each
 against its plain PyTorch version (at small shapes that exercise wrap-around,
 cell capacities from 28 to 480 — beyond 341 the sweep kernels' lane-strided
-forms —, overflow and cleared validity, then at the full N = 1,000,000 size),
+forms —, overflow and cleared validity, then at the full N = 1,000,000 size;
+the half-force and pe/virial kernels also on each state with its slots
+scattered inside every cell, so that the occupied slots form no prefix),
 and drives four paths through the entry points a user calls, each with the
 launch counters set to 0 just before and read just after:
 
@@ -46,7 +48,10 @@ Each phase prints one JSON line; any failure ends the run with a non-zero exit
 code. Without a CUDA device the script fails at once. ``--profile`` adds a
 ``torch.profiler`` breakdown by device kernel of 50 steps of each engine, of
 one ``neighbor_list`` call, of ten incremental and ten full rebuilds, and of
-50 steps of the slab engine (information only).
+50 steps of the slab engine (information only). ``--half-sweep-times`` only
+times the half-force and pe/virial kernels at N = 1,000,000 (after checking
+them against their plain versions) and prints no result line: the timing of
+kernel variants, one tree at a time.
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -55,6 +60,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -242,6 +248,8 @@ def compare_kernels(state0: dense_cells.DenseState, spec, cfg, label: str):
               f"{label}: {name} left a force on an empty slot")
     ok, pe_err = force_close(pe, pe_p)
     check(ok, f"{label}: forces_half_pe potential off by {pe_err}")
+    check(float(pe[~valid].abs().sum()) == 0.0,
+          f"{label}: forces_half_pe left a potential on an empty slot")
     errs["forces_half_pe"] = max(errs["forces_half_pe"], pe_err)
 
     pe4, vir4 = dense_force.dense_pe_virial(pos, spec, cfg.rc)
@@ -250,6 +258,8 @@ def compare_kernels(state0: dense_cells.DenseState, spec, cfg, label: str):
     ok_pe, e_pe = force_close(pe4, pe4_p)
     ok_w, e_w = force_close(vir4, vir4_p)
     check(ok_pe and ok_w, f"{label}: pe/virial off by {e_pe}/{e_w}")
+    check(float(pe4[~valid].abs().sum() + vir4[~valid].abs().sum()) == 0.0,
+          f"{label}: pe_virial_half left a value on an empty slot")
     errs["pe_virial_half"] = max(e_pe, e_w)
 
     # K5: the list kernel's counts, bitwise
@@ -267,6 +277,93 @@ def compare_kernels(state0: dense_cells.DenseState, spec, cfg, label: str):
           f"{label}: full counts differ from twice the half counts by {gap}, "
           "more than the pairs in the cutoff band")
     return state, recs, errs
+
+
+def scatter_slots(state: dense_cells.DenseState, spec, seed: int):
+    """``state`` with the slots of every cell permuted at random (a numpy
+    seed): each cell keeps its particles, in slots drawn at random rather
+    than a prefix, and its empty slots are re-parked at their new places
+    with zero velocity (the twin of ``tests/torch_port_util.py``'s)."""
+    rng = np.random.default_rng(seed)
+    cells, cap = spec.rows * spec.mc, spec.cap
+    perm = torch.from_numpy(np.argsort(rng.random((cells, cap)), axis=1))
+    perm = perm.to(state.pid.device)
+
+    def take(a):  # (..., R, mc, cap): new slot s of a cell holds slot perm[s]
+        lead = a.shape[:-3]
+        flat = a.reshape(lead + (cells, cap))
+        return torch.gather(flat, -1, perm.expand(flat.shape)).reshape(a.shape)
+
+    pid = take(state.pid)
+    valid = pid >= 0
+    pos = dense_cells.park_positions(take(state.pos), valid, spec)
+    vel = torch.where(valid[None], take(state.vel), 0.0)
+    return dense_cells.DenseState(pos=pos, vel=vel, pid=pid)
+
+
+def half_sweeps_scattered(state: dense_cells.DenseState, spec, cfg,
+                          label: str, seed: int = 5) -> dict:
+    """K3 (both forms, cube and P = 1 slab) and K4 on ``state`` with its
+    slots scattered inside each cell (``scatter_slots``): the occupied slots
+    form no prefix. Each against its plain version; parked slots get exactly
+    zero force, PE and virial; forces by pid equal those of ``state``'s own
+    order to rounding. Returns the largest errors."""
+    sc = scatter_slots(state, spec, seed)
+    pos, valid = sc.pos, sc.valid()
+    check(not torch.equal(valid, state.valid()),
+          f"{label}: scattering left every slot in place")
+    errs = {}
+    f_p, pe_p = dense_force.forces_half_plain(pos, spec, cfg.rc, True)
+    for name, want_pe in (("forces_half", False), ("forces_half_pe", True)):
+        f, pe = dense_force.dense_forces_half(pos, spec, cfg.rc, want_pe)
+        torch.cuda.synchronize()
+        ok, errs[name] = force_close(f, f_p)
+        check(ok, f"{label}: {name} forces off by {errs[name]} on scattered "
+              "slots")
+        check(float(f[:, ~valid].abs().sum()) == 0.0,
+              f"{label}: {name} left a force on an empty scattered slot")
+    ok, err = force_close(pe, pe_p)
+    check(ok and float(pe[~valid].abs().sum()) == 0.0,
+          f"{label}: forces_half_pe potential off by {err} on scattered slots")
+    pe4, vir4 = dense_force.dense_pe_virial(pos, spec, cfg.rc)
+    torch.cuda.synchronize()
+    pe4_p, vir4_p = dense_force.pe_virial_half_plain(pos, spec, cfg.rc)
+    ok_pe, e_pe = force_close(pe4, pe4_p)
+    ok_w, e_w = force_close(vir4, vir4_p)
+    check(ok_pe and ok_w and float(pe4[~valid].abs().sum()
+                                   + vir4[~valid].abs().sum()) == 0.0,
+          f"{label}: pe/virial off by {e_pe}/{e_w} on scattered slots")
+    errs["pe_virial_half"] = max(e_pe, e_w)
+    # the slab forms at P = 1: [scattered cube | its seam-shifted first layer]
+    slab, windows, ext_v = p1_windows(pos, valid, spec)
+    fs_p, pes_p = dense_force.forces_half_plain(windows, slab, cfg.rc, True,
+                                                zwrap=False)
+    for name, want_pe in (("forces_half_slab", False),
+                          ("forces_half_slab_pe", True)):
+        f, pe = dense_force.dense_forces_half_slab(windows, slab, cfg.rc,
+                                                   want_pe)
+        torch.cuda.synchronize()
+        ok, errs[name] = force_close(f, fs_p)
+        check(ok and float(f[:, ~ext_v].abs().sum()) == 0.0,
+              f"{label}: {name} off by {errs[name]} on scattered slots")
+    ok, err = force_close(pe, pes_p)
+    check(ok and float(pe[~valid].abs().sum()) == 0.0,
+          f"{label}: forces_half_slab_pe potential off by {err} on scattered "
+          "slots")
+    # the particles feel the same forces in either slot order
+    f0, _ = dense_force.dense_forces_half(state.pos, spec, cfg.rc)
+    by_pid = []
+    for st, f in ((state, f0), (sc, dense_force.dense_forces_half(
+            pos, spec, cfg.rc)[0])):
+        keep = st.valid().reshape(-1)
+        out = torch.zeros((int(state.pid.max()) + 1, 3), device=f.device)
+        out[st.pid.reshape(-1)[keep].long()] = f.reshape(3, -1)[:, keep].T
+        by_pid.append(out)
+    ok, err = force_close(by_pid[1], by_pid[0])
+    check(ok, f"{label}: forces by pid differ by {err} between the slot "
+          "orders")
+    errs["by_pid"] = err
+    return errs
 
 
 def band_pairs(pos, valid, spec, radius: float) -> int:
@@ -344,6 +441,8 @@ def small_shapes(device) -> None:
             spec.L, 0.0) - torch.where(
             state0.valid()[None] & (state0.pid % 3 == 1)[None], spec.L, 0.0))
         state, _, errs = compare_kernels(state0, spec, cfg, label)
+        errs["scattered"] = half_sweeps_scattered(state, spec, cfg,
+                                                  label + "/scattered")
         ref = dense_ref.rebuild_reference(state0, spec)
         check(all(torch.equal(a, b) for a, b in zip(state, ref)),
               f"{label}: rebuild differs from the scatter reference")
@@ -508,6 +607,9 @@ def full_width(sim: DenseSimulator) -> list[dict]:
     state0 = dense_cells.from_packed(system.pos, system.vel, system.pid, spec)
     state, recs, errs = compare_kernels(state0, spec, cfg, "full_width")
     check(int(state.valid().sum()) == cfg.n, "full_width: lost particles")
+    scattered = half_sweeps_scattered(state, spec, cfg, "full_width/scattered")
+    for name in ("forces_half", "forces_half_pe", "pe_virial_half"):
+        errs[name] = max(errs[name], scattered[name])
     pos, valid = state.pos, state.valid()
     counts_rc, _ = dense_force.dense_lists_half(pos, spec, cfg.rc)
     hits = int(counts_rc[state.valid()].sum())
@@ -559,7 +661,7 @@ def full_width(sim: DenseSimulator) -> list[dict]:
             rows[-1]["also_replaces"] = ALSO_REPLACES[name]
     emit("kernels_full_width", n=cfg.n, mc=spec.mc, cap=spec.cap,
          slots=spec.slots, hits_rc=hits, launches_so_far=dict(_cuda.LAUNCHES),
-         bounds=bound, kernels=rows)
+         scattered_slots_max_abs_err=scattered, bounds=bound, kernels=rows)
     return rows
 
 
@@ -1002,6 +1104,17 @@ def ghost_layer(pos, valid, spec, last: bool) -> tuple:
     if last:
         gpos[2] += float(np.float32(spec.L))
     return gpos, valid[:spec.mc]
+
+
+def p1_windows(pos, valid, spec):
+    """The P = 1 slab forms' input made from a cube state: its layers and its
+    first layer again, seam-shifted, as ghost, the ghost's empty slots
+    re-parked. Returns (slab spec, the array, its validity)."""
+    slab = cube_slabs(spec, 1)
+    gpos, gvalid = ghost_layer(pos, valid, slab, last=True)
+    ext_v = torch.cat([valid, gvalid], dim=0)
+    return (slab, slab_kernels._repark_ghost(torch.cat([pos, gpos], dim=1),
+                                             ext_v, slab), ext_v)
 
 
 def slab_half_tests(ext_valid: torch.Tensor, mc: int) -> int:
@@ -1577,6 +1690,60 @@ def dense_slab_path(device, cfg=PRESETS["c4_sorted"]
     return launches, carry, sim
 
 
+def half_sweep_times(device, reps: int = 20) -> None:
+    """``--half-sweep-times``: K3 (both forms, cube and P = 1 slab) and K4
+    at N = 1M, cap = 40 on full_width's jittered state, and K3 on its
+    scattered-slot twin, each first held against its plain version, then
+    timed (CUDA events, ``reps`` launches). Prints one JSON line and no
+    result line. Kernel variants are compared by running this script in
+    each tree, one process per tree, in turns on one card."""
+    cfg = PRESETS["c4_sorted"]
+    system, box = jittered_system(cfg.n, cfg.rho, seed=7, jitter=0.1,
+                                  device=device)
+    spec = dense_cells.make_spec(box, cfg.rs, 40)
+    state, _ = dense_cells.rebuild_dense(dense_cells.from_packed(
+        system.pos, system.vel, system.pid, spec), spec)
+    slab, windows, _ = p1_windows(state.pos, state.valid(), spec)
+    scattered = scatter_slots(state, spec, 5).pos
+    pos, rc = state.pos, cfg.rc
+    runs = {
+        "forces_half": (
+            lambda: dense_force.dense_forces_half(pos, spec, rc)[0],
+            lambda: dense_force.forces_half_plain(pos, spec, rc)[0]),
+        "forces_half_pe": (
+            lambda: torch.cat(dense_force.dense_forces_half(pos, spec, rc,
+                                                            True)[1:]),
+            lambda: torch.cat(dense_force.forces_half_plain(pos, spec, rc,
+                                                            True)[1:])),
+        "pe_virial_half": (
+            lambda: torch.stack(dense_force.dense_pe_virial(pos, spec, rc)),
+            lambda: torch.stack(dense_force.pe_virial_half_plain(pos, spec,
+                                                                 rc))),
+        "forces_half_slab": (
+            lambda: dense_force.dense_forces_half_slab(windows, slab, rc)[0],
+            lambda: dense_force.forces_half_plain(windows, slab, rc,
+                                                  zwrap=False)[0]),
+        "forces_half_slab_pe": (
+            lambda: dense_force.dense_forces_half_slab(windows, slab, rc,
+                                                       True)[1],
+            lambda: dense_force.forces_half_plain(windows, slab, rc, True,
+                                                  zwrap=False)[1]),
+        "forces_half_scattered": (
+            lambda: dense_force.dense_forces_half(scattered, spec, rc)[0],
+            lambda: dense_force.forces_half_plain(scattered, spec, rc)[0]),
+    }
+    ms = {}
+    for name, (kernel, plain) in runs.items():
+        ok, err = force_close(kernel(), plain())
+        check(ok, f"half_sweep_times: {name} off its plain version by {err}")
+        ms[name] = time_ms(kernel, reps)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    emit("half_sweep_times", n=cfg.n, cap=spec.cap, reps=reps, card=smi,
+         nvcc_flags=os.environ.get("MDNL_NVCC_FLAGS", ""), ms=ms)
+
+
 def traced(fn) -> tuple[float, list]:
     """Host ms of ``fn()`` under ``torch.profiler`` (synchronised), and its
     device kernels as (name, device ms, calls), longest first."""
@@ -1671,6 +1838,9 @@ def main() -> int:
                 or "spill" in line or "error" in line.lower()])
 
     device = torch.device("cuda")
+    if "--half-sweep-times" in sys.argv[1:]:
+        half_sweep_times(device)
+        return 0
     small_shapes(device)
     sim = DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device)
     rows = full_width(sim)

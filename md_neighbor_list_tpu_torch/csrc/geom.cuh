@@ -28,26 +28,29 @@
 
 namespace mdnl {
 
-// Slots per cell up to which a block has one thread per window lane,
-// 3*cap <= 1024 threads. Above it every sweep kernel launches its
-// lane-strided form: blocks of kStridedThreads threads, each serving window
-// lanes (or own slots) t, t + blockDim, ..., so any cap runs whose shared
-// memory fits a block (`fit_shared`, 227 KB): the list and half-count
-// kernels take the most, 76 bytes a slot, so every kernel runs up to 3,058
-// slots per cell (the full-sweep kernels up to 3,632, the others beyond).
+// Slots per cell up to which a block of the list, count and full-sweep
+// kernels has one thread per window lane, 3*cap <= 1024 threads. Above it
+// each of those kernels launches its lane-strided form: blocks of
+// kStridedThreads threads, each serving window lanes (or own slots) t,
+// t + blockDim, ..., so any cap runs whose shared memory fits a block
+// (`fit_shared`, 227 KB): the list and half-count kernels take the most, 76
+// bytes a slot, so every sweep kernel runs up to 3,058 slots per cell (the
+// full-sweep kernels up to 3,632, the half-force and pe/virial kernels of
+// half_sweep.cuh beyond).
 constexpr int kLaneCap = 341;
 constexpr int kStridedThreads = 512;
+// Shared memory a block may take after the opt-in (`fit_shared`).
+constexpr size_t kMaxShared = 227 * 1024;
 // Blocks of up to 1024 threads need a launch bound (64 registers a thread).
-// The list and full-sweep kernels carry it at every cap. The half-force,
-// pe/virial and half-count kernels are compiled in two forms over one body:
-// for cap <= kNarrowCap (blocks of at most 384 threads) with no bound, so
-// registers are unconstrained, and a `_wide` form with the bound for the caps
-// above, because the bound costs those three time at small caps: under it
-// they ran 3 %, 8 % and 18 % slower at N = 1M, cap = 40 (NVIDIA H100 80GB HBM3
-// at 700 W, by tools/port_ab.py).
+// The list and full-sweep kernels carry it at every cap. The half-count
+// kernel (K5) is compiled in two forms over one body: for cap <= kNarrowCap
+// (blocks of at most 384 threads) with no bound, so registers are
+// unconstrained, and a `_wide` form with the bound for the caps above,
+// because under the bound it ran 18 % slower at N = 1M, cap = 40 (NVIDIA
+// H100 80GB HBM3 at 700 W, by tools/port_ab.py).
 constexpr int kNarrowCap = 128;
 #ifndef MDNL_NARROW_BOUND  // -DMDNL_NARROW_BOUND=<threads> bounds the narrow
-#define MDNL_NARROW        // forms too: the measurement behind the split
+#define MDNL_NARROW        // form too: the measurement behind the split
 #else
 #define MDNL_NARROW __launch_bounds__(MDNL_NARROW_BOUND)
 #endif
@@ -92,9 +95,25 @@ __device__ __forceinline__ float wrap_cell(int& c, int mc, float L) {
   return 0.f;
 }
 
+// Flat slot index (cell * cap + slot, in the (R, mc, cap) arrays) of window
+// lane l of neighbour row (dz, dy), and the image shift (xs, ys, zs) to add
+// to its position. ZWRAP = false: layer z + dz as it is (slab forms).
+template <bool ZWRAP = true>
+__device__ __forceinline__ int partner_slot(int mc, int cap, float L,
+                                            const CellId& c, int dz, int dy,
+                                            int l, float& xs, float& ys,
+                                            float& zs) {
+  int zz = c.z + dz, yy = c.y + dy;
+  const int seg = l / cap;
+  int xx = c.x + seg - 1;
+  zs = ZWRAP ? wrap_cell(zz, mc, L) : 0.f;
+  ys = wrap_cell(yy, mc, L);
+  xs = wrap_cell(xx, mc, L);
+  return ((zz * mc + yy) * mc + xx) * cap + (l - seg * cap);
+}
+
 // Load the image-shifted position of window lane l of neighbour row (dz, dy);
-// returns the partner's flat slot index (cell * cap + slot) in the
-// (R, mc, cap) arrays. ZWRAP = false: layer z + dz as it is (slab forms).
+// returns the partner's flat slot index.
 template <bool ZWRAP = true>
 __device__ __forceinline__ int load_partner_at(const float* __restrict__ pos,
                                                size_t S, int mc, int cap,
@@ -102,13 +121,8 @@ __device__ __forceinline__ int load_partner_at(const float* __restrict__ pos,
                                                int dz, int dy, int l,
                                                float& xj, float& yj,
                                                float& zj) {
-  int zz = c.z + dz, yy = c.y + dy;
-  const int seg = l / cap;
-  int xx = c.x + seg - 1;
-  const float zs = ZWRAP ? wrap_cell(zz, mc, L) : 0.f;
-  const float ys = wrap_cell(yy, mc, L);
-  const float xs = wrap_cell(xx, mc, L);
-  const int idx = ((zz * mc + yy) * mc + xx) * cap + (l - seg * cap);
+  float xs, ys, zs;
+  const int idx = partner_slot<ZWRAP>(mc, cap, L, c, dz, dy, l, xs, ys, zs);
   xj = __fadd_rn(pos[idx], xs);
   yj = __fadd_rn(pos[S + idx], ys);
   zj = __fadd_rn(pos[2 * S + idx], zs);

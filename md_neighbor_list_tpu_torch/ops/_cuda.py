@@ -40,18 +40,19 @@ _ENTRIES = {
     "expand": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F],
     # pos, masks, counts, mc, cap, L, r2cut
     "lists_half": [_P, _P, _P, _I, _I, _F, _F],
-    # pos, force, mc, cap, L, r2cut
-    "forces_half": [_P, _P, _I, _I, _F, _F],
-    # pos, force, pe, mc, cap, L, r2cut, ushift (the want_pe form)
-    "forces_half_pe": [_P, _P, _P, _I, _I, _F, _F, _F],
+    # pos, force, mc, cap, L, r2cut, occupied_below (PARK_BASE / 2)
+    "forces_half": [_P, _P, _I, _I, _F, _F, _F],
+    # pos, force, pe, mc, cap, L, r2cut, ushift, occupied_below (want_pe)
+    "forces_half_pe": [_P, _P, _P, _I, _I, _F, _F, _F, _F],
     # the slab forms of K1-K3: the expand's arguments and key_base; the
-    # sweeps' arguments and nz_grid, nz_arr (layers walked, layers read)
+    # sweeps' arguments and nz_grid, nz_arr (layers walked, layers read),
+    # the force forms then occupied_below
     "expand_slab": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I],
     "lists_half_slab": [_P, _P, _P, _I, _I, _F, _F, _I, _I],
-    "forces_half_slab": [_P, _P, _I, _I, _F, _F, _I, _I],
-    "forces_half_slab_pe": [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I],
-    # pos, pe, vir, mc, cap, L, r2cut, ushift
-    "pe_virial_half": [_P, _P, _P, _I, _I, _F, _F, _F],
+    "forces_half_slab": [_P, _P, _I, _I, _F, _F, _I, _I, _F],
+    "forces_half_slab_pe": [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _F],
+    # pos, pe, vir, mc, cap, L, r2cut, ushift, occupied_below
+    "pe_virial_half": [_P, _P, _P, _I, _I, _F, _F, _F, _F],
     # pos, counts, mc, cap, L, r2cut
     "count_half": [_P, _P, _I, _I, _F, _F],
     # pos, valid, force, mc, cap, L, r2cut

@@ -61,6 +61,11 @@ def grow_cap(cap: int) -> int:
     return ((cap + max(8, cap // 4) + 7) // 8) * 8
 
 
+# Base of the park lattice. Positions in the box lie far below half of it,
+# so the half-sweep kernels tell an occupied slot by x < PARK_BASE / 2.
+PARK_BASE = 1.0e5
+
+
 def _park_step(spec) -> float:
     """Park lattice spacing 2*cell, rounded to f32 once."""
     return float(np.float32(2.0 * spec.cell_size))
@@ -74,7 +79,7 @@ def park_lattice(spec, device="cuda") -> torch.Tensor:
     and no two parked slots that meet in a window can alias."""
     mc, cap = spec.mc, spec.cap
     step = _park_step(spec)
-    base = 1.0e5
+    base = PARK_BASE
     f32 = dict(dtype=torch.float32, device=device)
     lane_id = (torch.arange(mc, **f32)[None, :, None] * cap
                + torch.arange(cap, **f32)[None, None, :])

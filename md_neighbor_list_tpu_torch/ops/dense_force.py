@@ -25,10 +25,14 @@ CONTRACT of the half sweep: ``pos4`` satisfies the park invariant
 (``dense_cells``): empty slots sit on the park lattice, so no validity input
 exists and they receive exactly zero force, count and mask bits.
 
-Every kernel takes any cap: up to 341 slots per cell (3*cap <= 1024) a block
-has one thread per window lane (half sweep) or per z-group and own slot (full
-sweep); above, each kernel's lane-strided form runs blocks of 512 threads that
-serve lanes or own slots t, t + 512, ... (``csrc/geom.cuh``).
+Every kernel takes any cap. The list and count kernels and the full sweep
+have, up to 341 slots per cell (3*cap <= 1024), one thread per window lane
+(half sweep) or per z-group and own slot (full sweep); above, each one's
+lane-strided form runs blocks of 512 threads that serve lanes or own slots
+t, t + 512, ... (``csrc/geom.cuh``). The half-force and pe/virial kernels
+have one body for every cap (``csrc/half_sweep.cuh``): they stage the
+occupied slots of the cell and of its 14 partner cells (x < OCCUPIED_BELOW)
+and test those only.
 
 Slab forms of the half sweep (``dense_lists_half_slab``,
 ``dense_forces_half_slab``): the same kernels over an array of nz_arr z-layers,
@@ -52,11 +56,20 @@ import torch
 
 from md_neighbor_list_tpu_torch.ops import _cuda
 from md_neighbor_list_tpu_torch.ops.common import lj_shift
-from md_neighbor_list_tpu_torch.ops.dense_cells import park_positions
+from md_neighbor_list_tpu_torch.ops.dense_cells import (PARK_BASE,
+                                                       park_positions)
 
 HALF_OFFSETS5 = [(0, 0), (0, 1), (1, -1), (1, 0), (1, 1)]
 
 MASK_BITS = 32  # bits per packed i32 mask word
+
+# The half-force and pe/virial kernels test occupied slots only: a slot whose
+# stored x lies below this holds a particle, a parked one lies above.
+OCCUPIED_BELOW = PARK_BASE / 2
+# Box sides from this up are refused: a position drifts a little past the box
+# between rebuilds and an image-shifted partner lies below 2 L, so L stays
+# under a quarter of OCCUPIED_BELOW, far from it.
+MAX_BOX = PARK_BASE / 8
 
 
 def mask_words(cap: int) -> int:
@@ -74,6 +87,11 @@ def _check_state(pos4: torch.Tensor, spec, zwrap: bool = True) -> int:
     z-layers. The cube forms (``zwrap``) take (3, mc*mc, mc, cap); the slab
     forms (3, nz_arr*mc, mc, cap) with nz_arr >= 2."""
     mc, cap = spec.mc, spec.cap
+    if spec.L >= MAX_BOX:
+        raise ValueError(
+            f"box side {spec.L} too large for the park lattice: the sweep "
+            f"kernels tell occupied slots by x < {OCCUPIED_BELOW:g} and "
+            f"need L < {MAX_BOX:g}")
     rows = mc * mc if zwrap or pos4.dim() != 4 else pos4.shape[1]
     if pos4.shape != (3, rows, mc, cap) or pos4.dtype != torch.float32:
         raise ValueError(
@@ -317,14 +335,18 @@ def dense_forces_half(pos4: torch.Tensor, spec, rc: float,
     is attributed once per pair, to the own slot of the half sweep: total
     PE = sum(pe * valid), no halving.
 
-    Kernel: ``csrc/force_half.cu``, replacing ``_force_half_kernel`` of
-    md_neighbor_list_tpu/ops/pallas_force.py together with the reaction fold
-    and partner-row sums around it. Bound on this card by fp32 operations
-    (about 15*cap distance tests per slot); a thread per window lane keeps
-    the reaction on its partner in registers and adds it to the partner's
-    slot with one f32 atomicAdd per component and offset row. The order of
-    those additions varies between runs, so forces match the plain version
-    to rounding, not bitwise. 1/r2 is an exact divide in both forms.
+    Kernel: ``csrc/force_half.cu`` over ``csrc/half_sweep.cuh``, replacing
+    ``_force_half_kernel`` of md_neighbor_list_tpu/ops/pallas_force.py
+    together with the reaction fold and partner-row sums around it. Bound on
+    this card by fp32 operations (the distance tests between occupied slots).
+    A block per own cell stages the cell's occupied slots and the occupied
+    partners of its five offset rows, compacted; partners lie along the
+    lanes and keep their reactions in registers, the own-slot sums live in
+    warp-private shared memory walked with a stagger (no atomic inside the
+    block), and the pair term has no branch. Reactions and own-slot sums
+    leave the block by one f32 atomicAdd per component and slot; their
+    order varies between runs, so forces match the plain version to
+    rounding, not bitwise. 1/r2 is correctly rounded in both forms.
     CPU tensors take ``forces_half_plain``."""
     _check_state(pos4, spec)
     if not pos4.is_cuda:
@@ -332,11 +354,11 @@ def dense_forces_half(pos4: torch.Tensor, spec, rc: float,
     force = torch.zeros_like(pos4)  # the kernel accumulates into it
     geom = (spec.mc, spec.cap, _f32(spec.L), _f32(rc * rc))
     if not want_pe:
-        _cuda.launch("forces_half", pos4, force, *geom)
+        _cuda.launch("forces_half", pos4, force, *geom, OCCUPIED_BELOW)
         return force, None
     pe = torch.empty_like(pos4[0])
     _cuda.launch("forces_half_pe", pos4, force, pe, *geom,
-                 _f32(lj_shift(rc)))
+                 _f32(lj_shift(rc)), OCCUPIED_BELOW)
     return force, pe
 
 
@@ -350,7 +372,9 @@ def dense_forces_half_slab(pos: torch.Tensor, spec, rc: float,
     interior pass's top reaction). PE is attributed to the own slot.
 
     Kernel: ``csrc/force_half.cu``, entries ``forces_half_slab`` and
-    ``forces_half_slab_pe`` (the half-force kernel with ZWRAP = false),
+    ``forces_half_slab_pe`` (the half-force kernel of ``dense_forces_half``
+    with ZWRAP = false: occupied slots only, so the ghost layer's
+    re-parked slots are never tested),
     replacing the half-force kernel as
     md_neighbor_list_tpu/ops/slab_kernels.py runs it in
     ``slab_forces_half``, ``slab_forces_interior`` and
@@ -365,12 +389,13 @@ def dense_forces_half_slab(pos: torch.Tensor, spec, rc: float,
     geom = (spec.mc, spec.cap, _f32(spec.L), _f32(rc * rc))
     layers = (nz_arr - 1, nz_arr)
     if not want_pe:
-        _cuda.launch("forces_half_slab", pos, force, *geom, *layers)
+        _cuda.launch("forces_half_slab", pos, force, *geom, *layers,
+                     OCCUPIED_BELOW)
         return force, None
     pe = torch.empty(((nz_arr - 1) * spec.mc, spec.mc, spec.cap),
                      dtype=torch.float32, device=pos.device)
     _cuda.launch("forces_half_slab_pe", pos, force, pe, *geom,
-                 _f32(lj_shift(rc)), *layers)
+                 _f32(lj_shift(rc)), *layers, OCCUPIED_BELOW)
     return force, pe
 
 
@@ -401,8 +426,11 @@ def dense_pe_virial(pos4: torch.Tensor, spec, rc: float):
 
     Kernel: ``csrc/pe_virial_half.cu``, replacing ``_pe_virial_half_kernel``
     of md_neighbor_list_tpu/ops/pallas_force.py. Bound by fp32 operations like
-    the force kernel, whose sweep it shares without the reaction: every sum
-    stays inside the own cell's block, so no global atomics are needed.
+    the force kernel, whose body (``csrc/half_sweep.cuh``: occupied slots
+    only, warp-private sums, no branch) it shares without the reaction:
+    every sum stays inside the own cell's block and is folded in a fixed
+    order, so no atomic is needed and the result repeats bitwise; parked
+    slots get zeros.
     CPU tensors take ``pe_virial_half_plain``."""
     _check_state(pos4, spec)
     if not pos4.is_cuda:
@@ -410,7 +438,8 @@ def dense_pe_virial(pos4: torch.Tensor, spec, rc: float):
     pe = torch.empty_like(pos4[0])
     vir = torch.empty_like(pos4[0])
     _cuda.launch("pe_virial_half", pos4, pe, vir, spec.mc, spec.cap,
-                 _f32(spec.L), _f32(rc * rc), _f32(lj_shift(rc)))
+                 _f32(spec.L), _f32(rc * rc), _f32(lj_shift(rc)),
+                 OCCUPIED_BELOW)
     return pe, vir
 
 

@@ -15,7 +15,7 @@ import torch
 from md_neighbor_list_tpu_torch.ops import (_cuda, dense_cells, dense_force,
                                             incremental, slab_kernels)
 from torch_port_util import (CASES, RC, RS, clustered_system, numpy_system,
-                             torch_state)
+                             scatter_slots, torch_state)
 
 pytestmark = pytest.mark.gpu
 
@@ -285,3 +285,115 @@ def test_dense_slab_p1_on_the_card_matches_the_cube_engine(card):
     assert launches["expand_slab"] == int(sd.n_rebuilds)
     assert launches["forces_half_slab"] >= 2 * 20 + 1
     assert launches["expand"] == launches["forces_half"] == 0
+
+
+def _scattered_on_card(card, cap):
+    """A rebuilt state on the card with its slots scattered inside each cell
+    (no prefix): mc = 4 at cap 40, a cluster of cap - 12 in one cell of an
+    mc = 3 box above."""
+    if cap <= 64:
+        pos, vel, pid = numpy_system(1728, seed=15, jitter=0.2)
+    else:
+        pos, vel, pid = clustered_system(cap - 12, seed=13, n=700)
+    state, spec, _ = torch_state(pos, vel, pid, cap)
+    state = dense_cells.DenseState(*(t.to(card) for t in state))
+    new, _ = dense_cells.rebuild_dense(state, spec)
+    sc = scatter_slots(new, spec, seed=cap)
+    assert not torch.equal(sc.valid(), new.valid())
+    return sc, spec
+
+
+def _slab_of_cube(spec, p):
+    return slab_kernels.SlabSpec(mc=spec.mc, nz=spec.mc // p, mc_z=spec.mc,
+                                 cap=spec.cap, L=spec.L,
+                                 cell_size=spec.cell_size,
+                                 cell_z=spec.cell_size)
+
+
+def _assert_half_forces(f, pe, f_p, pe_p):
+    scale = max(float(f_p.abs().max()), 1.0)
+    np.testing.assert_allclose(f.cpu(), f_p.cpu(), rtol=1e-4,
+                               atol=2e-5 * scale)
+    if pe is not None:
+        pe_scale = max(float(pe_p.abs().max()), 1.0)
+        np.testing.assert_allclose(pe.cpu(), pe_p.cpu(), rtol=1e-4,
+                                   atol=2e-5 * pe_scale)
+
+
+@pytest.mark.parametrize("cap", [40, 384, 480, 700])
+def test_half_sweeps_on_scattered_slots(card, cap):
+    """K3 (both forms, cube and P = 1 slab) and K4 test occupied slots
+    only, found by x < OCCUPIED_BELOW wherever they sit in the cell: on a
+    scattered-slot state each equals its plain version, parked slots get
+    exactly zero force, PE and virial, and each wrapper launches once. At
+    cap 700 the partner list no longer fits the shared memory in one piece
+    and is staged in two passes (csrc/half_sweep.cuh)."""
+    sc, spec = _scattered_on_card(card, cap)
+    valid = sc.valid()
+    before = dict(_cuda.LAUNCHES)
+    f_p, pe_p = dense_force.forces_half_plain(sc.pos.cpu(), spec, RC, True)
+    for want_pe in (False, True):
+        f, pe = dense_force.dense_forces_half(sc.pos, spec, RC, want_pe)
+        _assert_half_forces(f, pe, f_p, pe_p)
+        assert float(f[:, ~valid].abs().sum()) == 0.0
+    assert float(pe[~valid].abs().sum()) == 0.0
+    pe4, vir4 = dense_force.dense_pe_virial(sc.pos, spec, RC)
+    pe4_p, vir4_p = dense_force.pe_virial_half_plain(sc.pos.cpu(), spec, RC)
+    _assert_half_forces(vir4, pe4, vir4_p, pe4_p)
+    assert float(pe4[~valid].abs().sum() + vir4[~valid].abs().sum()) == 0.0
+    # the slab forms at P = 1: [scattered cube | seam-shifted first layer]
+    slab = _slab_of_cube(spec, 1)
+    gpos = sc.pos[:, :spec.mc].clone()
+    gpos[2] += float(np.float32(spec.L))
+    ext_v = torch.cat([valid, valid[:spec.mc]])
+    ext = slab_kernels._repark_ghost(torch.cat([sc.pos, gpos], dim=1), ext_v,
+                                     slab)
+    fs_p, pes_p = dense_force.forces_half_plain(ext.cpu(), slab, RC, True,
+                                                zwrap=False)
+    for want_pe in (False, True):
+        f, pe = dense_force.dense_forces_half_slab(ext, slab, RC, want_pe)
+        _assert_half_forces(f, pe, fs_p, pes_p)
+        assert float(f[:, ~ext_v].abs().sum()) == 0.0
+    assert float(pe[~valid].abs().sum()) == 0.0
+    after = _cuda.LAUNCHES
+    for name in ("forces_half", "forces_half_pe", "pe_virial_half",
+                 "forces_half_slab", "forces_half_slab_pe"):
+        assert after[name] == before[name] + 1, name
+
+
+def test_slab_forms_nz1_on_scattered_slots(card):
+    """nz = 1 slabs (P = mc = 4) of a scattered-slot cube state, each
+    re-parked at slab-local rows with the next slab's first layer as ghost:
+    K3's slab forms equal their plain versions on every slab, and the slabs'
+    forces with the seams handed on equal the cube's K3."""
+    sc, spec = _scattered_on_card(card, 40)
+    p = spec.mc
+    slab = _slab_of_cube(spec, p)
+    valid, mc = sc.valid(), spec.mc
+    park = dense_cells.park_lattice(slab, card)
+    forces, seams = [], []
+    for r in range(p):
+        own = slice(r * mc, (r + 1) * mc)
+        pos = torch.where(valid[own][None], sc.pos[:, own], park)
+        g = slice(((r + 1) % p) * mc, ((r + 1) % p + 1) * mc)
+        gpos = sc.pos[:, g].clone()
+        if r == p - 1:
+            gpos[2] += float(np.float32(spec.L))
+        ext_v = torch.cat([valid[own], valid[g]])
+        ext = slab_kernels._repark_ghost(torch.cat([pos, gpos], dim=1),
+                                         ext_v, slab)
+        f_p, pe_p = dense_force.forces_half_plain(ext.cpu(), slab, RC, True,
+                                                  zwrap=False)
+        for want_pe in (False, True):
+            f, pe = dense_force.dense_forces_half_slab(ext, slab, RC, want_pe)
+            _assert_half_forces(f, pe, f_p, pe_p)
+            assert float(f[:, ~ext_v].abs().sum()) == 0.0
+        assert float(pe[~valid[own]].abs().sum()) == 0.0
+        forces.append(f[:, :mc].clone())
+        seams.append(f[:, mc:])
+    for r in range(p):
+        forces[(r + 1) % p] += seams[r]
+    f_cube, _ = dense_force.dense_forces_half(sc.pos, spec, RC)
+    scale = max(float(f_cube.abs().max()), 1.0)
+    np.testing.assert_allclose(torch.cat(forces, dim=1).cpu(), f_cube.cpu(),
+                               rtol=1e-4, atol=2e-5 * scale)

@@ -108,3 +108,26 @@ def assert_state_equal(tstate, jstate, parked_pos: bool = True):
         if name == "pos" and not parked_pos:
             t, j = t[:, valid], j[:, valid]
         np.testing.assert_array_equal(t, j, err_msg=name)
+
+
+def scatter_slots(state, spec, seed: int):
+    """``state`` with the slots of every cell permuted at random (a numpy
+    seed): each cell keeps its particles, but they sit in slots drawn at
+    random rather than in a prefix of the cell, and its empty slots are
+    re-parked at their new places (``park_positions``) with zero velocity.
+    The park invariant holds; slot order does not."""
+    rng = np.random.default_rng(seed)
+    cells, cap = spec.rows * spec.mc, spec.cap
+    perm = torch.from_numpy(np.argsort(rng.random((cells, cap)), axis=1))
+    perm = perm.to(state.pid.device)
+
+    def take(a):  # (..., R, mc, cap): new slot s of a cell holds slot perm[s]
+        lead = a.shape[:-3]
+        flat = a.reshape(lead + (cells, cap))
+        return torch.gather(flat, -1, perm.expand(flat.shape)).reshape(a.shape)
+
+    pid = take(state.pid)
+    valid = pid >= 0
+    pos = tdc.park_positions(take(state.pos), valid, spec)
+    vel = torch.where(valid[None], take(state.vel), 0.0)
+    return tdc.DenseState(pos=pos, vel=vel, pid=pid)
