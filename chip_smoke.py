@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile | --half-sweep-times]
+    python3 chip_smoke.py [--profile | --half-sweep-times | --list-full-times]
 
 Builds the CUDA kernels from ``md_neighbor_list_tpu_torch/csrc``, holds each
 against its plain PyTorch version (at small shapes that exercise wrap-around,
-cell capacities from 28 to 480 — beyond 341 the sweep kernels' lane-strided
-forms —, overflow and cleared validity, then at the full N = 1,000,000 size;
-the half-force and pe/virial kernels also on each state with its slots
-scattered inside every cell, so that the occupied slots form no prefix),
+cell capacities from 28 to 480 — beyond 341 the count kernels' lane-strided
+forms and the list and full-force kernels' partner passes —, overflow and
+cleared validity, then at the full N = 1,000,000 size;
+the list, half-force, pe/virial and full-sweep kernels also on each state
+with its slots scattered inside every cell, so that the occupied slots form
+no prefix),
 and drives four paths through the entry points a user calls, each with the
 launch counters set to 0 just before and read just after:
 
@@ -49,9 +51,12 @@ code. Without a CUDA device the script fails at once. ``--profile`` adds a
 ``torch.profiler`` breakdown by device kernel of 50 steps of each engine, of
 one ``neighbor_list`` call, of ten incremental and ten full rebuilds, and of
 50 steps of the slab engine (information only). ``--half-sweep-times`` only
-times the half-force and pe/virial kernels at N = 1,000,000 (after checking
-them against their plain versions) and prints no result line: the timing of
-kernel variants, one tree at a time.
+times the half-force and pe/virial kernels at N = 1,000,000, and
+``--list-full-times`` the list and full-force kernels (each after checking
+them against their plain versions); both print no result line: the timing
+of kernel variants, one tree at a time. With ``MDNL_SMOKE_LOG=<file>`` every
+phase line is also appended to that file (``tools/port_ab.py`` keeps a few
+numbers of each run and drops the rest of its output).
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -118,7 +123,11 @@ MAX_RUN_SECONDS = 420.0  # the NVE run stops early (>= 200 steps) past this
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    line = json.dumps({"phase": phase, **fields})
+    print(line, flush=True)
+    if os.environ.get("MDNL_SMOKE_LOG"):  # every phase of every run, kept
+        with open(os.environ["MDNL_SMOKE_LOG"], "a") as log:
+            log.write(line + "\n")
 
 
 def fail(msg: str):
@@ -366,6 +375,41 @@ def half_sweeps_scattered(state: dense_cells.DenseState, spec, cfg,
     return errs
 
 
+def lists_full_scattered(state: dense_cells.DenseState, spec, cfg,
+                         label: str, seed: int = 5) -> dict:
+    """K2 (cube and P = 1 slab forms) and the full sweep (K6 both forms, K7)
+    on ``state`` with its slots scattered inside each cell
+    (``scatter_slots``): masks and counts bitwise equal to the plain
+    versions, the pair count that of ``state``'s own order; the full sweep
+    as ``compare_full_sweep`` holds it. Returns the largest errors."""
+    sc = scatter_slots(state, spec, seed)
+    pos, valid = sc.pos, sc.valid()
+    check(not torch.equal(valid, state.valid()),
+          f"{label}: scattering left every slot in place")
+    counts, masks = dense_force.dense_lists_half(pos, spec, cfg.rs)
+    torch.cuda.synchronize()
+    counts_p, masks_p = dense_force.lists_half_plain(pos, spec, cfg.rs)
+    check(torch.equal(counts, counts_p) and torch.equal(masks, masks_p),
+          f"{label}: lists_half differs from its plain version on scattered "
+          "slots")
+    before, _ = dense_force.dense_lists_half(state.pos, spec, cfg.rs)
+    check(int(counts[valid].sum()) == int(before[state.valid()].sum()),
+          f"{label}: lists_half counts other pairs on scattered slots")
+    del masks, masks_p
+    slab, windows, _ = p1_windows(pos, valid, spec)
+    counts, masks = dense_force.dense_lists_half_slab(windows, slab, cfg.rs)
+    torch.cuda.synchronize()
+    counts_p, masks_p = dense_force.lists_half_plain(windows, slab, cfg.rs,
+                                                     zwrap=False)
+    check(torch.equal(counts, counts_p) and torch.equal(masks, masks_p),
+          f"{label}: lists_half_slab differs from its plain version on "
+          "scattered slots")
+    del masks, masks_p
+    errs = {"lists_half": 0.0, "lists_half_slab": 0.0}
+    errs.update(compare_full_sweep(pos, valid, spec, cfg, label))
+    return errs
+
+
 def band_pairs(pos, valid, spec, radius: float) -> int:
     """Pairs whose r2 lies within CUTOFF_BAND of the cutoff, by the half
     count kernel at the band's two edges."""
@@ -416,7 +460,8 @@ def compare_full_sweep(pos, valid, spec, cfg, label: str, f_half=None) -> dict:
 def small_shapes(device) -> None:
     """Wrap-around (mc = 3), one to fifteen mask words (cap = 152, 304, 384
     and 480 with a cluster in one cell: the caps the growth ladder reaches
-    beyond 128; above 341 the lane-strided kernels), an overflowing cell,
+    beyond 128; above 341 the lane-strided count kernels, from 384 the full
+    sweep's partner passes), an overflowing cell,
     validity cleared on in-box slots, and the port on the card against the
     O(N^2) oracle."""
     cases = []
@@ -443,6 +488,8 @@ def small_shapes(device) -> None:
         state, _, errs = compare_kernels(state0, spec, cfg, label)
         errs["scattered"] = half_sweeps_scattered(state, spec, cfg,
                                                   label + "/scattered")
+        errs["scattered"].update(lists_full_scattered(state, spec, cfg,
+                                                      label + "/scattered"))
         ref = dense_ref.rebuild_reference(state0, spec)
         check(all(torch.equal(a, b) for a, b in zip(state, ref)),
               f"{label}: rebuild differs from the scatter reference")
@@ -601,15 +648,36 @@ ALSO_REPLACES = {"expand": ["md_neighbor_list_tpu/ops/dense_cells.py:358",
 
 def full_width(sim: DenseSimulator) -> list[dict]:
     """Every kernel against its plain version at N = 1M, cap = 40, with
-    times."""
+    times: on a jittered state, on its scattered-slot twin and, for K2 and
+    the full sweep, on the main path's lattice start."""
     cfg, spec, dev = sim.config, sim.spec, sim.device
     system, _ = jittered_system(cfg.n, cfg.rho, seed=7, jitter=0.1, device=dev)
     state0 = dense_cells.from_packed(system.pos, system.vel, system.pid, spec)
     state, recs, errs = compare_kernels(state0, spec, cfg, "full_width")
     check(int(state.valid().sum()) == cfg.n, "full_width: lost particles")
     scattered = half_sweeps_scattered(state, spec, cfg, "full_width/scattered")
-    for name in ("forces_half", "forces_half_pe", "pe_virial_half"):
+    scattered.update(lists_full_scattered(state, spec, cfg,
+                                          "full_width/scattered"))
+    for name in ("forces_half", "forces_half_pe", "pe_virial_half",
+                 "lists_half", "force_full", "force_full_pe", "count_full"):
         errs[name] = max(errs[name], scattered[name])
+    # the main path's lattice start: K2 (both forms) bitwise, the full sweep
+    lattice = sim.init().state
+    lat_pos, lat_valid = lattice.pos, lattice.valid()
+    ok, _ = agree(dense_force.dense_lists_half(lat_pos, spec, cfg.rs),
+                  dense_force.lists_half_plain(lat_pos, spec, cfg.rs), True)
+    check(ok, "full_width/lattice: lists_half differs from its plain version")
+    slab, windows, _ = p1_windows(lat_pos, lat_valid, spec)
+    ok, _ = agree(dense_force.dense_lists_half_slab(windows, slab, cfg.rs),
+                  dense_force.lists_half_plain(windows, slab, cfg.rs,
+                                               zwrap=False), True)
+    check(ok, "full_width/lattice: lists_half_slab differs from its plain "
+          "version")
+    lat_errs = compare_full_sweep(lat_pos, lat_valid, spec, cfg,
+                                  "full_width/lattice")
+    for name in ("force_full", "force_full_pe", "count_full"):
+        errs[name] = max(errs[name], lat_errs[name])
+    del lattice, lat_pos, lat_valid, windows
     pos, valid = state.pos, state.valid()
     counts_rc, _ = dense_force.dense_lists_half(pos, spec, cfg.rc)
     hits = int(counts_rc[state.valid()].sum())
@@ -1690,57 +1758,95 @@ def dense_slab_path(device, cfg=PRESETS["c4_sorted"]
     return launches, carry, sim
 
 
-def half_sweep_times(device, reps: int = 20) -> None:
-    """``--half-sweep-times``: K3 (both forms, cube and P = 1 slab) and K4
-    at N = 1M, cap = 40 on full_width's jittered state, and K3 on its
-    scattered-slot twin, each first held against its plain version, then
-    timed (CUDA events, ``reps`` launches). Prints one JSON line and no
-    result line. Kernel variants are compared by running this script in
-    each tree, one process per tree, in turns on one card."""
+def agree(got, want, exact: bool) -> tuple[bool, float]:
+    """``got`` against ``want`` (a tensor or a tuple of them, None left
+    out): bitwise if ``exact``, else each within ``force_close``."""
+    pairs = [(g, w) for g, w in zip(
+        got if isinstance(got, tuple) else (got,),
+        want if isinstance(want, tuple) else (want,)) if g is not None]
+    if exact:
+        return all(torch.equal(g, w) for g, w in pairs), 0.0
+    results = [force_close(g, w) for g, w in pairs]
+    return all(ok for ok, _ in results), max(err for _, err in results)
+
+
+def sweep_times(device, which: str, reps: int = 20) -> None:
+    """``--half-sweep-times``: K3 (both forms, cube and P = 1 slab) and K4,
+    and K3 on the scattered-slot twin; ``--list-full-times``: K2 (cube and
+    P = 1 slab forms) and K6 (both forms), each also on the scattered-slot
+    twin. At N = 1M, cap = 40 on full_width's jittered state, each first
+    held against its plain version (K2 bitwise), then timed (CUDA events,
+    ``reps`` launches). Prints one JSON line and no result line. Kernel
+    variants are compared by running this script in each tree, one process
+    per tree, in turns on one card."""
     cfg = PRESETS["c4_sorted"]
     system, box = jittered_system(cfg.n, cfg.rho, seed=7, jitter=0.1,
                                   device=device)
     spec = dense_cells.make_spec(box, cfg.rs, 40)
     state, _ = dense_cells.rebuild_dense(dense_cells.from_packed(
         system.pos, system.vel, system.pid, spec), spec)
-    slab, windows, _ = p1_windows(state.pos, state.valid(), spec)
-    scattered = scatter_slots(state, spec, 5).pos
-    pos, rc = state.pos, cfg.rc
-    runs = {
-        "forces_half": (
-            lambda: dense_force.dense_forces_half(pos, spec, rc)[0],
-            lambda: dense_force.forces_half_plain(pos, spec, rc)[0]),
-        "forces_half_pe": (
-            lambda: torch.cat(dense_force.dense_forces_half(pos, spec, rc,
-                                                            True)[1:]),
-            lambda: torch.cat(dense_force.forces_half_plain(pos, spec, rc,
-                                                            True)[1:])),
-        "pe_virial_half": (
-            lambda: torch.stack(dense_force.dense_pe_virial(pos, spec, rc)),
-            lambda: torch.stack(dense_force.pe_virial_half_plain(pos, spec,
-                                                                 rc))),
-        "forces_half_slab": (
-            lambda: dense_force.dense_forces_half_slab(windows, slab, rc)[0],
-            lambda: dense_force.forces_half_plain(windows, slab, rc,
-                                                  zwrap=False)[0]),
-        "forces_half_slab_pe": (
-            lambda: dense_force.dense_forces_half_slab(windows, slab, rc,
-                                                       True)[1],
-            lambda: dense_force.forces_half_plain(windows, slab, rc, True,
-                                                  zwrap=False)[1]),
-        "forces_half_scattered": (
-            lambda: dense_force.dense_forces_half(scattered, spec, rc)[0],
-            lambda: dense_force.forces_half_plain(scattered, spec, rc)[0]),
-    }
+    valid = state.valid()
+    slab, windows, _ = p1_windows(state.pos, valid, spec)
+    sc = scatter_slots(state, spec, 5)
+    sc_valid = sc.valid()
+    pos, rc, rs, df = state.pos, cfg.rc, cfg.rs, dense_force
+    if which == "half_sweep_times":
+        runs = {  # name: (kernel, plain version, bitwise)
+            "forces_half": (
+                lambda: df.dense_forces_half(pos, spec, rc)[0],
+                lambda: df.forces_half_plain(pos, spec, rc)[0], False),
+            "forces_half_pe": (
+                lambda: df.dense_forces_half(pos, spec, rc, True),
+                lambda: df.forces_half_plain(pos, spec, rc, True), False),
+            "pe_virial_half": (
+                lambda: df.dense_pe_virial(pos, spec, rc),
+                lambda: df.pe_virial_half_plain(pos, spec, rc), False),
+            "forces_half_slab": (
+                lambda: df.dense_forces_half_slab(windows, slab, rc)[0],
+                lambda: df.forces_half_plain(windows, slab, rc,
+                                             zwrap=False)[0], False),
+            "forces_half_slab_pe": (
+                lambda: df.dense_forces_half_slab(windows, slab, rc, True),
+                lambda: df.forces_half_plain(windows, slab, rc, True,
+                                             zwrap=False), False),
+            "forces_half_scattered": (
+                lambda: df.dense_forces_half(sc.pos, spec, rc)[0],
+                lambda: df.forces_half_plain(sc.pos, spec, rc)[0], False),
+        }
+    else:
+        runs = {
+            "lists_half": (
+                lambda: df.dense_lists_half(pos, spec, rs),
+                lambda: df.lists_half_plain(pos, spec, rs), True),
+            "lists_half_slab": (
+                lambda: df.dense_lists_half_slab(windows, slab, rs),
+                lambda: df.lists_half_plain(windows, slab, rs, zwrap=False),
+                True),
+            "lists_half_scattered": (
+                lambda: df.dense_lists_half(sc.pos, spec, rs),
+                lambda: df.lists_half_plain(sc.pos, spec, rs), True),
+            "force_full": (
+                lambda: df.dense_forces(pos, valid, spec, rc, False)[0],
+                lambda: df.forces_full_plain(pos, valid, spec, rc, False)[0],
+                False),
+            "force_full_pe": (
+                lambda: df.dense_forces(pos, valid, spec, rc, True),
+                lambda: df.forces_full_plain(pos, valid, spec, rc, True),
+                False),
+            "force_full_scattered": (
+                lambda: df.dense_forces(sc.pos, sc_valid, spec, rc, False)[0],
+                lambda: df.forces_full_plain(sc.pos, sc_valid, spec, rc,
+                                             False)[0], False),
+        }
     ms = {}
-    for name, (kernel, plain) in runs.items():
-        ok, err = force_close(kernel(), plain())
-        check(ok, f"half_sweep_times: {name} off its plain version by {err}")
+    for name, (kernel, plain, exact) in runs.items():
+        ok, err = agree(kernel(), plain(), exact)
+        check(ok, f"{which}: {name} off its plain version by {err}")
         ms[name] = time_ms(kernel, reps)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    emit("half_sweep_times", n=cfg.n, cap=spec.cap, reps=reps, card=smi,
+    emit(which, n=cfg.n, cap=spec.cap, reps=reps, card=smi,
          nvcc_flags=os.environ.get("MDNL_NVCC_FLAGS", ""), ms=ms)
 
 
@@ -1838,9 +1944,10 @@ def main() -> int:
                 or "spill" in line or "error" in line.lower()])
 
     device = torch.device("cuda")
-    if "--half-sweep-times" in sys.argv[1:]:
-        half_sweep_times(device)
-        return 0
+    for flag in ("--half-sweep-times", "--list-full-times"):
+        if flag in sys.argv[1:]:
+            sweep_times(device, flag[2:].replace("-", "_"))
+            return 0
     small_shapes(device)
     sim = DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device)
     rows = full_width(sim)

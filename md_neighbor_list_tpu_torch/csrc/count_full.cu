@@ -14,8 +14,8 @@
 // are added at the end. The self pair is excluded on the centre cell's
 // diagonal only.
 //
-// Above cap = kLaneCap the `_strided` kernel takes over, as in force_full.cu:
-// a thread per own slot (i, i + blockDim, ...), the nine rows staged one at a
+// Above cap = kLaneCap the `_strided` kernel takes over: a thread per own
+// slot (i, i + blockDim, ...), the nine rows staged one at a
 // time, each slot's count kept in shared memory by the thread that serves it.
 // One body for every cap (the 27-row staging with a strided (z-group, slot)
 // loop) ran 3-5 % slower at cap = 40 (NVIDIA H100 80GB HBM3 at 700 W,

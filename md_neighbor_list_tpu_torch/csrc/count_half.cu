@@ -7,11 +7,11 @@
 // (lists_half.cu) and the per-slot popcount of its masks. The TPU body sums
 // hits as f32 and casts; here everything is an integer.
 //
-// One block per own cell, one thread per window lane, the list kernel's
-// loop: for each own slot one warp ballot + popcount, added by lane (i % 32)
-// into that warp's counter of the slot in shared memory (only that lane of
-// that warp ever touches the entry, so no atomics), then summed over the
-// warps. No validity input: the half sweep relies on the park invariant.
+// One block per own cell, one thread per window lane (the list kernel's
+// first design): for each own slot one warp ballot + popcount, added by lane
+// (i % 32) into that warp's counter of the slot in shared memory (only that
+// lane of that warp ever touches the entry, so no atomics), then summed over
+// the warps. No validity input: the half sweep relies on the park invariant.
 //
 // Above cap = kLaneCap the `_strided` kernel runs the same sweep in blocks of
 // kStridedThreads threads: the block walks the window in chunks of blockDim

@@ -28,21 +28,25 @@
 
 namespace mdnl {
 
-// Slots per cell up to which a block of the list, count and full-sweep
-// kernels has one thread per window lane, 3*cap <= 1024 threads. Above it
-// each of those kernels launches its lane-strided form: blocks of
-// kStridedThreads threads, each serving window lanes (or own slots) t,
-// t + blockDim, ..., so any cap runs whose shared memory fits a block
-// (`fit_shared`, 227 KB): the list and half-count kernels take the most, 76
-// bytes a slot, so every sweep kernel runs up to 3,058 slots per cell (the
-// full-sweep kernels up to 3,632, the half-force and pe/virial kernels of
-// half_sweep.cuh beyond).
+// Slots per cell up to which a block of the count kernels (K5, K7) has one
+// thread per window lane, 3*cap <= 1024 threads. Above it each of them
+// launches its lane-strided form: blocks of kStridedThreads threads, each
+// serving window lanes (or own slots) t, t + blockDim, ..., so any cap runs
+// whose shared memory fits a block (`fit_shared`, 227 KB): the half-count
+// kernel takes the most, 76 bytes a slot, so it runs up to 3,058 slots per
+// cell (the full count up to 3,632). The list, half-force, pe/virial and
+// full-force kernels (K2, K3, K4, K6) have one body for every cap that
+// stages occupied slots only, in passes where the shared memory is short.
 constexpr int kLaneCap = 341;
 constexpr int kStridedThreads = 512;
 // Shared memory a block may take after the opt-in (`fit_shared`).
 constexpr size_t kMaxShared = 227 * 1024;
+// Shared memory the list and full-force kernels plan a block for: half of
+// it, so that two blocks share an SM at any cap (past it they stage their
+// partners in passes; cap 40 needs 12 and 20 KB).
+constexpr size_t kPassShared = kMaxShared / 2;
 // Blocks of up to 1024 threads need a launch bound (64 registers a thread).
-// The list and full-sweep kernels carry it at every cap. The half-count
+// The full-count kernel carries it at every cap. The half-count
 // kernel (K5) is compiled in two forms over one body: for cap <= kNarrowCap
 // (blocks of at most 384 threads) with no bound, so registers are
 // unconstrained, and a `_wide` form with the bound for the caps above,
@@ -175,7 +179,7 @@ __device__ __forceinline__ void load_own(const float* __restrict__ pos,
   }
 }
 
-// ---- full 27-cell sweep -------------------------------------------------
+// ---- full 27-cell sweep of the full-count kernel (K7) ---------------------
 // One block per own cell, 3*cap threads: thread t serves own slot t % cap in
 // z-group g = t / cap, which sweeps the three rows (dz = g - 1, dy = -1, 0, 1)
 // lane by lane in a fixed order. A slot whose `valid` byte is 0 is absent on
@@ -202,7 +206,7 @@ __device__ __forceinline__ void stage_rows_full(
 }
 
 // Stage one row (dz, dy) of the full sweep: sx/sy/sz hold 3*cap floats. The
-// lane-strided full-sweep kernels stage the nine rows one at a time.
+// lane-strided full-count kernel stages the nine rows one at a time.
 __device__ __forceinline__ void stage_row_full(
     const float* __restrict__ pos, const unsigned char* __restrict__ valid,
     size_t S, int mc, int cap, float L, const CellId& c, int dz, int dy,

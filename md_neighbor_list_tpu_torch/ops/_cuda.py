@@ -38,17 +38,17 @@ _ENTRIES = {
     # chans, pid_s, keys_s, row_start, posvel, pid_out, M, rows, mc, cap,
     # park_step
     "expand": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F],
-    # pos, masks, counts, mc, cap, L, r2cut
-    "lists_half": [_P, _P, _P, _I, _I, _F, _F],
+    # pos, masks, counts, mc, cap, L, r2cut, occupied_below (PARK_BASE / 2)
+    "lists_half": [_P, _P, _P, _I, _I, _F, _F, _F],
     # pos, force, mc, cap, L, r2cut, occupied_below (PARK_BASE / 2)
     "forces_half": [_P, _P, _I, _I, _F, _F, _F],
     # pos, force, pe, mc, cap, L, r2cut, ushift, occupied_below (want_pe)
     "forces_half_pe": [_P, _P, _P, _I, _I, _F, _F, _F, _F],
     # the slab forms of K1-K3: the expand's arguments and key_base; the
     # sweeps' arguments and nz_grid, nz_arr (layers walked, layers read),
-    # the force forms then occupied_below
+    # then occupied_below
     "expand_slab": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I],
-    "lists_half_slab": [_P, _P, _P, _I, _I, _F, _F, _I, _I],
+    "lists_half_slab": [_P, _P, _P, _I, _I, _F, _F, _I, _I, _F],
     "forces_half_slab": [_P, _P, _I, _I, _F, _F, _I, _I, _F],
     "forces_half_slab_pe": [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _F],
     # pos, pe, vir, mc, cap, L, r2cut, ushift, occupied_below

@@ -25,14 +25,15 @@ CONTRACT of the half sweep: ``pos4`` satisfies the park invariant
 (``dense_cells``): empty slots sit on the park lattice, so no validity input
 exists and they receive exactly zero force, count and mask bits.
 
-Every kernel takes any cap. The list and count kernels and the full sweep
-have, up to 341 slots per cell (3*cap <= 1024), one thread per window lane
-(half sweep) or per z-group and own slot (full sweep); above, each one's
-lane-strided form runs blocks of 512 threads that serve lanes or own slots
-t, t + 512, ... (``csrc/geom.cuh``). The half-force and pe/virial kernels
-have one body for every cap (``csrc/half_sweep.cuh``): they stage the
-occupied slots of the cell and of its 14 partner cells (x < OCCUPIED_BELOW)
-and test those only.
+Every kernel takes any cap. The count kernels have, up to 341 slots per
+cell (3*cap <= 1024), one thread per window lane (half sweep) or per z-group
+and own slot (full sweep); above, each one's lane-strided form runs blocks
+of 512 threads that serve lanes or own slots t, t + 512, ...
+(``csrc/geom.cuh``). The list, half-force and pe/virial kernels have one
+body for every cap (``csrc/half_sweep.cuh``, ``csrc/lists_half.cu``): they
+stage the occupied slots of the cell and of its 14 partner cells
+(x < OCCUPIED_BELOW) and test those only; the full-force kernel likewise
+stages the valid slots of the 27 cells (``csrc/force_full.cu``).
 
 Slab forms of the half sweep (``dense_lists_half_slab``,
 ``dense_forces_half_slab``): the same kernels over an array of nz_arr z-layers,
@@ -214,9 +215,11 @@ def dense_lists_half(pos4: torch.Tensor, spec, radius: float):
     Kernel: ``csrc/lists_half.cu``, replacing ``_list_half_kernel`` and
     ``_list_half_kernel_grouped`` of md_neighbor_list_tpu/ops/pallas_force.py
     (same bits). Bound on this card by the mask write (5*words*3 words per
-    slot); a thread per window lane builds its words in registers and stores
-    them coalesced, and counts come from warp ballots, exact integers.
-    CPU tensors take ``lists_half_plain``."""
+    slot). A block stages the occupied slots (x < OCCUPIED_BELOW) of the
+    cell and of its 14 partner cells and tests those only, a lane building
+    one word register per partner and storing it at the partner's lane;
+    counts come from warp reductions, exact integers. CPU tensors take
+    ``lists_half_plain``."""
     _check_state(pos4, spec)
     if not pos4.is_cuda:
         return lists_half_plain(pos4, spec, radius)
@@ -225,7 +228,7 @@ def dense_lists_half(pos4: torch.Tensor, spec, radius: float):
                          3 * spec.cap), dtype=torch.int32, device=pos4.device)
     counts = torch.empty(shape, dtype=torch.int32, device=pos4.device)
     _cuda.launch("lists_half", pos4, masks, counts, spec.mc, spec.cap,
-                 _f32(spec.L), _f32(radius * radius))
+                 _f32(spec.L), _f32(radius * radius), OCCUPIED_BELOW)
     return counts, masks
 
 
@@ -249,7 +252,8 @@ def dense_lists_half_slab(pos: torch.Tensor, spec, radius: float):
     counts = torch.empty((rows, spec.mc, spec.cap), dtype=torch.int32,
                          device=pos.device)
     _cuda.launch("lists_half_slab", pos, masks, counts, spec.mc, spec.cap,
-                 _f32(spec.L), _f32(radius * radius), nz_arr - 1, nz_arr)
+                 _f32(spec.L), _f32(radius * radius), nz_arr - 1, nz_arr,
+                 OCCUPIED_BELOW)
     return counts, masks
 
 
@@ -529,11 +533,13 @@ def dense_forces(pos4: torch.Tensor, valid: torch.Tensor, spec, rc: float,
     PE = 0.5 * sum(pe * valid). The parity pass for ``dense_forces_half``.
 
     Kernel: ``csrc/force_full.cu``, replacing ``_force_kernel`` of
-    md_neighbor_list_tpu/ops/pallas_force.py. Bound by fp32 operations (27*cap
-    distance tests per slot). A thread per own slot and z-group keeps its sums
-    in registers and the block adds them in a fixed order: no atomics, so the
-    result is bitwise the same from run to run. 1/r2 is an exact divide in
-    both forms. CPU tensors take ``forces_full_plain``."""
+    md_neighbor_list_tpu/ops/pallas_force.py. Bound by fp32 operations (the
+    distance tests between valid slots of 27 cells). A block stages the valid
+    slots of the cell and of the 27 cells around it; a thread takes one own
+    slot against one chunk of the partners, its sums in registers, and the
+    block adds the chunks in a fixed order: no atomics, so the result is
+    bitwise the same from run to run. 1/r2 is correctly rounded in both
+    forms. CPU tensors take ``forces_full_plain``."""
     _check_state(pos4, spec)
     _check_valid(valid, pos4, spec)
     if not pos4.is_cuda:

@@ -14,7 +14,8 @@ from md_neighbor_list_tpu.core.box import Box as JBox
 from md_neighbor_list_tpu_torch.core import capacity as tcap
 from md_neighbor_list_tpu_torch.core.box import Box as TBox
 from md_neighbor_list_tpu_torch.ops import oracle as toracle
-from torch_port_util import RS
+from torch_port_util import (RS, jax_decoder_build,  # noqa: F401
+                             jax_native_decoder)
 
 
 def _random_positions(n, rho, seed):
@@ -62,6 +63,7 @@ def test_capacity_estimate_equals_the_jax_package():
         assert got == jcap.estimate(rho, rs, cell, half).neighbors
 
 
+@pytest.mark.usefixtures("jax_native_decoder")
 @pytest.mark.parametrize("half", [True, False], ids=["half", "full"])
 @pytest.mark.parametrize("n,seed", [(2000, 8), (700, 3)],
                          ids=["mc4", "mc3"])

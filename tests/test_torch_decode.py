@@ -15,7 +15,8 @@ from md_neighbor_list_tpu.ops import pallas_force as jpf
 from md_neighbor_list_tpu_torch.ops import decode as tdec
 from md_neighbor_list_tpu_torch.ops import dense_force as tdf
 from md_neighbor_list_tpu_torch.utils import convert, native
-from torch_port_util import CASES, RS, rebuilt_pair
+from torch_port_util import (CASES, RS, jax_decoder_build,  # noqa: F401
+                             jax_native_decoder, rebuilt_pair)
 
 ALL = sorted(CASES)
 IMPLS = ["native", "numpy"]
@@ -59,6 +60,7 @@ def test_native_decoder_builds_here():
         native.BUILD.glob("libmdnl-decode-*.so"))
 
 
+@pytest.mark.usefixtures("jax_native_decoder")
 @pytest.mark.parametrize("case", ALL)
 @pytest.mark.parametrize("impl", IMPLS)
 def test_pid_pairs_bitwise_across_packages(case, impl):
@@ -85,6 +87,7 @@ def test_pid_pairs_bitwise_across_packages(case, impl):
     np.testing.assert_array_equal(theirs[1], ours[1])
 
 
+@pytest.mark.usefixtures("jax_native_decoder")
 @pytest.mark.parametrize("case", ALL)
 @pytest.mark.parametrize("impl", IMPLS)
 def test_decode_pairs_bitwise(case, impl):
@@ -106,6 +109,7 @@ def test_decode_pairs_bitwise(case, impl):
     assert len(set(zip(i_t.tolist(), j_t.tolist()))) == total  # no duplicate
 
 
+@pytest.mark.usefixtures("jax_native_decoder")
 @pytest.mark.parametrize("case", ALL)
 @pytest.mark.parametrize("impl", IMPLS)
 @pytest.mark.parametrize("full", [False, True], ids=["half", "full"])

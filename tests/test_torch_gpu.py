@@ -126,9 +126,10 @@ def test_kernels_take_caps_beyond_four_mask_words(card, cap):
 
 @pytest.mark.parametrize("cap", [384, 480])
 def test_kernels_take_caps_beyond_one_thread_per_lane(card, cap):
-    """3*cap > 1024 (12 and 15 mask words): the lane-strided forms of every
-    sweep kernel against the plain versions, a cluster of more than 341
-    particles in one cell at mc = 3."""
+    """3*cap > 1024 (12 and 15 mask words): the lane-strided forms of the
+    count kernels, and the list and force kernels at caps where the full
+    sweep stages its partners in passes, against the plain versions, a
+    cluster of more than 341 particles in one cell at mc = 3."""
     n = 700
     pos, vel, pid = clustered_system(cap - 12, seed=13, n=n)
     state, spec, _ = torch_state(pos, vel, pid, cap)
@@ -397,3 +398,48 @@ def test_slab_forms_nz1_on_scattered_slots(card):
     scale = max(float(f_cube.abs().max()), 1.0)
     np.testing.assert_allclose(torch.cat(forces, dim=1).cpu(), f_cube.cpu(),
                                rtol=1e-4, atol=2e-5 * scale)
+
+
+@pytest.mark.parametrize("cap", [40, 384, 480, 700])
+def test_lists_and_full_sweep_on_scattered_slots(card, cap):
+    """K2 (cube and P = 1 slab forms) and K6 (both forms) stage occupied or
+    valid slots only, wherever they sit in the cell: on a scattered-slot
+    state K2's masks and counts equal the plain version's bitwise, K6 equals
+    its plain version to rounding with invalid slots exactly zero, two K6
+    launches are bitwise equal, and each wrapper launches once a call. At
+    cap 384 and above K6, and at cap 700 K2, stage their partners in passes
+    (csrc/lists_half.cu, csrc/force_full.cu)."""
+    sc, spec = _scattered_on_card(card, cap)
+    valid = sc.valid()
+    before = dict(_cuda.LAUNCHES)
+    counts, masks = dense_force.dense_lists_half(sc.pos, spec, RS)
+    counts_p, masks_p = dense_force.lists_half_plain(sc.pos.cpu(), spec, RS)
+    assert torch.equal(counts.cpu(), counts_p)
+    assert torch.equal(masks.cpu(), masks_p)
+    assert int(counts_p.sum()) > 0
+    slab = _slab_of_cube(spec, 1)
+    gpos = sc.pos[:, :spec.mc].clone()
+    gpos[2] += float(np.float32(spec.L))
+    ext_v = torch.cat([valid, valid[:spec.mc]])
+    ext = slab_kernels._repark_ghost(torch.cat([sc.pos, gpos], dim=1), ext_v,
+                                     slab)
+    counts, masks = dense_force.dense_lists_half_slab(ext, slab, RS)
+    counts_p, masks_p = dense_force.lists_half_plain(ext.cpu(), slab, RS,
+                                                     zwrap=False)
+    assert torch.equal(counts.cpu(), counts_p)
+    assert torch.equal(masks.cpu(), masks_p)
+    f_p, pe_p = dense_force.forces_full_plain(sc.pos.cpu(), valid.cpu(), spec,
+                                              RC, True)
+    for want_pe in (False, True):
+        f, pe = dense_force.dense_forces(sc.pos, valid, spec, RC, want_pe)
+        again, pe_again = dense_force.dense_forces(sc.pos, valid, spec, RC,
+                                                   want_pe)
+        assert torch.equal(f, again)
+        _assert_half_forces(f, pe, f_p, pe_p)
+        assert float(f[:, ~valid].abs().sum()) == 0.0
+    assert torch.equal(pe, pe_again)
+    assert float(pe[~valid].abs().sum()) == 0.0
+    after = _cuda.LAUNCHES
+    for name, times in (("lists_half", 1), ("lists_half_slab", 1),
+                        ("force_full", 2), ("force_full_pe", 2)):
+        assert after[name] == before[name] + times, name

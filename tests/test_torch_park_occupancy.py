@@ -22,7 +22,7 @@ from md_neighbor_list_tpu_torch.ops import dense_force as tdf
 from md_neighbor_list_tpu_torch.ops import incremental as tinc
 from md_neighbor_list_tpu_torch.ops import slab_kernels
 from md_neighbor_list_tpu_torch.utils import convert
-from torch_port_util import (CASES, RC, numpy_system, rebuilt_pair,
+from torch_port_util import (CASES, RC, RS, numpy_system, rebuilt_pair,
                              scatter_slots, torch_state)
 
 N = 1728  # L = 12, mc = 4
@@ -218,3 +218,43 @@ def test_plain_half_sweeps_match_jax_on_scattered_slots(case, form):
                                    np.asarray(pe_j)[valid], rtol=1e-5,
                                    atol=1e-5)
         assert float(pe_t[~sc.valid()].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("form", ["lists", "full_hot", "full_pe"])
+def test_plain_lists_and_full_sweep_match_jax_on_scattered_slots(case, form):
+    """The port's plain list build and full-sweep forces against the JAX
+    kernels (interpret mode) on occupied slots that form no prefix: masks
+    and counts bitwise; forces slot by slot with test_torch_counts_full.py's
+    tolerances and within the force-parity gate (2e-4 of the largest
+    component); invalid slots get exactly zero."""
+    sc, tspec, js, jspec = _scattered_pair(case)
+    jv = js.valid().astype(jnp.float32)
+    invalid = ~sc.valid()
+    if form == "lists":
+        c_j, m_j = jpf.dense_lists_half(js.pos, jv, jspec, RS, True)
+        c_t, m_t = tdf.lists_half_plain(sc.pos, tspec, RS)
+        np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
+        np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
+        assert int(c_t[invalid].abs().sum()) == 0
+        assert int(c_t.sum()) > 0
+        return
+    want_pe = form == "full_pe"
+    f_j, pe_j = jpf.dense_forces(js.pos, jv, jspec, RC, True, want_pe)
+    f_t, pe_t = tdf.forces_full_plain(sc.pos, sc.valid(), tspec, RC, want_pe)
+    valid = sc.valid().numpy()
+    f_j = np.asarray(f_j)
+    rtol, atol = (1e-5, 1e-4) if want_pe else (1e-4, 5e-3)
+    np.testing.assert_allclose(f_t.numpy()[:, valid], f_j[:, valid],
+                               rtol=rtol, atol=atol)
+    scale = max(float(np.abs(f_j[:, valid]).max()), 1.0)
+    np.testing.assert_allclose(f_t.numpy()[:, valid], f_j[:, valid], rtol=0,
+                               atol=2e-4 * scale)
+    assert float(f_t[:, invalid].abs().sum()) == 0.0
+    if want_pe:
+        np.testing.assert_allclose(pe_t.numpy()[valid],
+                                   np.asarray(pe_j)[valid], rtol=1e-5,
+                                   atol=1e-5)
+        assert float(pe_t[invalid].abs().sum()) == 0.0
+    else:
+        assert pe_t is None and pe_j is None

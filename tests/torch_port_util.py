@@ -5,9 +5,11 @@ from __future__ import annotations
 
 import functools
 import math
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from md_neighbor_list_tpu.core.box import Box as JBox
@@ -25,6 +27,45 @@ RS, RC = 2.8, 2.5
 # many small tensor ops, and PyTorch's intra-op threads of one worker spin
 # against those of the others; one thread per worker is several times faster.
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="session")
+def jax_decoder_build(tmp_path_factory):
+    """The JAX package's host decoder (``native/decode.cpp``) built once per
+    test process with g++ and that loader's flags into a directory of its
+    own. The JAX loader builds in place into ``native/_build/``, shared by
+    every process of the suite, so a worker could load a library another
+    worker is still writing; it then falls back to numpy for good, which
+    orders the slots of a full row differently. Returns the library's path,
+    or (None, the compiler's message)."""
+    from md_neighbor_list_tpu.utils import native as jnative
+
+    so = tmp_path_factory.mktemp("jax_decoder") / jnative._SO.name
+    proc = subprocess.run(
+        ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+         str(jnative._SRC), "-o", str(so)], capture_output=True, text=True)
+    return (so, "") if proc.returncode == 0 else (None, proc.stderr)
+
+
+@pytest.fixture
+def jax_native_decoder(jax_decoder_build, monkeypatch):
+    """Point the JAX package's native loader at ``jax_decoder_build`` for
+    one test, with its cached library and error cleared (``monkeypatch``
+    restores all three), and load it: a test that compares decoders with
+    the JAX side must not decode through a library that another process
+    writes, nor silently through numpy. Fails the test if it cannot load."""
+    from md_neighbor_list_tpu.utils import native as jnative
+
+    so, message = jax_decoder_build
+    if so is None:
+        pytest.fail(f"the JAX host decoder did not build: {message}")
+    monkeypatch.setattr(jnative, "_SO", so)
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_err", None)
+    try:
+        jnative.load()
+    except jnative.NativeUnavailable as e:
+        pytest.fail(f"the JAX host decoder did not load: {e}")
 
 
 def numpy_system(n: int, seed: int, jitter: float = 0.05, rho: float = 1.0):
