@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile | --half-sweep-times | --list-full-times]
+    python3 chip_smoke.py [--profile | --half-sweep-times | --list-full-times
+                           | --count-times]
 
 Builds the CUDA kernels from ``md_neighbor_list_tpu_torch/csrc``, holds each
 against its plain PyTorch version (at small shapes that exercise wrap-around,
-cell capacities from 28 to 480 — beyond 341 the count kernels' lane-strided
-forms and the list and full-force kernels' partner passes —, overflow and
-cleared validity, then at the full N = 1,000,000 size;
-the list, half-force, pe/virial and full-sweep kernels also on each state
-with its slots scattered inside every cell, so that the occupied slots form
-no prefix),
+cell capacities from 28 to 480 — from 384 the partner passes of the list,
+half-count, full-force and full-count kernels —, overflow and cleared
+validity, then at the full N = 1,000,000 size;
+the list, half-count, half-force, pe/virial and full-sweep kernels also on
+each state with its slots scattered inside every cell, so that the occupied
+slots form no prefix),
 and drives four paths through the entry points a user calls, each with the
 launch counters set to 0 just before and read just after:
 
@@ -52,9 +53,10 @@ code. Without a CUDA device the script fails at once. ``--profile`` adds a
 one ``neighbor_list`` call, of ten incremental and ten full rebuilds, and of
 50 steps of the slab engine (information only). ``--half-sweep-times`` only
 times the half-force and pe/virial kernels at N = 1,000,000, and
-``--list-full-times`` the list and full-force kernels (each after checking
-them against their plain versions); both print no result line: the timing
-of kernel variants, one tree at a time. With ``MDNL_SMOKE_LOG=<file>`` every
+``--list-full-times`` the list and full-force kernels, and ``--count-times``
+the half- and full-count kernels (each after checking them against their
+plain versions); these print no result line: the timing of kernel
+variants, one tree at a time. With ``MDNL_SMOKE_LOG=<file>`` every
 phase line is also appended to that file (``tools/port_ab.py`` keeps a few
 numbers of each run and drops the rest of its output).
 The last line is
@@ -377,11 +379,12 @@ def half_sweeps_scattered(state: dense_cells.DenseState, spec, cfg,
 
 def lists_full_scattered(state: dense_cells.DenseState, spec, cfg,
                          label: str, seed: int = 5) -> dict:
-    """K2 (cube and P = 1 slab forms) and the full sweep (K6 both forms, K7)
-    on ``state`` with its slots scattered inside each cell
+    """K2 (cube and P = 1 slab forms), K5 and the full sweep (K6 both
+    forms, K7) on ``state`` with its slots scattered inside each cell
     (``scatter_slots``): masks and counts bitwise equal to the plain
-    versions, the pair count that of ``state``'s own order; the full sweep
-    as ``compare_full_sweep`` holds it. Returns the largest errors."""
+    versions, K5 also to K2's counts, the pair count that of ``state``'s own
+    order; the full sweep as ``compare_full_sweep`` holds it. Returns the
+    largest errors."""
     sc = scatter_slots(state, spec, seed)
     pos, valid = sc.pos, sc.valid()
     check(not torch.equal(valid, state.valid()),
@@ -396,6 +399,11 @@ def lists_full_scattered(state: dense_cells.DenseState, spec, cfg,
     check(int(counts[valid].sum()) == int(before[state.valid()].sum()),
           f"{label}: lists_half counts other pairs on scattered slots")
     del masks, masks_p
+    half = dense_force.dense_counts_half(pos, spec, cfg.rs)
+    torch.cuda.synchronize()
+    check(torch.equal(half, counts_p) and torch.equal(half, counts),
+          f"{label}: count_half differs from its plain version or from the "
+          "list kernel's counts on scattered slots")
     slab, windows, _ = p1_windows(pos, valid, spec)
     counts, masks = dense_force.dense_lists_half_slab(windows, slab, cfg.rs)
     torch.cuda.synchronize()
@@ -405,7 +413,7 @@ def lists_full_scattered(state: dense_cells.DenseState, spec, cfg,
           f"{label}: lists_half_slab differs from its plain version on "
           "scattered slots")
     del masks, masks_p
-    errs = {"lists_half": 0.0, "lists_half_slab": 0.0}
+    errs = {"lists_half": 0.0, "lists_half_slab": 0.0, "count_half": 0.0}
     errs.update(compare_full_sweep(pos, valid, spec, cfg, label))
     return errs
 
@@ -460,8 +468,8 @@ def compare_full_sweep(pos, valid, spec, cfg, label: str, f_half=None) -> dict:
 def small_shapes(device) -> None:
     """Wrap-around (mc = 3), one to fifteen mask words (cap = 152, 304, 384
     and 480 with a cluster in one cell: the caps the growth ladder reaches
-    beyond 128; above 341 the lane-strided count kernels, from 384 the full
-    sweep's partner passes), an overflowing cell,
+    beyond 128; from 384 the partner passes of the list, half-count and
+    full-sweep kernels), an overflowing cell,
     validity cleared on in-box slots, and the port on the card against the
     O(N^2) oracle."""
     cases = []
@@ -616,13 +624,13 @@ SOURCES = {
                        "md_neighbor_list_tpu/ops/pallas_force.py:613"),
     "pe_virial_half": ("md_neighbor_list_tpu_torch/csrc/pe_virial_half.cu",
                        "md_neighbor_list_tpu/ops/pallas_force.py:860"),
-    "count_half": ("md_neighbor_list_tpu_torch/csrc/count_half.cu",
+    "count_half": ("md_neighbor_list_tpu_torch/csrc/lists_half.cu",
                    "md_neighbor_list_tpu/ops/pallas_force.py:801"),
     "force_full": ("md_neighbor_list_tpu_torch/csrc/force_full.cu",
                    "md_neighbor_list_tpu/ops/pallas_force.py:185"),
     "force_full_pe": ("md_neighbor_list_tpu_torch/csrc/force_full.cu",
                       "md_neighbor_list_tpu/ops/pallas_force.py:185"),
-    "count_full": ("md_neighbor_list_tpu_torch/csrc/count_full.cu",
+    "count_full": ("md_neighbor_list_tpu_torch/csrc/force_full.cu",
                    "md_neighbor_list_tpu/ops/pallas_force.py:230"),
     "merge": ("md_neighbor_list_tpu_torch/csrc/merge.cu",
               "md_neighbor_list_tpu/ops/incremental.py:127"),
@@ -659,7 +667,8 @@ def full_width(sim: DenseSimulator) -> list[dict]:
     scattered.update(lists_full_scattered(state, spec, cfg,
                                           "full_width/scattered"))
     for name in ("forces_half", "forces_half_pe", "pe_virial_half",
-                 "lists_half", "force_full", "force_full_pe", "count_full"):
+                 "lists_half", "count_half", "force_full", "force_full_pe",
+                 "count_full"):
         errs[name] = max(errs[name], scattered[name])
     # the main path's lattice start: K2 (both forms) bitwise, the full sweep
     lattice = sim.init().state
@@ -980,8 +989,8 @@ CLUSTER_N, CLUSTER_K = 8000, 400  # L = 20, mc = 7; 400 in one cell
 
 def clustered_neighbor_list(dev) -> dict:
     """One ``neighbor_list`` call on an input with 400 particles in one cell,
-    so the API grows cap from 40 to 480 and the list kernel runs its
-    lane-strided form; every full row against a brute-force search."""
+    so the API grows cap from 40 to 480 and the list kernel stages its
+    partners in passes; every full row against a brute-force search."""
     system, box = jittered_system(CLUSTER_N, 1.0, seed=17, jitter=0.1,
                                   device=dev, cluster=CLUSTER_K)
     n, rs = CLUSTER_N, MDConfig(n=CLUSTER_N).rs
@@ -1299,7 +1308,7 @@ SLAB_SMALL = (  # n, cap, cluster, P, label; P = mc gives nz = 1
 def small_slab_shapes(device) -> None:
     """The slab forms at small size: nz = 1 slabs (a ghost's empty slots lie
     on the receiver's own park rows until re-parked) at cap 40 and 384, and
-    the lane-strided forms (cap 384, a cluster of 372 in one cell) with the
+    a large cap (384, a cluster of 372 in one cell) with the
     interior/boundary split at P = 1. Each slab is built by the slab rebuild
     from every record; each form is held against its plain version, the
     slabs together against the oracle. Then the P = 1 engine builds the
@@ -1774,9 +1783,10 @@ def sweep_times(device, which: str, reps: int = 20) -> None:
     """``--half-sweep-times``: K3 (both forms, cube and P = 1 slab) and K4,
     and K3 on the scattered-slot twin; ``--list-full-times``: K2 (cube and
     P = 1 slab forms) and K6 (both forms), each also on the scattered-slot
+    twin; ``--count-times``: K5 and K7, each also on the scattered-slot
     twin. At N = 1M, cap = 40 on full_width's jittered state, each first
-    held against its plain version (K2 bitwise), then timed (CUDA events,
-    ``reps`` launches). Prints one JSON line and no result line. Kernel
+    held against its plain version (K2, K5 and K7 bitwise), then timed (CUDA
+    events, ``reps`` launches). Prints one JSON line and no result line. Kernel
     variants are compared by running this script in each tree, one process
     per tree, in turns on one card."""
     cfg = PRESETS["c4_sorted"]
@@ -1812,6 +1822,22 @@ def sweep_times(device, which: str, reps: int = 20) -> None:
             "forces_half_scattered": (
                 lambda: df.dense_forces_half(sc.pos, spec, rc)[0],
                 lambda: df.forces_half_plain(sc.pos, spec, rc)[0], False),
+        }
+    elif which == "count_times":
+        runs = {
+            "count_half": (
+                lambda: df.dense_counts_half(pos, spec, rs),
+                lambda: df.counts_half_plain(pos, spec, rs), True),
+            "count_half_scattered": (
+                lambda: df.dense_counts_half(sc.pos, spec, rs),
+                lambda: df.counts_half_plain(sc.pos, spec, rs), True),
+            "count_full": (
+                lambda: df.dense_counts(pos, valid, spec, rs),
+                lambda: df.counts_full_plain(pos, valid, spec, rs), True),
+            "count_full_scattered": (
+                lambda: df.dense_counts(sc.pos, sc_valid, spec, rs),
+                lambda: df.counts_full_plain(sc.pos, sc_valid, spec, rs),
+                True),
         }
     else:
         runs = {
@@ -1944,7 +1970,7 @@ def main() -> int:
                 or "spill" in line or "error" in line.lower()])
 
     device = torch.device("cuda")
-    for flag in ("--half-sweep-times", "--list-full-times"):
+    for flag in ("--half-sweep-times", "--list-full-times", "--count-times"):
         if flag in sys.argv[1:]:
             sweep_times(device, flag[2:].replace("-", "_"))
             return 0

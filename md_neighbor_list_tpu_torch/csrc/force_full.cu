@@ -47,9 +47,31 @@
 //
 // Bound: operations (the distance tests between valid slots, 9 flops each,
 // plus about 13 per hit) against 13 bytes read and 12 or 16 written per slot.
+//
+// K7 full count (entry mdnl_count_full, kind kFullCount) is this body with an
+// integer count in place of the force: it replaces md_neighbor_list_tpu/ops/
+// pallas_force.py::_count_kernel (with its window array and grid, as above)
+// and returns counts (R, mc, cap) i32, every pair counted at both partners
+// (pair count = sum / 2), exact. The staging and the units are the force's;
+// a unit adds r2 < r2cut into an int, with no reciprocal, no pair term and
+// no tag test: the self pair is counted too, and step 4 takes it off once
+// per own slot, by the same test of the slot against itself. That is exact
+// for any position: a valid own slot is staged once among its partners, at
+// its own position (shift 0), so the walk meets it once at that r2 (0 when
+// finite). Two distinct particles at r2 = 0 count at both partners. Invalid
+// own slots get their 0 at staging. Bound: the distance tests against 13
+// bytes read and 4 written per slot.
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W, N = 1M, cap = 40 (PERF.md): leaving
+// the tag test out of the walk made K7 3 % faster, and the launch bound of
+// at least 10 blocks an SM (48 registers) 3 % more; the staging is about
+// half of its time.
 #include "half_sweep.cuh"
 
 namespace mdnl {
+
+// What a full-sweep block sums: forces, forces and PE, or counts (K7).
+enum FullKind { kFullForce = 0, kFullForcePe = 1, kFullCount = 2 };
 
 constexpr int kFullThreads = 128;
 constexpr int kFullRowsLanes = 27;  // window lanes of the nine rows, per cap
@@ -57,9 +79,13 @@ constexpr int kFullRowsLanes = 27;  // window lanes of the nine rows, per cap
 // lanes of cap 40 in one round; it ran 2-5 % faster than half_sweep.cuh's 5
 // (PERF.md).
 constexpr int kFullStageItems = 9;
+// Blocks an SM should hold at once, K7 only: at 10 its 48 registers spill 24
+// bytes and it ran 3 % faster than with K6's bound alone (64 registers); 12
+// (40 registers, 128 bytes spilled) ran no faster than none (PERF.md).
+constexpr int kFullCountMinBlocks = 10;
 
-// Shared memory of one block: own slots, the units' sums and `pass_len`
-// staged partners, all float4.
+// Shared memory of one block: own slots, the units' sums (K7's counts are
+// ints in their first quarter) and `pass_len` staged partners, all float4.
 __host__ __device__ inline int full_units(int cap) {
   return cap > kFullThreads ? cap : kFullThreads;
 }
@@ -84,12 +110,14 @@ inline bool force_full_plan(int cap, int& pass_len) {
   return false;
 }
 
-template <bool WANT_PE>
-__global__ void __launch_bounds__(kFullThreads)
-force_full_kernel(const float* __restrict__ pos,
-                  const unsigned char* __restrict__ valid,
-                  float* __restrict__ force, float* __restrict__ pe, int mc,
-                  int cap, float L, float r2cut, float ushift, int pass_len) {
+template <int KIND>
+__device__ __forceinline__ void full_sweep(
+    const float* __restrict__ pos, const unsigned char* __restrict__ valid,
+    float* __restrict__ force, float* __restrict__ pe,
+    int* __restrict__ counts, int mc, int cap, float L, float r2cut,
+    float ushift, int pass_len) {
+  constexpr bool WANT_PE = KIND == kFullForcePe;
+  constexpr bool COUNT = KIND == kFullCount;
   extern __shared__ float4 smem4[];
   __shared__ int warp_sums[32];
   // the 27 cells around: first slot, and the image shift
@@ -97,6 +125,7 @@ force_full_kernel(const float* __restrict__ pos,
   __shared__ float4 cell_shift[kFullRowsLanes];
   float4* own = smem4;                 // [cap]
   float4* acc = own + cap;             // [full_units(cap)]
+  int* acc_n = (int*)acc;              // COUNT: [full_units(cap)]
   float4* part = acc + full_units(cap);  // [pass_len]
   const int T = blockDim.x;
   const CellId c = cell_of_block(blockIdx.x, mc);
@@ -125,7 +154,8 @@ force_full_kernel(const float* __restrict__ pos,
       y = pos[S + own0 + i];
       z = pos[2 * S + own0 + i];
       occ = valid[own0 + i] != 0;
-      if (!occ) {
+      if (COUNT && !occ) counts[own0 + i] = 0;
+      if (!COUNT && !occ) {
         force[own0 + i] = 0.f;
         force[S + own0 + i] = 0.f;
         force[2 * S + own0 + i] = 0.f;
@@ -186,9 +216,21 @@ force_full_kernel(const float* __restrict__ pos,
       const int g = u / no;
       const float4 o = own[u - g * no];
       const int slot = __float_as_int(o.w);
-      float4 a = v0 == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : acc[u];
+      const int j0 = (int)((long long)g * n / G);
       const int j1 = (int)((long long)(g + 1) * n / G);
-      for (int j = (int)((long long)g * n / G); j < j1; ++j) {
+      if constexpr (COUNT) {  // the self pair too: taken off in step 4
+        int hits = v0 == 0 ? 0 : acc_n[u];
+        for (int j = j0; j < j1; ++j) {
+          const float4 p = part[j];
+          float dx, dy, dz;
+          const float r2 = pair_r2(o.x, o.y, o.z, p.x, p.y, p.z, dx, dy, dz);
+          hits += r2 < r2cut ? 1 : 0;
+        }
+        acc_n[u] = hits;
+        continue;
+      }
+      float4 a = v0 == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : acc[u];
+      for (int j = j0; j < j1; ++j) {
         const float4 p = part[j];
         float dx, dy, dz;
         const float r2 = pair_r2(o.x, o.y, o.z, p.x, p.y, p.z, dx, dy, dz);
@@ -209,12 +251,22 @@ force_full_kernel(const float* __restrict__ pos,
 
   // 4. each own slot's sums: its chunks in chunk order
   for (int i = threadIdx.x; i < no; i += T) {
+    const size_t o = own0 + __float_as_int(own[i].w);
+    if constexpr (COUNT) {
+      // the self pair, counted by the walk where it passes the test
+      const float4 q = own[i];
+      float dx, dy, dz;
+      const float r2 = pair_r2(q.x, q.y, q.z, q.x, q.y, q.z, dx, dy, dz);
+      int t = r2 < r2cut ? -1 : 0;
+      for (int g = 0; g < G; ++g) t += acc_n[g * no + i];
+      counts[o] = t;
+      continue;
+    }
     float4 t = acc[i];
     for (int g = 1; g < G; ++g) {
       const float4 a = acc[g * no + i];
       t.x += a.x; t.y += a.y; t.z += a.z; t.w += a.w;
     }
-    const size_t o = own0 + __float_as_int(own[i].w);
     force[o] = t.x;
     force[S + o] = t.y;
     force[2 * S + o] = t.z;
@@ -222,25 +274,53 @@ force_full_kernel(const float* __restrict__ pos,
   }
 }
 
+template <int KIND>
+__global__ void __launch_bounds__(kFullThreads)
+force_full_kernel(const float* __restrict__ pos,
+                  const unsigned char* __restrict__ valid,
+                  float* __restrict__ force, float* __restrict__ pe,
+                  int* __restrict__ counts, int mc, int cap, float L,
+                  float r2cut, float ushift, int pass_len) {
+  full_sweep<KIND>(pos, valid, force, pe, counts, mc, cap, L, r2cut, ushift,
+                   pass_len);
+}
+
+__global__ void __launch_bounds__(kFullThreads, kFullCountMinBlocks)
+count_full_kernel(const float* __restrict__ pos,
+                  const unsigned char* __restrict__ valid,
+                  float* __restrict__ force, float* __restrict__ pe,
+                  int* __restrict__ counts, int mc, int cap, float L,
+                  float r2cut, float ushift, int pass_len) {
+  full_sweep<kFullCount>(pos, valid, force, pe, counts, mc, cap, L, r2cut,
+                         ushift, pass_len);
+}
+
+// The kernel of one kind: K7 has its own launch bound.
+template <int KIND>
+constexpr auto full_kernel() {
+  if constexpr (KIND == kFullCount) return count_full_kernel;
+  else return force_full_kernel<KIND>;
+}
+
 }  // namespace mdnl
 
 namespace {
 
-template <bool WANT_PE>
+template <int KIND>
 int launch_force_full(const void* pos, const void* valid, void* force,
-                      void* pe, int mc, int cap, float L, float r2cut,
-                      float ushift, void* stream) {
+                      void* pe, void* counts, int mc, int cap, float L,
+                      float r2cut, float ushift, void* stream) {
   using namespace mdnl;
   int pass_len;
   if (cap < 1 || !force_full_plan(cap, pass_len))
     return (int)cudaErrorInvalidValue;
   const size_t smem = force_full_shared(cap, pass_len);
-  const auto kernel = force_full_kernel<WANT_PE>;
+  const auto kernel = full_kernel<KIND>();
   const cudaError_t err = fit_shared(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<mc * mc * mc, kFullThreads, smem, (cudaStream_t)stream>>>(
       (const float*)pos, (const unsigned char*)valid, (float*)force,
-      (float*)pe, mc, cap, L, r2cut, ushift, pass_len);
+      (float*)pe, (int*)counts, mc, cap, L, r2cut, ushift, pass_len);
   return (int)cudaGetLastError();
 }
 
@@ -249,14 +329,25 @@ int launch_force_full(const void* pos, const void* valid, void* force,
 extern "C" int mdnl_force_full(const void* pos, const void* valid, void* force,
                                int mc, int cap, float L, float r2cut,
                                void* stream) {
-  return launch_force_full<false>(pos, valid, force, nullptr, mc, cap, L,
-                                  r2cut, 0.f, stream);
+  return launch_force_full<mdnl::kFullForce>(pos, valid, force, nullptr,
+                                             nullptr, mc, cap, L, r2cut, 0.f,
+                                             stream);
 }
 
 extern "C" int mdnl_force_full_pe(const void* pos, const void* valid,
                                   void* force, void* pe, int mc, int cap,
                                   float L, float r2cut, float ushift,
                                   void* stream) {
-  return launch_force_full<true>(pos, valid, force, pe, mc, cap, L, r2cut,
-                                 ushift, stream);
+  return launch_force_full<mdnl::kFullForcePe>(pos, valid, force, pe, nullptr,
+                                               mc, cap, L, r2cut, ushift,
+                                               stream);
+}
+
+// K7: pos, valid -> counts (R, mc, cap) i32.
+extern "C" int mdnl_count_full(const void* pos, const void* valid,
+                               void* counts, int mc, int cap, float L,
+                               float r2cut, void* stream) {
+  return launch_force_full<mdnl::kFullCount>(pos, valid, nullptr, nullptr,
+                                             counts, mc, cap, L, r2cut, 0.f,
+                                             stream);
 }

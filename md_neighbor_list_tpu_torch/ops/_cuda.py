@@ -53,8 +53,8 @@ _ENTRIES = {
     "forces_half_slab_pe": [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _F],
     # pos, pe, vir, mc, cap, L, r2cut, ushift, occupied_below
     "pe_virial_half": [_P, _P, _P, _I, _I, _F, _F, _F, _F],
-    # pos, counts, mc, cap, L, r2cut
-    "count_half": [_P, _P, _I, _I, _F, _F],
+    # pos, counts, mc, cap, L, r2cut, occupied_below (PARK_BASE / 2)
+    "count_half": [_P, _P, _I, _I, _F, _F, _F],
     # pos, valid, force, mc, cap, L, r2cut
     "force_full": [_P, _P, _P, _I, _I, _F, _F],
     # pos, valid, force, pe, mc, cap, L, r2cut, ushift (the want_pe form)
@@ -91,7 +91,7 @@ def _nvcc() -> str:
 
 def _extra_flags() -> list[str]:
     """Further nvcc flags from the environment, for measurements of a compile
-    time variant (``MDNL_NVCC_FLAGS=-DMDNL_NARROW_BOUND=384``, csrc/geom.cuh)."""
+    time variant (``MDNL_NVCC_FLAGS=-maxrregcount=40``)."""
     return shlex.split(os.environ.get("MDNL_NVCC_FLAGS", ""))
 
 

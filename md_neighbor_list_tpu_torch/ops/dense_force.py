@@ -6,8 +6,9 @@ This module is the port of ``md_neighbor_list_tpu/ops/pallas_force.py`` (the
 name changes because nothing here is Pallas): ``dense_lists_half``,
 ``dense_forces_half``, ``dense_pe_virial``, ``dense_counts_half``,
 ``dense_forces`` and ``dense_counts`` launch hand-written CUDA kernels
-(``csrc/lists_half.cu``, ``force_half.cu``, ``pe_virial_half.cu``,
-``count_half.cu``, ``force_full.cu``, ``count_full.cu``) on CUDA tensors.
+(``csrc/lists_half.cu``, which also holds the half count, ``force_half.cu``,
+``pe_virial_half.cu`` and ``force_full.cu``, which also holds the full count)
+on CUDA tensors.
 Beside each stands its plain PyTorch version (``lists_half_plain``,
 ``forces_half_plain``, ``pe_virial_half_plain``, ``counts_half_plain``,
 ``forces_full_plain``, ``counts_full_plain``), taken only for tensors that lie
@@ -25,15 +26,13 @@ CONTRACT of the half sweep: ``pos4`` satisfies the park invariant
 (``dense_cells``): empty slots sit on the park lattice, so no validity input
 exists and they receive exactly zero force, count and mask bits.
 
-Every kernel takes any cap. The count kernels have, up to 341 slots per
-cell (3*cap <= 1024), one thread per window lane (half sweep) or per z-group
-and own slot (full sweep); above, each one's lane-strided form runs blocks
-of 512 threads that serve lanes or own slots t, t + 512, ...
-(``csrc/geom.cuh``). The list, half-force and pe/virial kernels have one
-body for every cap (``csrc/half_sweep.cuh``, ``csrc/lists_half.cu``): they
-stage the occupied slots of the cell and of its 14 partner cells
-(x < OCCUPIED_BELOW) and test those only; the full-force kernel likewise
-stages the valid slots of the 27 cells (``csrc/force_full.cu``).
+Every kernel has one body for every cap. The list and half-count kernels
+(``csrc/lists_half.cu``) and the half-force and pe/virial kernels
+(``csrc/half_sweep.cuh``) stage the occupied slots of the cell and of its 14
+partner cells (x < OCCUPIED_BELOW) and test those only; the full-force and
+full-count kernels likewise stage the valid slots of the 27 cells
+(``csrc/force_full.cu``). Where a cell's partners do not fit the shared
+memory a block plans for, they are staged in passes.
 
 Slab forms of the half sweep (``dense_lists_half_slab``,
 ``dense_forces_half_slab``): the same kernels over an array of nz_arr z-layers,
@@ -64,8 +63,9 @@ HALF_OFFSETS5 = [(0, 0), (0, 1), (1, -1), (1, 0), (1, 1)]
 
 MASK_BITS = 32  # bits per packed i32 mask word
 
-# The half-force and pe/virial kernels test occupied slots only: a slot whose
-# stored x lies below this holds a particle, a parked one lies above.
+# The half-sweep kernels (lists, counts, forces, pe/virial) test occupied
+# slots only: a slot whose stored x lies below this holds a particle, a
+# parked one lies above.
 OCCUPIED_BELOW = PARK_BASE / 2
 # Box sides from this up are refused: a position drifts a little past the box
 # between rebuilds and an image-shifted partner lies below 2 L, so L stays
@@ -275,10 +275,12 @@ def dense_counts_half(pos4: torch.Tensor, spec, radius: float) -> torch.Tensor:
     pairs = sum(counts * valid). Equal, bitwise, to the ``counts`` of
     ``dense_lists_half`` and to ``mask_slot_counts`` of its masks.
 
-    Kernel: ``csrc/count_half.cu``, replacing ``_count_half_kernel`` of
+    Kernel: ``csrc/lists_half.cu``, entry ``count_half`` (the list kernel
+    without its masks), replacing ``_count_half_kernel`` of
     md_neighbor_list_tpu/ops/pallas_force.py. Bound by fp32 operations (the
-    list kernel's distance tests with no mask to write); counts come from one
-    warp ballot per own slot, integers throughout (the TPU body sums f32 and
+    list kernel's distance tests with no mask to write). It tests occupied
+    slots only (x < OCCUPIED_BELOW) and makes its counts as the list kernel
+    does, by warp reductions, integers throughout (the TPU body sums f32 and
     casts). CPU tensors take ``counts_half_plain``."""
     _check_state(pos4, spec)
     if not pos4.is_cuda:
@@ -286,7 +288,7 @@ def dense_counts_half(pos4: torch.Tensor, spec, radius: float) -> torch.Tensor:
     counts = torch.empty((spec.rows, spec.mc, spec.cap), dtype=torch.int32,
                          device=pos4.device)
     _cuda.launch("count_half", pos4, counts, spec.mc, spec.cap, _f32(spec.L),
-                 _f32(radius * radius))
+                 _f32(radius * radius), OCCUPIED_BELOW)
     return counts
 
 
@@ -574,10 +576,12 @@ def dense_counts(pos4: torch.Tensor, valid: torch.Tensor, spec,
     each pair counted at both partners: pair count = sum(counts * valid) / 2.
     The symmetric parity pass for the half sweep's pair count.
 
-    Kernel: ``csrc/count_full.cu``, replacing ``_count_kernel`` of
-    md_neighbor_list_tpu/ops/pallas_force.py. Bound by fp32 operations (27*cap
-    distance tests per slot); the force kernel's sweep with integer counts.
-    CPU tensors take ``counts_full_plain``."""
+    Kernel: ``csrc/force_full.cu``, entry ``count_full`` (the full-force
+    kernel's sweep with an integer count in place of the force), replacing
+    ``_count_kernel`` of md_neighbor_list_tpu/ops/pallas_force.py. Bound by
+    fp32 operations (the distance tests between valid slots of the 27
+    cells). Exact integers: equal, bitwise, to ``counts_full_plain``, which
+    CPU tensors take."""
     _check_state(pos4, spec)
     _check_valid(valid, pos4, spec)
     if not pos4.is_cuda:

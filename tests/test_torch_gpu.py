@@ -126,10 +126,10 @@ def test_kernels_take_caps_beyond_four_mask_words(card, cap):
 
 @pytest.mark.parametrize("cap", [384, 480])
 def test_kernels_take_caps_beyond_one_thread_per_lane(card, cap):
-    """3*cap > 1024 (12 and 15 mask words): the lane-strided forms of the
-    count kernels, and the list and force kernels at caps where the full
-    sweep stages its partners in passes, against the plain versions, a
-    cluster of more than 341 particles in one cell at mc = 3."""
+    """3*cap > 1024 (12 and 15 mask words), caps at which the list,
+    half-count and full-sweep kernels stage their partners in passes: every
+    kernel against its plain version, a cluster of more than 341 particles
+    in one cell at mc = 3."""
     n = 700
     pos, vel, pid = clustered_system(cap - 12, seed=13, n=n)
     state, spec, _ = torch_state(pos, vel, pid, cap)
@@ -402,13 +402,15 @@ def test_slab_forms_nz1_on_scattered_slots(card):
 
 @pytest.mark.parametrize("cap", [40, 384, 480, 700])
 def test_lists_and_full_sweep_on_scattered_slots(card, cap):
-    """K2 (cube and P = 1 slab forms) and K6 (both forms) stage occupied or
-    valid slots only, wherever they sit in the cell: on a scattered-slot
-    state K2's masks and counts equal the plain version's bitwise, K6 equals
-    its plain version to rounding with invalid slots exactly zero, two K6
-    launches are bitwise equal, and each wrapper launches once a call. At
-    cap 384 and above K6, and at cap 700 K2, stage their partners in passes
-    (csrc/lists_half.cu, csrc/force_full.cu)."""
+    """K2 (cube and P = 1 slab forms), K5, K6 (both forms) and K7 stage
+    occupied or valid slots only, wherever they sit in the cell: on a
+    scattered-slot state K2's masks and counts equal the plain version's
+    bitwise, K5 equals its plain version and K2's counts bitwise, K7 its
+    plain version bitwise, K6 its plain version to rounding, invalid slots
+    get exactly zero, two K6 launches are bitwise equal, and each wrapper
+    launches once a call. At cap 384 and above K2, K6 and K7, and from cap
+    480 K5, stage their partners in passes (csrc/lists_half.cu,
+    csrc/force_full.cu)."""
     sc, spec = _scattered_on_card(card, cap)
     valid = sc.valid()
     before = dict(_cuda.LAUNCHES)
@@ -417,6 +419,14 @@ def test_lists_and_full_sweep_on_scattered_slots(card, cap):
     assert torch.equal(counts.cpu(), counts_p)
     assert torch.equal(masks.cpu(), masks_p)
     assert int(counts_p.sum()) > 0
+    half = dense_force.dense_counts_half(sc.pos, spec, RS)
+    assert torch.equal(half.cpu(), dense_force.counts_half_plain(
+        sc.pos.cpu(), spec, RS))
+    assert torch.equal(half, counts)
+    full = dense_force.dense_counts(sc.pos, valid, spec, RS)
+    assert torch.equal(full.cpu(), dense_force.counts_full_plain(
+        sc.pos.cpu(), valid.cpu(), spec, RS))
+    assert int(full[~valid].abs().sum()) == 0 and int(full.sum()) > 0
     slab = _slab_of_cube(spec, 1)
     gpos = sc.pos[:, :spec.mc].clone()
     gpos[2] += float(np.float32(spec.L))
@@ -441,5 +451,6 @@ def test_lists_and_full_sweep_on_scattered_slots(card, cap):
     assert float(pe[~valid].abs().sum()) == 0.0
     after = _cuda.LAUNCHES
     for name, times in (("lists_half", 1), ("lists_half_slab", 1),
+                        ("count_half", 1), ("count_full", 1),
                         ("force_full", 2), ("force_full_pe", 2)):
         assert after[name] == before[name] + times, name

@@ -44,9 +44,9 @@ def test_expected_modules_and_sources_exist():
                  "models/dense_lj.py", "utils/convert.py", "utils/native.py",
                  "api.py", "__init__.py"):
         assert want in names
-    for src in ("geom.cuh", "expand.cu", "lists_half.cu", "force_half.cu",
-                "pe_virial_half.cu", "count_half.cu", "force_full.cu",
-                "count_full.cu", "merge.cu", "decode.cpp"):
+    for src in ("geom.cuh", "half_sweep.cuh", "expand.cu", "lists_half.cu",
+                "force_half.cu", "pe_virial_half.cu", "force_full.cu",
+                "merge.cu", "decode.cpp"):
         assert (PORT / "csrc" / src).exists()
 
 

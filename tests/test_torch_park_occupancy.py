@@ -132,6 +132,7 @@ WRAPPERS = {
     "forces_half": lambda pos, spec: tdf.dense_forces_half(pos, spec, RC),
     "pe_virial": lambda pos, spec: tdf.dense_pe_virial(pos, spec, RC),
     "lists_half": lambda pos, spec: tdf.dense_lists_half(pos, spec, 2.8),
+    "counts_half": lambda pos, spec: tdf.dense_counts_half(pos, spec, 2.8),
     "forces_half_slab": lambda pos, spec: tdf.dense_forces_half_slab(
         pos, spec, RC),
 }
@@ -221,21 +222,29 @@ def test_plain_half_sweeps_match_jax_on_scattered_slots(case, form):
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-@pytest.mark.parametrize("form", ["lists", "full_hot", "full_pe"])
+@pytest.mark.parametrize("form", ["lists", "counts_half", "counts_full",
+                                  "full_hot", "full_pe"])
 def test_plain_lists_and_full_sweep_match_jax_on_scattered_slots(case, form):
-    """The port's plain list build and full-sweep forces against the JAX
-    kernels (interpret mode) on occupied slots that form no prefix: masks
-    and counts bitwise; forces slot by slot with test_torch_counts_full.py's
-    tolerances and within the force-parity gate (2e-4 of the largest
-    component); invalid slots get exactly zero."""
+    """The port's plain list build, half and full counts and full-sweep
+    forces against the JAX kernels (interpret mode) on occupied slots that
+    form no prefix: masks and counts bitwise; forces slot by slot with
+    test_torch_counts_full.py's tolerances and within the force-parity gate
+    (2e-4 of the largest component); invalid slots get exactly zero."""
     sc, tspec, js, jspec = _scattered_pair(case)
     jv = js.valid().astype(jnp.float32)
     invalid = ~sc.valid()
-    if form == "lists":
-        c_j, m_j = jpf.dense_lists_half(js.pos, jv, jspec, RS, True)
-        c_t, m_t = tdf.lists_half_plain(sc.pos, tspec, RS)
+    if form in ("lists", "counts_half", "counts_full"):
+        if form == "lists":
+            c_j, m_j = jpf.dense_lists_half(js.pos, jv, jspec, RS, True)
+            c_t, m_t = tdf.lists_half_plain(sc.pos, tspec, RS)
+            np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
+        elif form == "counts_half":
+            c_j = jpf.dense_counts_half(js.pos, jv, jspec, RS, True)
+            c_t = tdf.counts_half_plain(sc.pos, tspec, RS)
+        else:
+            c_j = jpf.dense_counts(js.pos, jv, jspec, RS, True)
+            c_t = tdf.counts_full_plain(sc.pos, sc.valid(), tspec, RS)
         np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
-        np.testing.assert_array_equal(m_t.numpy(), np.asarray(m_j))
         assert int(c_t[invalid].abs().sum()) == 0
         assert int(c_t.sum()) > 0
         return

@@ -5,15 +5,13 @@ of this tree's kernels.
 
     git archive <parent commit> | tar -x -C <dir>      # the parent's files
     python3 tools/port_ab.py --parent <dir> [--rounds 2] \\
-        [--variant bound1024=-DMDNL_NARROW_BOUND=1024] \\
-        [--variant bound384=-DMDNL_NARROW_BOUND=384]
+        [--variant regs40=-maxrregcount=40]
 
 Each round runs parent, change, every variant, change, parent: both trees are
 read before and after whatever lies between, so a drift of the card shows as
 a difference between a tree's own two runs. A variant is this tree with
 ``MDNL_NVCC_FLAGS`` set to the given flags (``ops/_cuda.py`` hands them to
-nvcc; ``-DMDNL_NARROW_BOUND=<threads>`` puts a launch bound on the kernels
-that ``csrc/geom.cuh`` leaves unbounded at cap <= 128).
+nvcc, so ``-maxrregcount=40`` caps every kernel at 40 registers).
 
 Prints one JSON line per run — the card, each kernel's ``ms`` from the run's
 ``kernels`` line, ``steps_per_s`` and ``build_ms`` of its main path and, where
