@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile | --half-sweep-times | --list-full-times
-                           | --count-times]
+                           | --count-times | --rebuild-times]
 
 Builds the CUDA kernels from ``md_neighbor_list_tpu_torch/csrc``, holds each
 against its plain PyTorch version (at small shapes that exercise wrap-around,
@@ -55,8 +55,10 @@ one ``neighbor_list`` call, of ten incremental and ten full rebuilds, and of
 times the half-force and pe/virial kernels at N = 1,000,000, and
 ``--list-full-times`` the list and full-force kernels, and ``--count-times``
 the half- and full-count kernels (each after checking them against their
-plain versions); these print no result line: the timing of kernel
-variants, one tree at a time. With ``MDNL_SMOKE_LOG=<file>`` every
+plain versions), and ``--rebuild-times`` K1 (cube, slab form, mover
+stream), K8 and the full and incremental rebuilds on a drifted engine state
+(each kernel bitwise against its plain version first); these print no
+result line: the timing of kernel variants, one tree at a time. With ``MDNL_SMOKE_LOG=<file>`` every
 phase line is also appended to that file (``tools/port_ab.py`` keeps a few
 numbers of each run and drops the rest of its output).
 The last line is
@@ -156,6 +158,32 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# Cycles the card spins before a device-time measurement, while the host
+# queues the calls: about 25 ms at the H100's clock, enough for hundreds of
+# wrapper calls.
+SPIN_CYCLES = 50_000_000
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up: the
+    stream is held by a spin of the card while the host queues the calls, so
+    that they run back to back and the time is the kernels', not the host's
+    (a kernel of 0.05 ms takes about as long to launch through its wrapper,
+    and ``time_ms`` would then time the launches). ``fn`` must not wait for
+    the card."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def force_close(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float]:
     scale = max(float(want.abs().max()), 1.0)
     err = (got - want).abs()
@@ -211,23 +239,45 @@ def jittered_system(n: int, rho: float, seed: int, jitter: float, device,
     return system, box
 
 
-def sorted_records(state: dense_cells.DenseState, spec):
-    """The expand kernel's inputs, as ``rebuild_dense`` makes them."""
+def expand_inputs(state: dense_cells.DenseState, spec, keys=None,
+                  key_base: int = 0):
+    """The expand kernel's inputs, as ``rebuild_dense`` makes them: the
+    wrapped records, unsorted, the stable sort's permutation, the sorted keys
+    and the row starts. ``keys`` (R, mc, cap) replace the cell keys: the
+    mover stream's (``incremental.merge_inputs``), or a slab's from
+    ``key_base`` on (``DenseSlabSimulator._rebuild``)."""
     state = state._replace(pos=torch.remainder(state.pos, spec.L))
-    keys = dense_cells.cell_keys(state, spec).reshape(-1)
-    chans = torch.cat([state.pos.reshape(3, -1), state.vel.reshape(3, -1)])
-    keys_s, order = torch.sort(keys, stable=True)
-    row_start = dense_cells.row_starts(keys_s, spec)
-    return (chans[:, order].contiguous(), state.pid.reshape(-1)[order],
-            keys_s, row_start)
+    if keys is None:
+        keys = dense_cells.cell_keys(state, spec)
+    keys_s, order = torch.sort(keys.reshape(-1), stable=True)
+    return (state.pos.reshape(3, -1), state.vel.reshape(3, -1),
+            state.pid.reshape(-1), order, keys_s,
+            dense_cells.row_starts(keys_s, spec, key_base))
+
+
+def mover_inputs(state: dense_cells.DenseState, spec):
+    """The mover expand's inputs, as ``incremental.merge_inputs`` makes
+    them."""
+    wrapped = state._replace(pos=torch.remainder(state.pos, spec.L))
+    return expand_inputs(state, spec, incremental.mover_keys(wrapped,
+                                                             spec)[0])
+
+
+def slab_path_inputs(state: dense_cells.DenseState, spec):
+    """The K1 slab form's inputs as the P = 1 slab engine's rebuild makes
+    them from its own state (``DenseSlabSimulator._rebuild``): unwrapped
+    slab keys of the wrapped slots, key_base = mc*mc."""
+    keys = slab_kernels.slab_keys(torch.remainder(state.pos, spec.L),
+                                  state.valid(), spec, 0, wrap=False)
+    return expand_inputs(state, spec, keys, spec.mc * spec.mc)
 
 
 # ------------------------------------------------- kernel against plain
 def compare_kernels(state0: dense_cells.DenseState, spec, cfg, label: str):
     """Run every kernel and its plain version on the same inputs; fail on
-    any disagreement. Returns (rebuilt state, sorted records, per-kernel max
-    errors)."""
-    recs = sorted_records(state0, spec)
+    any disagreement. Returns (rebuilt state, the expand's inputs, per-kernel
+    max errors)."""
+    recs = expand_inputs(state0, spec)
     posvel, pid = dense_cells.expand(*recs, spec)
     torch.cuda.synchronize()
     posvel_p, pid_p = dense_cells.expand_plain(*recs, spec)
@@ -569,18 +619,29 @@ def window_tests(valid: torch.Tensor, spec) -> int:
     return int((occ * around).sum() - occ.sum())
 
 
-def bounds(spec, valid: torch.Tensor, records: int, hits: int) -> dict:
+def expand_bytes(spec, row_start: torch.Tensor) -> int:
+    """Bytes K1 must move on these inputs: each record within the rows read
+    once through the permutation (key 4, permutation entry 8, pos and vel
+    24, pid 4; the records keyed outside the rows are never read), the row
+    starts, and every slot written (28)."""
+    records = int(row_start[-1] - row_start[0])
+    return records * 40 + (spec.rows + 1) * 4 + spec.slots * 28
+
+
+def bounds(spec, valid: torch.Tensor, row_start: torch.Tensor,
+           hits: int) -> dict:
     """Least time (ms) the card could take per kernel on these inputs: the
     larger of bytes moved (inputs read once, outputs written once) over the
     memory rate and operations over the fp32 rate. The distance tests are
-    those between occupied slots of this state, not between all slots."""
+    those between occupied slots of this state, not between all slots; K1's
+    records those within the rows (``row_start``)."""
     S, cap = spec.slots, spec.cap
     words = dense_force.mask_words(cap)
     tests_full = window_tests(valid, spec)
     tests = tests_full // 2
     full_read = S * 12 + S  # the state and one validity byte per slot
     work = {
-        "expand": (records * 32 + (spec.rows + 1) * 4 + S * 28, 0),
+        "expand": (expand_bytes(spec, row_start), 0),
         "lists_half": (S * 12 + 5 * words * S * 3 * 4 + S * 4,
                        tests * FLOPS_TEST),
         "forces_half": (S * 24, tests * FLOPS_TEST + hits * FLOPS_HIT_FORCE),
@@ -690,10 +751,19 @@ def full_width(sim: DenseSimulator) -> list[dict]:
     pos, valid = state.pos, state.valid()
     counts_rc, _ = dense_force.dense_lists_half(pos, spec, cfg.rc)
     hits = int(counts_rc[state.valid()].sum())
+    # K1 as the main path runs it, on a rebuilt state drifted by skin/2:
+    # cell-sorted, so the reads through the permutation nearly coalesce (the
+    # from_packed seed above reads through one far from the identity; its
+    # time is kept beside)
+    drift_recs = expand_inputs(drifted_state(sim, state), spec)
+    ok, _ = agree(dense_cells.expand(*drift_recs, spec),
+                  dense_cells.expand_plain(*drift_recs, spec), True)
+    check(ok, "full_width/drifted: expand differs from its plain version")
+    expand_seed_ms = device_ms(lambda: dense_cells.expand(*recs, spec), 10)
 
     runs = {
-        "expand": (lambda: dense_cells.expand(*recs, spec),
-                   lambda: dense_cells.expand_plain(*recs, spec)),
+        "expand": (lambda: dense_cells.expand(*drift_recs, spec),
+                   lambda: dense_cells.expand_plain(*drift_recs, spec)),
         "lists_half": (
             lambda: dense_force.dense_lists_half(pos, spec, cfg.rs),
             lambda: dense_force.lists_half_plain(pos, spec, cfg.rs)),
@@ -721,14 +791,14 @@ def full_width(sim: DenseSimulator) -> list[dict]:
             lambda: dense_force.dense_counts(pos, valid, spec, cfg.rs),
             lambda: dense_force.counts_full_plain(pos, valid, spec, cfg.rs)),
     }
-    bound = bounds(spec, valid, recs[2].shape[0], hits)
+    bound = bounds(spec, valid, drift_recs[5], hits)
     rows = []
     for name, (kernel, plain) in runs.items():
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "launches": None,
             "max_abs_err": errs[name],
-            "ms": time_ms(kernel, 10), "plain_ms": time_ms(plain, 1),
+            "ms": device_ms(kernel, 10), "plain_ms": time_ms(plain, 1),
             "bound_ms": bound[name]["bound_ms"],
             "bound_by": bound[name]["bound_by"],
             # no single PyTorch call computes any of these functions
@@ -738,6 +808,7 @@ def full_width(sim: DenseSimulator) -> list[dict]:
             rows[-1]["also_replaces"] = ALSO_REPLACES[name]
     emit("kernels_full_width", n=cfg.n, mc=spec.mc, cap=spec.cap,
          slots=spec.slots, hits_rc=hits, launches_so_far=dict(_cuda.LAUNCHES),
+         expand_from_packed_seed_ms=expand_seed_ms,
          scattered_slots_max_abs_err=scattered, bounds=bound, kernels=rows)
     return rows
 
@@ -1044,6 +1115,17 @@ def per_cell_sets(pid: torch.Tensor, spec) -> torch.Tensor:
     return torch.sort(torch.where(rows >= 0, rows, 1 << 40), dim=1).values
 
 
+def merge_bytes(spec, args) -> int:
+    """Bytes K8 must move on ``merge_inputs``' output: each slot's stayer
+    pid (a stayer's pid is not read again), each particle's pos and vel once
+    from the side it comes from, each mover's pid and one end-of-movers pid
+    per cell are read; each slot written once."""
+    stayers = int((args[1] >= 0).sum())
+    movers = int((args[2].pid >= 0).sum())
+    return (spec.slots * 4 + (stayers + movers) * 24 + movers * 4
+            + spec.ncells * 4 + spec.slots * 28)
+
+
 def incremental_kernels(sim: DenseSimulator, state) -> tuple[dict, dict]:
     """At N = 1M, on ``state`` (the incremental run's last state) drifted by
     skin/2: K8 bitwise against its plain version, the incremental rebuild
@@ -1070,6 +1152,15 @@ def incremental_kernels(sim: DenseSimulator, state) -> tuple[dict, dict]:
     want = incremental.merge_plain(*args, spec)
     check(all(torch.equal(a, b) for a, b in zip(got, want)),
           "incremental: the merge kernel differs from its plain version")
+    # K1 on the mover stream, as merge_inputs runs it
+    mover_recs = mover_inputs(state, spec)
+    got = dense_cells.expand(*mover_recs, spec)
+    torch.cuda.synchronize()
+    check(agree(got, dense_cells.expand_plain(*mover_recs, spec), True)[0]
+          and torch.equal(got[0], torch.cat([args[2].pos, args[2].vel]))
+          and torch.equal(got[1], args[2].pid),
+          "incremental: the mover expand differs from its plain version or "
+          "from the mover state merge_inputs made")
     new, overflow = incremental.rebuild_dense_incremental(state, spec)
     check(not bool(overflow) and not bool(incremental.window_overflow(
         row_start)), "incremental: a skin/2 drift tripped the mover window")
@@ -1085,16 +1176,12 @@ def incremental_kernels(sim: DenseSimulator, state) -> tuple[dict, dict]:
 
     S = spec.slots
     stayers_n = int((args[1] >= 0).sum())
-    # read: each slot's stayer pid (a stayer's pid is not read again), each
-    # particle's pos and vel once from the side it comes from, each mover's
-    # pid and one end-of-movers pid per cell; written: each slot once
-    nbytes = (S * 4 + (stayers_n + movers_n) * 24 + movers_n * 4
-              + spec.ncells * 4 + S * 28)
+    nbytes = merge_bytes(spec, args)
     bound = nbytes / PEAK_BYTES_PER_S * 1e3
     row = {"name": "merge", "route": "cuda", "source": SOURCES["merge"][0],
            "replaces": SOURCES["merge"][1], "launches": None,
            "max_abs_err": 0.0,
-           "ms": time_ms(lambda: incremental.merge(*args, spec), 20),
+           "ms": device_ms(lambda: incremental.merge(*args, spec), 20),
            "plain_ms": time_ms(lambda: incremental.merge_plain(*args, spec),
                                3),
            "bound_ms": bound, "bound_by": "bytes",
@@ -1102,6 +1189,10 @@ def incremental_kernels(sim: DenseSimulator, state) -> tuple[dict, dict]:
            "library_ms": None}
     numbers = {"movers": movers_n, "mover_share": movers_n / cfg.n,
                "stayers": stayers_n,
+               "expand_movers_ms": device_ms(
+                   lambda: dense_cells.expand(*mover_recs, spec), 20),
+               "expand_movers_bound_ms": expand_bytes(
+                   spec, mover_recs[5]) / PEAK_BYTES_PER_S * 1e3,
                "merge_bytes": nbytes,
                "merge_bytes_all_slots": 21 * 4 * S,
                "keys_sort_expand_movers_ms": time_ms(
@@ -1210,17 +1301,18 @@ def slab_half_tests(ext_valid: torch.Tensor, mc: int) -> int:
     return int((own * fwd).sum() + (own * (own - 1) // 2).sum())
 
 
-def slab_bounds(spec, ext_valid: torch.Tensor, records: int,
+def slab_bounds(spec, ext_valid: torch.Tensor, row_start: torch.Tensor,
                 hits: int) -> dict:
     """``bounds`` for the slab forms on an extended state: the state read is
-    the extended array's (nz+1 layers), the outputs the owned layers', and
-    the distance tests those the slab's own occupancy needs."""
+    the extended array's (nz+1 layers), the outputs the owned layers', the
+    distance tests those the slab's own occupancy needs, and K1's records
+    those within the owned rows (``row_start``)."""
     S = spec.slots
     S_ext = spec.ext().slots
     words = dense_force.mask_words(spec.cap)
     tests = slab_half_tests(ext_valid, spec.mc)
     work = {
-        "expand_slab": (records * 32 + (spec.rows + 1) * 4 + S * 28, 0),
+        "expand_slab": (expand_bytes(spec, row_start), 0),
         "lists_half_slab": (S_ext * 12 + 5 * words * S * 3 * 4 + S * 4,
                             tests * FLOPS_TEST),
         "forces_half_slab": (S_ext * 24,
@@ -1235,12 +1327,12 @@ def slab_bounds(spec, ext_valid: torch.Tensor, records: int,
 
 def slab_records(system: System, spec, z0: int, wrap: bool = True):
     """The slab rebuild's input over every packed record: keys relative to
-    the slab at z-cell ``z0``, the (6, N) pos|vel channels (positions
-    wrapped) and the pids."""
-    rec = torch.remainder(system.pos.T, spec.L)
+    the slab at z-cell ``z0``, the (3, N) positions (wrapped) and
+    velocities, and the pids."""
+    rec = torch.remainder(system.pos.T, spec.L).contiguous()
     valid = torch.ones(system.n, dtype=torch.bool, device=rec.device)
     keys = slab_kernels.slab_keys(rec, valid, spec, z0, wrap=wrap)
-    return keys, torch.cat([rec, system.vel.T]), system.pid
+    return keys, rec, system.vel.T.contiguous(), system.pid
 
 
 def slab_state(system: System, spec, z0: int, wrap: bool = True):
@@ -1252,14 +1344,15 @@ def slab_state(system: System, spec, z0: int, wrap: bool = True):
 
 
 def expand_args(system: System, spec, z0: int, wrap: bool = True):
-    """The K1 slab form's arguments as ``slab_sort_expand`` makes them:
-    the records sorted stably by key, and the row starts; and key_base."""
-    keys, chans, pid = slab_records(system, spec, z0, wrap)
+    """The K1 slab form's arguments as ``slab_sort_expand`` makes them: the
+    records, the stable sort's permutation, the sorted keys and the row
+    starts; and key_base."""
+    keys, pos, vel, pid = slab_records(system, spec, z0, wrap)
     keys_s, order = torch.sort(keys, stable=True)
     base = spec.mc * spec.mc
     row_start = dense_cells.row_starts(keys_s, spec, base)
-    return (chans[:, order].contiguous(), pid[order], keys_s,
-            row_start), base
+    return (pos, vel, pid, order, keys_s, row_start), base
+
 
 
 def emulate_slabs(cube_state, cube_spec, p: int, cfg, split: bool):
@@ -1442,13 +1535,21 @@ def slab_kernels_phase(sim: DenseSimulator) -> list[dict]:
     state = dense_cells.DenseState(pos=posvel[:3].contiguous(),
                                    vel=posvel[3:].contiguous(), pid=pid)
     check(int(state.valid().sum()) == cfg.n, "slab_kernels: lost particles")
+    # ... and as the slab engine runs it, on its own state drifted by skin/2
+    # (the packed stream above is in pid order; its time is kept beside)
+    path_recs = slab_path_inputs(drifted_state(sim, state), spec)
+    ok, _ = agree(dense_cells.expand(*path_recs, spec, base),
+                  dense_cells.expand_plain(*path_recs, spec, base), True)
+    check(ok, "slab_kernels: expand_slab differs from its plain version on "
+          "the drifted slab state")
+    packed_ms = device_ms(lambda: dense_cells.expand(*recs, spec, base), 10)
     # K1 on a stream that holds records keyed below key_base and beyond the
     # owned range: a middle slab of P = 5 (wrapped keys) keeps exactly its
     # own records
     p5 = SLAB_EMULATED[0]
     s5, r5 = cube_slabs(cube_spec, p5), p5 // 2
     recs5, base5 = expand_args(system, s5, r5 * s5.nz)
-    keys5 = recs5[2]
+    keys5 = recs5[4]
     below = int((keys5 < base5).sum())
     owned = int(((keys5 >= base5) & (keys5 < base5 + s5.rows * mc)).sum())
     got5 = dense_cells.expand(*recs5, s5, base5)
@@ -1528,12 +1629,13 @@ def slab_kernels_phase(sim: DenseSimulator) -> list[dict]:
 
     hits = int(dense_force.dense_lists_half_slab(
         windows, spec, cfg.rc)[0][state.valid()].sum())
-    bound = slab_bounds(spec, ext_v, recs[2].shape[0], hits)
+    bound = slab_bounds(spec, ext_v, path_recs[5], hits)
     check(bound["distance_tests"] == window_tests(cube.valid(), cube_spec) // 2,
           "slab_kernels: the slab's distance tests differ from the cube's")
     runs = {
-        "expand_slab": (lambda: dense_cells.expand(*recs, spec, base),
-                        lambda: dense_cells.expand_plain(*recs, spec, base)),
+        "expand_slab": (
+            lambda: dense_cells.expand(*path_recs, spec, base),
+            lambda: dense_cells.expand_plain(*path_recs, spec, base)),
         "lists_half_slab": (
             lambda: dense_force.dense_lists_half_slab(windows, spec, cfg.rs),
             lambda: dense_force.lists_half_plain(windows, spec, cfg.rs,
@@ -1554,7 +1656,7 @@ def slab_kernels_phase(sim: DenseSimulator) -> list[dict]:
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1], "launches": None,
             "max_abs_err": errs[name],
-            "ms": time_ms(kernel, 10), "plain_ms": time_ms(plain, 1),
+            "ms": device_ms(kernel, 10), "plain_ms": time_ms(plain, 1),
             "bound_ms": bound[name]["bound_ms"],
             "bound_by": bound[name]["bound_by"],
             # no single PyTorch call computes any of these functions
@@ -1566,6 +1668,7 @@ def slab_kernels_phase(sim: DenseSimulator) -> list[dict]:
         cube.pos, cube_spec, cfg.rc), 10)}
     emit("slab_kernels", n=cfg.n, mc=mc, cap=spec.cap, ext_slots=spec.ext().slots,
          hits_rc=hits, records_below_key_base=below,
+         expand_slab_packed_stream_ms=packed_ms,
          emulated_max_force_err=emulated, force_scale=scale,
          cube_ms_same_run=cube_ms, bounds=bound, kernels=rows)
     return rows
@@ -1876,6 +1979,74 @@ def sweep_times(device, which: str, reps: int = 20) -> None:
          nvcc_flags=os.environ.get("MDNL_NVCC_FLAGS", ""), ms=ms)
 
 
+def rebuild_times(device, reps: int = 20) -> None:
+    """``--rebuild-times``: K1 (cube), its slab form, K1 on the mover stream
+    and K8, each first held bitwise against its plain version, and the
+    rebuilds around them (``rebuild_full_ms``, the incremental rebuild's
+    keys, sort and mover expand ``keys_sort_expand_movers_ms``,
+    ``rebuild_incremental_ms``), at N = 1M, cap = 40, on the c4_sorted
+    engine's state after 200 NVE steps drifted by skin/2 (what a rebuild
+    sees when the vote fires; the slab form on the P = 1 slab engine's
+    input made from it). Each is timed (CUDA events, ``reps`` calls) in
+    order, then in the reverse order, and both times are printed with the
+    kernels' bounds: the kernels' device time (``device_ms``) and their time
+    through the wrapper as the engine calls them (``wrapper_ms``, CUDA events
+    around the calls), the rebuilds' as the engine calls them. One JSON line
+    and no result line: the timing of kernel variants, one tree at a time."""
+    cfg = PRESETS["c4_sorted"]
+    sim = DenseSimulator(cfg, cap=40, device=device)
+    spec = sim.spec
+    state = drifted_state(sim, sim.run(sim.init(), 200).state)
+    slab = cube_slabs(spec, 1)
+    base = slab.mc * slab.mc
+    cube = expand_inputs(state, spec)
+    slab_recs = slab_path_inputs(state, slab)
+    movers = mover_inputs(state, spec)
+    args, _ = incremental.merge_inputs(state, spec)
+    dc = dense_cells
+    runs = {  # name: (kernel or rebuild, plain version)
+        "expand": (lambda: dc.expand(*cube, spec),
+                   lambda: dc.expand_plain(*cube, spec)),
+        "expand_slab": (lambda: dc.expand(*slab_recs, slab, base),
+                        lambda: dc.expand_plain(*slab_recs, slab, base)),
+        "expand_movers": (lambda: dc.expand(*movers, spec),
+                          lambda: dc.expand_plain(*movers, spec)),
+        "merge": (lambda: incremental.merge(*args, spec),
+                  lambda: incremental.merge_plain(*args, spec)),
+        "rebuild_full_ms": (lambda: dc.rebuild_dense(state, spec), None),
+        "keys_sort_expand_movers_ms": (
+            lambda: incremental.merge_inputs(state, spec), None),
+        "rebuild_incremental_ms": (
+            lambda: incremental.rebuild_dense_incremental(state, spec), None),
+    }
+    for name, (kernel, plain) in runs.items():
+        if plain is not None:
+            ok, _ = agree(kernel(), plain(), True)
+            check(ok, f"rebuild_times: {name} differs from its plain version")
+    ms = {name: [] for name in runs}
+    wrapper_ms = {name: [] for name, (_, plain) in runs.items() if plain}
+    for names in (list(runs), list(reversed(runs))):
+        for name in names:
+            fn, plain = runs[name]
+            ms[name].append((device_ms if plain else time_ms)(fn, reps))
+            if plain:
+                wrapper_ms[name].append(time_ms(fn, reps))
+    # a yardstick: one PyTorch fill of the bytes K1 and K8 write (7 words a
+    # slot), the least a kernel that writes them takes on this card
+    out = torch.empty((7, spec.slots), dtype=torch.float32, device=device)
+    ms["fill_output_bytes"] = [device_ms(lambda: out.fill_(1.0), reps)]
+    nbytes = {"expand": expand_bytes(spec, cube[5]),
+              "expand_slab": expand_bytes(slab, slab_recs[5]),
+              "expand_movers": expand_bytes(spec, movers[5]),
+              "merge": merge_bytes(spec, args)}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    emit("rebuild_times", n=cfg.n, cap=spec.cap, reps=reps, card=smi,
+         movers=int((args[2].pid >= 0).sum()), ms=ms, wrapper_ms=wrapper_ms,
+         bound_ms={k: b / PEAK_BYTES_PER_S * 1e3 for k, b in nbytes.items()})
+
+
 def traced(fn) -> tuple[float, list]:
     """Host ms of ``fn()`` under ``torch.profiler`` (synchronised), and its
     device kernels as (name, device ms, calls), longest first."""
@@ -1974,6 +2145,9 @@ def main() -> int:
         if flag in sys.argv[1:]:
             sweep_times(device, flag[2:].replace("-", "_"))
             return 0
+    if "--rebuild-times" in sys.argv[1:]:
+        rebuild_times(device)
+        return 0
     small_shapes(device)
     sim = DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device)
     rows = full_width(sim)

@@ -35,9 +35,9 @@ _F = ctypes.c_float
 
 # C entry points: argument types after which the stream pointer follows.
 _ENTRIES = {
-    # chans, pid_s, keys_s, row_start, posvel, pid_out, M, rows, mc, cap,
-    # park_step
-    "expand": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F],
+    # pos, vel, pid, order (i64), keys_s, row_start, posvel, pid_out, M,
+    # rows, mc, cap, park_step
+    "expand": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F],
     # pos, masks, counts, mc, cap, L, r2cut, occupied_below (PARK_BASE / 2)
     "lists_half": [_P, _P, _P, _I, _I, _F, _F, _F],
     # pos, force, mc, cap, L, r2cut, occupied_below (PARK_BASE / 2)
@@ -47,7 +47,7 @@ _ENTRIES = {
     # the slab forms of K1-K3: the expand's arguments and key_base; the
     # sweeps' arguments and nz_grid, nz_arr (layers walked, layers read),
     # then occupied_below
-    "expand_slab": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I],
+    "expand_slab": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I],
     "lists_half_slab": [_P, _P, _P, _I, _I, _F, _F, _I, _I, _F],
     "forces_half_slab": [_P, _P, _I, _I, _F, _F, _I, _I, _F],
     "forces_half_slab_pe": [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _F],

@@ -7,7 +7,8 @@ within the cell; ``pid < 0`` marks an empty slot. Positions and velocities are
 channel-leading, (3, R, mc, cap), so the sweep kernels address clean planes.
 
 Rebuild = wrap, cell keys, one stable sort by key, row starts, and the
-``expand`` kernel that turns the sorted record stream into the dense slots.
+``expand`` kernel that reads the records through the sort's permutation into
+the dense slots.
 Everything but ``expand`` is plain tensor code. A cell that holds more than
 ``cap`` particles is truncated; the caller detects the loss by counting valid
 slots and recovers by growing ``cap``.
@@ -152,14 +153,15 @@ def row_starts(sorted_keys: torch.Tensor, spec,
 
 
 # ------------------------------------------------------------ expand kernel
-def expand_plain(chans: torch.Tensor, pid_s: torch.Tensor,
-                 keys_s: torch.Tensor, row_start: torch.Tensor, spec,
+def expand_plain(pos: torch.Tensor, vel: torch.Tensor, pid: torch.Tensor,
+                 order: torch.Tensor, keys_s: torch.Tensor,
+                 row_start: torch.Tensor, spec,
                  key_base: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ``expand`` (same arguments, same outputs):
-    a batched gather. ``row_start`` is not needed here; the kernel uses it to
-    bound its per-row searches."""
+    a batched gather through the sort's permutation. ``row_start`` is not
+    needed here; the kernel uses it to find each row's records."""
     mc, cap = spec.mc, spec.cap
-    dev = chans.device
+    dev = pos.device
     ncell = spec.rows * mc
     cells = key_base + torch.arange(ncell + 1, dtype=keys_s.dtype, device=dev)
     off = torch.searchsorted(keys_s, cells)  # (ncell+1,) run starts
@@ -169,71 +171,76 @@ def expand_plain(chans: torch.Tensor, pid_s: torch.Tensor,
     src = torch.where(valid, off[:-1, None] + slot, torch.zeros_like(slot))
     shape = (spec.rows, mc, cap)
     valid = valid.reshape(shape)
-    src = src.reshape(shape)
+    rec = order[src.reshape(shape)]  # the record each slot takes
     park = park_lattice(spec, dev)
     fill = torch.cat([park, torch.zeros_like(park)])
-    posvel = torch.where(valid[None], chans[:, src], fill)
-    pid = torch.where(valid, pid_s[src], torch.full_like(src, -1,
-                                                         dtype=torch.int32))
-    return posvel, pid
+    posvel = torch.where(valid[None], torch.cat([pos[:, rec], vel[:, rec]]),
+                         fill)
+    pid4 = torch.where(valid, pid[rec], torch.full_like(rec, -1,
+                                                        dtype=torch.int32))
+    return posvel, pid4
 
 
-def expand(chans: torch.Tensor, pid_s: torch.Tensor, keys_s: torch.Tensor,
-           row_start: torch.Tensor, spec,
-           key_base: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """Key-sorted record stream -> dense cap-stride slots per cell.
+def expand(pos: torch.Tensor, vel: torch.Tensor, pid: torch.Tensor,
+           order: torch.Tensor, keys_s: torch.Tensor, row_start: torch.Tensor,
+           spec, key_base: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Record stream -> dense cap-stride slots per cell, read through the
+    stable sort's permutation.
 
-    chans (6, M) f32 = x, y, z, vx, vy, vz in key order; pid_s (M,) i32;
-    keys_s (M,) i32 ascending; row_start (R+1,) i32 from ``row_starts`` with
-    the same ``key_base``. Returns posvel (6, R, mc, cap) f32 and pid
-    (R, mc, cap) i32: the run of records keyed ``key_base + c`` fills cell c's
-    slots (c, 0..len-1), cut at cap; the other slots get the park lattice,
-    zero velocity and pid -1. Records keyed outside [key_base,
-    key_base + R*mc) are dropped: a slab's emigrants and foreign records
+    pos, vel (3, M) f32 and pid (M,) i32 are the records as they are, not
+    sorted; order (M,) i64 is the stable sort's permutation (sorted position
+    i holds record ``order[i]``), keys_s (M,) i32 the sorted keys and
+    row_start (R+1,) i32 from ``row_starts`` with the same ``key_base``.
+    Returns posvel (6, R, mc, cap) f32 and pid (R, mc, cap) i32: the run of
+    records keyed ``key_base + c`` fills cell c's slots (c, 0..len-1) in
+    sorted order, cut at cap; the other slots get the park lattice, zero
+    velocity and pid -1. Records keyed outside [key_base, key_base + R*mc)
+    are dropped: empty slots, and a slab's emigrants and foreign records
     (``ops/slab_kernels.py``, ``key_base = mc*mc``).
 
     Kernel: ``csrc/expand.cu``, replacing ``_expand_kernel`` of
-    md_neighbor_list_tpu/ops/dense_cells.py. Bound by bytes on this card
-    (every record read once, every slot written once); the design is one
-    indexed, coalesced copy per slot — the TPU body's log-step rolls stand in
-    for exactly that copy. The JAX package's other forms of that kernel —
-    ``_expand_kernel_blocked`` and the ``fuse_keys``/``split_dma`` forms —
-    are DMA and matrix-unit layouts of the same function with the same bits,
-    so this one kernel stands for them all and ``rebuild_dense`` takes no such
-    flag; nor does the port need the JAX ``group``/``window`` sizing, which
-    sets the TPU's DMA window (``ops/incremental.py`` keeps its overflow
-    predicate). A ``key_base`` other than 0 launches the slab form (entry
-    ``expand_slab``, its own launch count). CPU tensors take
+    md_neighbor_list_tpu/ops/dense_cells.py. Bound by bytes on this card:
+    each record within the rows is read once through ``order`` (the TPU
+    sorts eight payloads because it has no gather; here the sort carries
+    none), every slot written once. The JAX package's other forms of that
+    kernel — ``_expand_kernel_blocked`` and the ``fuse_keys``/``split_dma``
+    forms — are DMA and matrix-unit layouts of the same function with the
+    same bits, so this one kernel stands for them all and ``rebuild_dense``
+    takes no such flag; nor does the port need the JAX ``group``/``window``
+    sizing, which sets the TPU's DMA window (``ops/incremental.py`` keeps its
+    overflow predicate). A ``key_base`` other than 0 launches the slab form
+    (entry ``expand_slab``, its own launch count). CPU tensors take
     ``expand_plain``."""
-    if not chans.is_cuda:
-        return expand_plain(chans, pid_s, keys_s, row_start, spec, key_base)
-    _cuda.check_cuda(chans, pid_s, keys_s, row_start)
-    for t, dt in ((chans, torch.float32), (pid_s, torch.int32),
-                  (keys_s, torch.int32), (row_start, torch.int32)):
+    if not pos.is_cuda:
+        return expand_plain(pos, vel, pid, order, keys_s, row_start, spec,
+                            key_base)
+    args = (pos, vel, pid, order, keys_s, row_start)
+    _cuda.check_cuda(*args)
+    for t, dt in zip(args, (torch.float32, torch.float32, torch.int32,
+                            torch.int64, torch.int32, torch.int32)):
         if t.dtype != dt:
             raise ValueError(f"expand: expected {dt}, got {t.dtype}")
     M = keys_s.shape[0]
-    if chans.shape != (6, M) or pid_s.shape != (M,) or \
-            row_start.shape != (spec.rows + 1,):
+    if pos.shape != (3, M) or vel.shape != (3, M) or pid.shape != (M,) or \
+            order.shape != (M,) or row_start.shape != (spec.rows + 1,):
         raise ValueError("expand: inconsistent record or row_start shapes")
     shape = (spec.rows, spec.mc, spec.cap)
-    posvel = torch.empty((6,) + shape, dtype=torch.float32,
-                         device=chans.device)
-    pid = torch.empty(shape, dtype=torch.int32, device=chans.device)
+    posvel = torch.empty((6,) + shape, dtype=torch.float32, device=pos.device)
+    pid4 = torch.empty(shape, dtype=torch.int32, device=pos.device)
     geom = (M, spec.rows, spec.mc, spec.cap, _park_step(spec))
     if key_base:
-        _cuda.launch("expand_slab", chans, pid_s, keys_s, row_start, posvel,
-                     pid, *geom, key_base)
+        _cuda.launch("expand_slab", *args, posvel, pid4, *geom, key_base)
     else:
-        _cuda.launch("expand", chans, pid_s, keys_s, row_start, posvel, pid,
-                     *geom)
-    return posvel, pid
+        _cuda.launch("expand", *args, posvel, pid4, *geom)
+    return posvel, pid4
 
 
-def sort_expand(keys: torch.Tensor, chans: torch.Tensor, pid: torch.Tensor,
-                spec, key_base: int = 0) -> tuple[DenseState, torch.Tensor]:
+def sort_expand(keys: torch.Tensor, pos: torch.Tensor, vel: torch.Tensor,
+                pid: torch.Tensor, spec,
+                key_base: int = 0) -> tuple[DenseState, torch.Tensor]:
     """The rebuild core: one stable sort by cell key, row starts, and the
-    expand kernel. ``keys`` (M,) i32, ``chans`` (6, M) f32, ``pid`` (M,) i32.
+    expand kernel reading the records through the sort's permutation.
+    ``keys`` (M,) i32, ``pos`` and ``vel`` (3, M) f32, ``pid`` (M,) i32.
     Records keyed outside [key_base, key_base + rows*mc) are dropped: empty
     slots (keyed beyond), and a slab's emigrants and foreign records. The
     sort must be stable: slot order inside a cell is the records' order in the
@@ -243,8 +250,8 @@ def sort_expand(keys: torch.Tensor, chans: torch.Tensor, pid: torch.Tensor,
     overflow check."""
     keys_s, order = torch.sort(keys, stable=True)
     row_start = row_starts(keys_s, spec, key_base)
-    posvel, pid4 = expand(chans[:, order], pid[order], keys_s, row_start,
-                          spec, key_base)
+    posvel, pid4 = expand(pos, vel, pid, order, keys_s, row_start, spec,
+                          key_base)
     return DenseState(pos=posvel[:3], vel=posvel[3:], pid=pid4), row_start
 
 
@@ -255,10 +262,10 @@ def rebuild_dense(state: DenseState,
     Positions are wrapped here and only here: between rebuilds the engine
     integrates unwrapped coordinates, so the sweep's pre-shifted periodic
     images stay exact when a particle crosses the box boundary."""
-    state = state._replace(pos=torch.remainder(state.pos, spec.L))
-    keys = cell_keys(state, spec).reshape(-1)
-    chans = torch.cat([state.pos.reshape(3, -1), state.vel.reshape(3, -1)])
-    return sort_expand(keys, chans, state.pid.reshape(-1), spec)
+    pos = torch.remainder(state.pos, spec.L)
+    keys = cell_keys(state._replace(pos=pos), spec).reshape(-1)
+    return sort_expand(keys, pos.reshape(3, -1), state.vel.reshape(3, -1),
+                       state.pid.reshape(-1), spec)
 
 
 # ----------------------------------------------------- packed <-> dense I/O

@@ -118,8 +118,9 @@ def merge(state_w: DenseState, spid: torch.Tensor, movers: DenseState,
     and for vel, are one launch here). Bound by bytes: each slot's stayer pid,
     each particle's pos and vel once from the side it comes from, each mover's
     pid and one end-of-movers pid per cell are read, and each slot's 28 bytes
-    written; a warp per cell scatters its stayers by ballot rank and pulls the
-    movers behind them. Equal to ``merge_plain`` bitwise. pid stays
+    written; a block per row loads every slot's two pids first, ranks the
+    stayers from bit flags in shared memory, then scatters them by rank and
+    pulls the movers behind them. Equal to ``merge_plain`` bitwise. pid stays
     i32 (the TPU body carries it through f32, exact below 2^24). CPU tensors
     take ``merge_plain``."""
     if not spid.is_cuda:
@@ -142,20 +143,27 @@ def merge(state_w: DenseState, spid: torch.Tensor, movers: DenseState,
 
 
 # ------------------------------------------------------------ the rebuild
+def mover_keys(state_w: DenseState,
+               spec) -> tuple[torch.Tensor, torch.Tensor]:
+    """Step 1 on a wrapped state: (the mover stream's keys, the stayer
+    mask), both (R, mc, cap). A mover keeps its cell key; the stayers and
+    the empty slots take the beyond-last key."""
+    keys = cell_keys(state_w, spec)  # empty slots: the beyond-last key
+    stay = keys == own_cell_keys(spec, keys.device)
+    return torch.where(state_w.valid() & ~stay, keys,
+                       torch.full_like(keys, spec.ncells)), stay
+
+
 def merge_inputs(state: DenseState, spec):
     """Steps 1-2 of the incremental rebuild: ``((state_w, spid, movers),
     row_start)`` — the wrapped state, its pid with every slot but the
     stayers' set to -1, the expanded mover stream, and that stream's row
     starts."""
     state_w = state._replace(pos=torch.remainder(state.pos, spec.L))
-    keys = cell_keys(state_w, spec)  # empty slots: the beyond-last key
-    stay = keys == own_cell_keys(spec, keys.device)
-    mover_keys = torch.where(state.valid() & ~stay, keys,
-                             torch.full_like(keys, spec.ncells))
-    chans = torch.cat([state_w.pos.reshape(3, -1),
-                       state_w.vel.reshape(3, -1)])
-    movers, row_start = sort_expand(mover_keys.reshape(-1), chans,
-                                    state.pid.reshape(-1), spec)
+    keys, stay = mover_keys(state_w, spec)
+    movers, row_start = sort_expand(
+        keys.reshape(-1), state_w.pos.reshape(3, -1),
+        state_w.vel.reshape(3, -1), state.pid.reshape(-1), spec)
     spid = torch.where(stay, state.pid, torch.full_like(state.pid, -1))
     return (state_w, spid, movers), row_start
 

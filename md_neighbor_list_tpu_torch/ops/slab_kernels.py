@@ -199,14 +199,14 @@ def slab_keys(pos: torch.Tensor, valid: torch.Tensor, spec: SlabSpec,
     return torch.where(valid, key, torch.full_like(key, mc * mc * (spec.nz + 2)))
 
 
-def slab_sort_expand(keys: torch.Tensor, chans: torch.Tensor,
-                     pid: torch.Tensor,
+def slab_sort_expand(keys: torch.Tensor, pos: torch.Tensor,
+                     vel: torch.Tensor, pid: torch.Tensor,
                      spec: SlabSpec) -> tuple[DenseState, torch.Tensor]:
     """``sort_expand`` with the slab key layout (owned rows start at key
-    mc^2, after the left-emigrant block): the K1 slab form. ``chans`` (6, M)
-    f32 and ``pid`` (M,) i32, where the JAX function carries pid as a
-    seventh f32 channel."""
-    return sort_expand(keys, chans, pid, spec, key_base=spec.mc * spec.mc)
+    mc^2, after the left-emigrant block): the K1 slab form. ``pos`` and
+    ``vel`` (3, M) f32 and ``pid`` (M,) i32, where the JAX function sorts
+    seven f32 channels, pid the seventh."""
+    return sort_expand(keys, pos, vel, pid, spec, key_base=spec.mc * spec.mc)
 
 
 __all__ = [

@@ -157,7 +157,7 @@ class DenseSlabSimulator:
             # unwrapped keys own all mc_z layers
             k_own = slab_keys(pos, valid, spec, z0, wrap=False)
             keys = k_own.reshape(-1)
-            chans = torch.cat([pos.reshape(3, -1), carry.vel.reshape(3, -1)])
+            rec_pos, rec_vel = pos.reshape(3, -1), carry.vel.reshape(3, -1)
             pids = carry.pid.reshape(-1)
         else:
             # emigrants live only in the boundary layers (they moved <= 1
@@ -175,14 +175,14 @@ class DenseSlabSimulator:
             k_r = slab_keys(recv_r[0], recv_r[2] >= 0, spec, z0)
             keys = torch.cat([k_own.reshape(-1), k_l.reshape(-1),
                               k_r.reshape(-1)])
-            chans = torch.cat([
+            rec_pos, rec_vel = (
                 torch.cat([a.reshape(3, -1), b.reshape(3, -1), c.reshape(3, -1)],
                           dim=1)
                 for a, b, c in ((pos, recv_l[0], recv_r[0]),
-                                (carry.vel, recv_l[1], recv_r[1]))])
+                                (carry.vel, recv_l[1], recv_r[1])))
             pids = torch.cat([carry.pid.reshape(-1), recv_l[2].reshape(-1),
                               recv_r[2].reshape(-1)])
-        new, _ = slab_sort_expand(keys, chans, pids, spec)
+        new, _ = slab_sort_expand(keys, rec_pos, rec_vel, pids, spec)
 
         # conservation: every particle kept by exactly one rank
         kept = ring.sum(torch.sum(new.pid >= 0))

@@ -138,13 +138,105 @@ def test_expand_plain_is_what_the_wrapper_runs_on_cpu():
     ts, tspec, _ = torch_state(pos, vel, pid, 32)
     keys = tdc.cell_keys(ts, tspec).reshape(-1)
     keys_s, order = torch.sort(keys, stable=True)
-    chans = torch.cat([ts.pos.reshape(3, -1), ts.vel.reshape(3, -1)])[:, order]
-    args = (chans, ts.pid.reshape(-1)[order], keys_s,
-            tdc.row_starts(keys_s, tspec), tspec)
+    args = (ts.pos.reshape(3, -1), ts.vel.reshape(3, -1), ts.pid.reshape(-1),
+            order, keys_s, tdc.row_starts(keys_s, tspec), tspec)
     a, b = tdc.expand(*args), tdc.expand_plain(*args)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert a[0].shape == (6, tspec.rows, tspec.mc, tspec.cap)
     assert a[1].dtype == torch.int32
+
+
+def _record_stream(case):
+    """(keys, pos, vel, pid, port spec, JAX spec, key_base, reference) of one
+    record stream, numpy-seeded: the records as a rebuild hands them to
+    ``sort_expand``, unsorted. ``reference`` is the whole expected state where
+    ``dense_ref.rebuild_reference`` gives one, else None."""
+    kind, cap = case.rsplit("-cap", 1)
+    cap = int(cap)
+    if kind == "slab":  # the slab tests' P = 2 geometry: mc = 9, nz = 4
+        from md_neighbor_list_tpu.core.box import Box as JBox
+        from md_neighbor_list_tpu.parallel import dense_slab as jds
+        from md_neighbor_list_tpu_torch.core.box import Box as TBox
+        from md_neighbor_list_tpu_torch.parallel import dense_slab as tds
+
+        jspec = jds.make_slab_spec(JBox.from_density(4096, 1.0), 1.7, 2, cap)
+        tspec = tds.make_slab_spec(TBox.from_density(4096, 1.0), 1.7, 2, cap)
+        base = tspec.mc * tspec.mc
+        rng = np.random.default_rng(1)
+        M = 2000  # keys below base (emigrants) and beyond the owned rows
+        keys = torch.from_numpy(rng.integers(0, base * (tspec.nz + 3), M)
+                                .astype(np.int32))
+        chans = torch.from_numpy(rng.standard_normal((6, M))
+                                 .astype(np.float32))
+        return (keys, chans[:3].contiguous(), chans[3:].contiguous(),
+                torch.arange(M, dtype=torch.int32), tspec, jspec, base, None)
+    pos, vel, pid = numpy_system(1728, 8, jitter=0.2)
+    if kind == "overflow":  # 60 particles in one cell
+        pos = pos.copy()
+        pos[:60] = pos[0] + np.random.default_rng(0).uniform(
+            0, 0.3, (60, 3)).astype(np.float32)
+    ts, tspec, _ = torch_state(pos, vel, pid, cap)
+    _, jspec, _ = jax_state(pos, vel, pid, cap)
+    reference = tref.rebuild_reference(ts, tspec)
+    if kind == "movers":  # a binned state drifted off its cells
+        from md_neighbor_list_tpu_torch.ops import incremental as tinc
+
+        drift = np.random.default_rng(3).normal(0.0, 0.3, ts.pos.shape)
+        valid = reference.valid()
+        ts = reference._replace(pos=reference.pos + torch.where(
+            valid[None], torch.from_numpy(drift.astype(np.float32)), 0.0))
+        keys, _ = tinc.mover_keys(
+            ts._replace(pos=torch.remainder(ts.pos, tspec.L)), tspec)
+        reference = None
+    else:
+        keys = tdc.cell_keys(ts, tspec)
+    return (keys.reshape(-1), torch.remainder(ts.pos, tspec.L).reshape(3, -1),
+            ts.vel.reshape(3, -1), ts.pid.reshape(-1), tspec, jspec, 0,
+            reference)
+
+
+@pytest.mark.parametrize("case", ["cube-cap28", "cube-cap40", "cube-cap41",
+                                  "slab-cap16", "movers-cap40",
+                                  "overflow-cap32"])
+def test_expand_through_the_permutation(case):
+    """``expand_plain`` reading the records through the sort's permutation ==
+    the old composition (the records gathered into sorted order, then
+    expanded) bitwise, and == the JAX ``sort_expand`` (Pallas in interpret
+    mode) on pid, row starts and valid slots; parked slots against
+    ``rebuild_reference`` (or its park lattice, zero velocity). Cases: the
+    cube; a slab ``key_base`` with emigrant and foreign records; a mover
+    stream, most keys the sentinel; a cell with more records than cap."""
+    keys, pos, vel, pid, tspec, jspec, base, reference = _record_stream(case)
+    keys_s, order = torch.sort(keys, stable=True)
+    rs = tdc.row_starts(keys_s, tspec, base)
+    posvel, pid4 = tdc.expand_plain(pos, vel, pid, order, keys_s, rs, tspec,
+                                    base)
+    ident = torch.arange(keys.shape[0])
+    old = tdc.expand_plain(pos[:, order], vel[:, order], pid[order], ident,
+                           keys_s, rs, tspec, base)
+    assert torch.equal(posvel, old[0]) and torch.equal(pid4, old[1])
+    new, new_rs = tdc.sort_expand(keys, pos, vel, pid, tspec, base)
+    assert torch.equal(new.pid, pid4) and torch.equal(new_rs, rs)
+    assert torch.equal(torch.cat([new.pos, new.vel]), posvel)
+
+    chans = tuple(jnp.asarray(c) for c in (*pos.numpy(), *vel.numpy())) + (
+        jnp.asarray(pid.numpy().astype(np.float32)),)
+    j_new, j_rs = jdc.sort_expand(jnp.asarray(keys.numpy()), chans, jspec,
+                                  True, key_base=base)
+    np.testing.assert_array_equal(rs.numpy(), np.asarray(j_rs))
+    assert_state_equal(new, j_new, parked_pos=False)
+    kept = int(new.valid().sum())
+    if case.startswith("overflow"):
+        assert kept < keys.shape[0] - int((keys == tspec.ncells).sum())
+    if reference is not None:
+        assert_state_equal(new, reference)
+    else:
+        empty = ~new.valid()
+        park = tdc.park_lattice(tspec, "cpu")
+        assert torch.equal(new.pos[:, empty], park[:, empty])
+        assert float(new.vel[:, empty].abs().sum()) == 0.0
+    if case.startswith("movers"):
+        assert 0 < kept < keys.shape[0] // 4
 
 
 def test_packed_round_trip_and_convert():

@@ -198,6 +198,100 @@ def test_merge_and_incremental_rebuild(card, cap):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("cap", [28, 40, 41, 384, 700])
+def test_expand_forms_at_any_cap(card, cap):
+    """K1 and its slab form K9-K1, reading the records through the sort's
+    permutation, bitwise against their plain versions on a stream of n = 1000
+    packed records at mc = 3: one cell holds cap + 5 records (its run is cut at cap; at cap 28 every
+    cell is over), so the rows take the 16-byte stores (mc*cap % 4 == 0)
+    at caps 28, 40, 384 and 700 and the scalar ones at cap 41. The slab form
+    is the first of three one-layer slabs: it owns the crowded cell, and its
+    stream holds records keyed below its rows (the top layer, across the
+    ring) and beyond them (what is left of the middle layer)."""
+    from md_neighbor_list_tpu_torch.core.box import Box
+
+    n = 1000
+    pos, vel, pid = clustered_system(cap + 5, seed=16, n=n)
+    spec = dense_cells.make_spec(Box.from_density(n, 1.0), RS, cap)
+    assert spec.mc == 3
+    rec = torch.remainder(torch.from_numpy(pos.T.copy()), spec.L)
+    rec_vel, pids = torch.from_numpy(vel.T.copy()), torch.from_numpy(pid)
+    # the packed records as a stream (cell_keys is elementwise)
+    keys = dense_cells.cell_keys(dense_cells.DenseState(rec, rec_vel, pids),
+                                 spec)
+    keys_s, order = torch.sort(keys, stable=True)
+    args = (rec, rec_vel, pids, order, keys_s,
+            dense_cells.row_starts(keys_s, spec))
+    before = dict(_cuda.LAUNCHES)
+    got = dense_cells.expand(*(a.to(card) for a in args), spec)
+    want = dense_cells.expand_plain(*args, spec)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert int((got[1] >= 0).sum()) < n
+
+    slab = _slab_of_cube(spec, 3)
+    skeys = slab_kernels.slab_keys(rec, torch.ones(n, dtype=torch.bool), slab,
+                                   0)
+    st, srs = slab_kernels.slab_sort_expand(
+        skeys.to(card), rec.to(card), rec_vel.to(card), pids.to(card), slab)
+    plain, srs_p = slab_kernels.slab_sort_expand(skeys, rec, rec_vel, pids,
+                                                 slab)
+    for a, b in zip(st, plain):
+        assert torch.equal(a.cpu(), b)
+    base = slab.mc * slab.mc
+    assert int(srs_p[0]) > 0  # records keyed below key_base
+    owned = skeys[(skeys >= base) & (skeys < base + slab.rows * slab.mc)]
+    assert int(st.valid().sum()) == int(torch.bincount(
+        owned - base).clamp(max=cap).sum()) > 0  # each cell's run cut at cap
+    after = _cuda.LAUNCHES
+    assert after["expand"] == before["expand"] + 1
+    assert after["expand_slab"] == before["expand_slab"] + 1
+
+
+@pytest.mark.parametrize("cap", [32, 40, 41, 384, 700])
+def test_merge_at_any_cap(card, cap):
+    """K8, and K1 on the mover stream, bitwise against their plain versions,
+    and the incremental rebuild bitwise against its order-exact twin: cell
+    (0, 0, 0) holds cap stayers (a full cell) and a particle from the far
+    corner moves into it, so its stayers and movers exceed cap and the
+    mover is dropped; the other particles drift by about 0.3."""
+    n = 1728
+    pos, vel, pid = clustered_system(cap, seed=17, n=n)
+    state, spec, _ = torch_state(pos, vel, pid, cap)
+    state, _ = dense_cells.rebuild_dense(
+        dense_cells.DenseState(*(t.to(card) for t in state)), spec)
+    valid = state.valid()
+    assert int(valid[0, 0].sum()) == cap
+    drift = np.random.default_rng(cap).normal(0.0, 0.3, state.pos.shape)
+    drift = torch.from_numpy(drift.astype(np.float32)).to(card)
+    moving = valid.clone()
+    moving[0, 0] = False  # the full cell's particles stay
+    drift = torch.where(moving[None], drift, 0.0)
+    r, x, s = (int(i) for i in torch.nonzero(moving)[-1])
+    drift[:, r, x, s] = 0.5 * spec.cell_size - state.pos[:, r, x, s]
+    state = state._replace(pos=state.pos + drift)
+
+    before = _cuda.LAUNCHES["merge"]
+    new, _ = incremental.rebuild_dense_incremental(state, spec)
+    assert _cuda.LAUNCHES["merge"] == before + 1
+    twin = incremental.rebuild_reference_incremental(state, spec)
+    for a, b in zip(new, twin):
+        assert torch.equal(a, b)
+    assert int(new.valid().sum()) < n and int(new.valid()[0, 0].sum()) == cap
+
+    args, rs = incremental.merge_inputs(state, spec)
+    args_p, rs_p = incremental.merge_inputs(
+        dense_cells.DenseState(*(t.cpu() for t in state)), spec)
+    assert torch.equal(rs.cpu(), rs_p)
+    for a, b in zip((*args[0], args[1], *args[2]),
+                    (*args_p[0], args_p[1], *args_p[2])):
+        assert torch.equal(a.cpu(), b)
+    got = incremental.merge(*args, spec)
+    want = incremental.merge_plain(*args_p, spec)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
 @pytest.mark.parametrize("p,cap", [(2, 32), (4, 40), (2, 384)])
 def test_slab_forms_match_plain_versions(card, p, cap):
     """The slab forms of K1-K3 on the card against their plain versions:
@@ -214,17 +308,17 @@ def test_slab_forms_match_plain_versions(card, p, cap):
                                  cell_size=cube.cell_size,
                                  cell_z=cube.cell_size)
     rec = torch.from_numpy(pos.T.copy()).to(card)
-    chans = torch.cat([rec, torch.from_numpy(vel.T.copy()).to(card)])
+    rec_vel = torch.from_numpy(vel.T.copy()).to(card)
     pids = torch.from_numpy(pid).to(card)
     valid = torch.ones(n, dtype=torch.bool, device=card)
     states = []
     for r in range(p):
         before = _cuda.LAUNCHES["expand_slab"]
         keys = slab_kernels.slab_keys(rec, valid, spec, r * nz)
-        st, _ = slab_kernels.slab_sort_expand(keys, chans, pids, spec)
+        st, _ = slab_kernels.slab_sort_expand(keys, rec, rec_vel, pids, spec)
         assert _cuda.LAUNCHES["expand_slab"] == before + 1
         plain, _ = slab_kernels.slab_sort_expand(
-            keys.cpu(), chans.cpu(), pids.cpu(), spec)
+            keys.cpu(), rec.cpu(), rec_vel.cpu(), pids.cpu(), spec)
         for a, b in zip(st, plain):
             assert torch.equal(a.cpu(), b)
         states.append(st)

@@ -150,7 +150,7 @@ def test_kernel_wrappers_do_not_build_for_cpu_tensors():
     dense_force.dense_lists_half_slab(ext, spec, 2.8)
     dense_force.dense_forces_half_slab(ext, spec, 2.5, True)
     keys = torch.full((4,), spec.mc * spec.mc, dtype=torch.int32)
-    dense_cells.sort_expand(keys, torch.zeros((6, 4)),
+    dense_cells.sort_expand(keys, torch.zeros((3, 4)), torch.zeros((3, 4)),
                             torch.arange(4, dtype=torch.int32), spec,
                             key_base=spec.mc * spec.mc)
     assert set(_cuda.LAUNCHES.values()) == {0}

@@ -79,10 +79,10 @@ def _slab_extended(p: int):
                                  L=cube.L, cell_size=cube.cell_size,
                                  cell_z=cube.cell_size)
     rec = torch.from_numpy(pos.T.copy())
-    chans = torch.cat([rec, torch.from_numpy(vel.T.copy())])
+    rec_vel = torch.from_numpy(vel.T.copy())
     valid = torch.ones(N, dtype=torch.bool)
     states = [slab_kernels.slab_sort_expand(
-        slab_kernels.slab_keys(rec, valid, spec, r * nz), chans,
+        slab_kernels.slab_keys(rec, valid, spec, r * nz), rec, rec_vel,
         torch.from_numpy(pid), spec)[0] for r in range(min(p, 2))]
     ghost = states[1 % len(states)]
     gpos = ghost.pos[:, :spec.mc].clone()

@@ -67,8 +67,8 @@ def _slab_states(p: int):
         tkeys = tsk.slab_keys(torch.from_numpy(pos.T.copy()),
                               torch.ones(N, dtype=torch.bool), tspec, z0)
         ts, _ = tsk.slab_sort_expand(
-            tkeys, torch.from_numpy(np.concatenate([pos.T, vel.T])),
-            torch.from_numpy(pid), tspec)
+            tkeys, torch.from_numpy(pos.T.copy()),
+            torch.from_numpy(vel.T.copy()), torch.from_numpy(pid), tspec)
         out.append((js, ts))
     return out
 
@@ -195,14 +195,16 @@ def test_expand_drops_records_keyed_below_base():
     _, tspec = _specs(2)
     base = tspec.mc * tspec.mc
     rng = np.random.default_rng(1)
-    keys = rng.integers(0, base * (tspec.nz + 3), 2000).astype(np.int32)
-    keys_s = torch.from_numpy(np.sort(keys))
+    keys = torch.from_numpy(rng.integers(0, base * (tspec.nz + 3), 2000)
+                            .astype(np.int32))
+    keys_s, order = torch.sort(keys, stable=True)
     M = keys_s.shape[0]
     chans = torch.from_numpy(rng.standard_normal((6, M)).astype(np.float32))
     pid = torch.arange(M, dtype=torch.int32)
     rs = tdc.row_starts(keys_s, tspec, base)
-    posvel, pid4 = tdc.expand_plain(chans, pid, keys_s, rs, tspec, base)
-    owned = (keys_s >= base) & (keys_s < base + tspec.rows * tspec.mc)
+    posvel, pid4 = tdc.expand_plain(chans[:3], chans[3:], pid, order, keys_s,
+                                    rs, tspec, base)
+    owned = (keys >= base) & (keys < base + tspec.rows * tspec.mc)
     got = pid4[pid4 >= 0]
     assert got.numel() == int(owned.sum())  # no cell reaches cap here
     assert torch.equal(torch.sort(got).values,

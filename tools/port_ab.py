@@ -15,8 +15,10 @@ nvcc, so ``-maxrregcount=40`` caps every kernel at 40 registers).
 
 Prints one JSON line per run — the card, each kernel's ``ms`` from the run's
 ``kernels`` line, ``steps_per_s`` and ``build_ms`` of its main path and, where
-the tree has it, of its incremental path — and a last line with each label's
-mean over the rounds. A run that fails ends the script with its exit code.
+the tree has them, of its incremental and slab paths, the rebuild times of
+phase ``incremental_kernels`` and the seconds of one ``neighbor_list`` call —
+and a last line with each label's mean over the rounds. A run that fails ends
+the script with its exit code.
 """
 
 from __future__ import annotations
@@ -51,6 +53,15 @@ def run_smoke(tree: pathlib.Path, flags: str) -> dict:
         elif rec.get("phase") == "incremental":  # trees that have the path
             out["incremental"] = {k: rec[k] for k in ("steps_per_s",
                                                       "build_ms")}
+        elif rec.get("phase") == "incremental_kernels":
+            out["rebuild_ms"] = {k: rec[k] for k in (
+                "rebuild_full_ms", "keys_sort_expand_movers_ms",
+                "rebuild_incremental_ms") if k in rec}
+        elif rec.get("phase") == "dense_slab_p1":
+            out["dense_slab"] = {k: rec[k] for k in ("steps_per_s",
+                                                     "build_ms")}
+        elif rec.get("phase") == "list_delivery":
+            out["neighbor_list_s"] = rec["seconds"]["neighbor_list_half"]
         elif "kernels" in rec and "phase" not in rec:
             out["ms"] = {row["name"]: row["ms"] for row in rec["kernels"]}
     return out
