@@ -47,11 +47,33 @@ launch counters set to 0 just before and read just after:
                  slabs by the slab rebuild and holds them, one after the
                  other on the one card, against the cube engine at N = 8M.
 
+Then the padded-row engine and the paths around it, which are plain PyTorch
+and must launch none of the kernels (their counters are read around each):
+
+  xla_engine        ``Simulator`` on ``c3_verlet`` uncut (N = 100,000, Morton,
+                    half rows): the build's pairs against the oracle and the
+                    dense engine's half count, its forces against the oracle,
+                    1000 NVE steps, the observables, 10 chained list builds;
+  xla_c2            ``Simulator`` on ``c2_cell`` (row-major, a rebuild every
+                    step), 100 steps, the last list against the oracle;
+  xla_compare       the CLI's ``--compare`` on ``c4_sorted`` at N = 1M (100
+                    steps, cut from 1000): 40,000,000 pairs by each engine,
+                    forces within the gate;
+  xla_list_delivery ``neighbor_list(backend="xla")`` on the caller positions of
+                    ``list_delivery``, half and full, against the dense
+                    backend's rows; the seconds a call of both backends at
+                    N = 100k and 1M and what ``auto`` picks there;
+  cli               ``python -m md_neighbor_list_tpu_torch`` in subprocesses:
+                    ``c3_verlet`` with the oracle parity check and a
+                    checkpoint, the xla engine resuming it, the slab engine at
+                    P = 1.
+
 Each phase prints one JSON line; any failure ends the run with a non-zero exit
 code. Without a CUDA device the script fails at once. ``--profile`` adds a
 ``torch.profiler`` breakdown by device kernel of 50 steps of each engine, of
-one ``neighbor_list`` call, of ten incremental and ten full rebuilds, and of
-50 steps of the slab engine (information only). ``--half-sweep-times`` only
+one ``neighbor_list`` call, of ten incremental and ten full rebuilds, of
+50 steps of the slab engine, and of 50 steps and one list build of the xla
+engine (information only). ``--half-sweep-times`` only
 times the half-force and pe/virial kernels at N = 1,000,000, and
 ``--list-full-times`` the list and full-force kernels, and ``--count-times``
 the half- and full-count kernels (each after checking them against their
@@ -67,18 +89,21 @@ The last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from md_neighbor_list_tpu_torch import (PRESETS, DenseSimulator, MDConfig,
-                                        neighbor_list, pair_list)
+                                        Simulator, api, cli, neighbor_list,
+                                        pair_list)
 from md_neighbor_list_tpu_torch.core.box import Box
 from md_neighbor_list_tpu_torch.core.system import System, init_lattice
 from md_neighbor_list_tpu_torch.ops import (_cuda, decode, dense_cells,
@@ -1870,6 +1895,293 @@ def dense_slab_path(device, cfg=PRESETS["c4_sorted"]
     return launches, carry, sim
 
 
+# ------------------------------------------------------------ xla engine
+def no_launches(path: str) -> dict:
+    """The launch counters after an xla path: that engine and the sweep are
+    plain PyTorch, so no kernel of K1-K9 may have run."""
+    launches = dict(_cuda.LAUNCHES)
+    check(set(launches.values()) == {0},
+          f"launches: the {path} path launched kernels: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    emit("launches", path=path, launches=launches, expected_at_least={})
+    return launches
+
+
+def xla_pairs(carry) -> int:
+    """The half pairs of a ``Simulator`` carry's rows."""
+    return int(torch.sum(carry.nbr.idx < carry.system.pos.shape[0]))
+
+
+def xla_engine(device) -> tuple[dict, Simulator, object]:
+    """``Simulator`` (the padded-row engine) on ``c3_verlet`` uncut: the
+    lattice start, 1000 NVE steps, the observables and 10 chained list
+    builds; then the build held against the oracle and the dense engine's
+    half count, off the counted path. Returns the launch counts, the engine
+    and its carry."""
+    cfg = PRESETS["c3_verlet"]
+    _cuda.reset_launches()
+    sim = Simulator(cfg, device=device)
+    carry = sim.init()
+    start = carry
+    pairs = xla_pairs(carry)
+    ke0, pe0 = (float(x) for x in sim.energies(carry))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry = sim.run(carry, cfg.steps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    ke1, pe1 = (float(x) for x in sim.energies(carry))
+    ke, pe, w = (float(x) for x in sim.thermo(carry))
+    pressure = sim.pressure(carry)
+    rebuilds = int(carry.nbr.n_rebuilds)
+
+    system = carry.system
+    tau = 0.5 * cfg.skin / float(torch.sqrt(torch.max(
+        torch.sum(system.vel * system.vel, dim=-1))))
+
+    def chain(reps=10):
+        s = system
+        for _ in range(reps):
+            s = sim.rebuild_only(s._replace(
+                pos=sim.box.wrap(s.pos + tau * s.vel))).system
+
+    build_ms = time_ms(chain, 1) / 10
+    launches = no_launches("xla_engine")
+
+    e0, e1 = ke0 + pe0, ke1 + pe1
+    drift = abs(e1 - e0) / abs(e0)
+    want = int(oracle.pair_count(start.system.pos, sim.box, cfg.rs))
+    f_o, _ = oracle.forces_energy(start.system.pos, sim.box, cfg.rc)
+    ok, f_err = within_force_gate(start.system.force, f_o)
+    dense = DenseSimulator(cfg, cap=40, device=device)
+    dense_pairs = int(dense._rebuild_and_lists(dense.init().state)[3])
+    del dense
+    check(pairs == want == dense_pairs,
+          f"xla_engine: {pairs} pairs at the build, the oracle {want}, the "
+          f"dense engine {dense_pairs}")
+    check(ok, f"xla_engine: build forces off the oracle by {f_err}")
+    check(math.isfinite(e0) and math.isfinite(e1) and math.isfinite(pressure),
+          "xla_engine: energies or pressure not finite")
+    check(drift <= 1e-4, f"xla_engine: |dE/E| = {drift} > 1e-4")
+    check(rebuilds > 1 and not bool(carry.nbr.overflow),
+          f"xla_engine: {rebuilds} rebuilds, overflow "
+          f"{bool(carry.nbr.overflow)}")
+    check(bool(torch.isfinite(carry.system.force).all())
+          and sorted(carry.system.pid.tolist()) == list(range(cfg.n)),
+          "xla_engine: forces not finite or particles lost")
+    emit("xla_engine", n=cfg.n, layout=cfg.layout, half_list=cfg.half_list,
+         capacity={"neighbors": sim.capacity.neighbors,
+                   "cell": sim.capacity.cell},
+         pairs=pairs, oracle_pairs=want, dense_pairs=dense_pairs,
+         force_err_vs_oracle=f_err, steps=cfg.steps, energy_drift=drift,
+         e0=e0, e1=e1, n_rebuilds=rebuilds, steps_per_s=cfg.steps / run_s,
+         rebuild_only_ms=build_ms, thermo={"ke": ke, "pe": pe, "virial": w},
+         pressure=pressure)
+    return launches, sim, carry
+
+
+def xla_c2(device) -> dict:
+    """``Simulator`` on ``c2_cell`` (row-major, a rebuild every step), 100
+    steps; the last list's half pairs against the oracle's count of the same
+    positions, up to the pairs in the cutoff band. Returns the launch
+    counts."""
+    cfg = PRESETS["c2_cell"]
+    _cuda.reset_launches()
+    sim = Simulator(cfg, device=device)
+    carry = sim.init()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry = sim.run(carry, cfg.steps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    pairs = xla_pairs(carry)
+    rebuilds = int(carry.nbr.n_rebuilds)
+    launches = no_launches("xla_c2")
+
+    pos = carry.nbr.ref_pos  # the positions the last list was built at
+    want = int(oracle.pair_count(pos, sim.box, cfg.rs))
+    outer, inner = (int(oracle.pair_count(
+        pos, sim.box, cfg.rs * math.sqrt(1.0 + sign * CUTOFF_BAND)))
+        for sign in (1, -1))
+    check(rebuilds == 1 + cfg.steps,
+          f"xla_c2: {rebuilds} rebuilds, want {1 + cfg.steps}")
+    check(abs(pairs - want) <= outer - inner,
+          f"xla_c2: {pairs} pairs, the oracle {want}, more apart than the "
+          f"{outer - inner} pairs in the cutoff band")
+    check(not bool(carry.nbr.overflow), "xla_c2: overflow")
+    emit("xla_c2", n=cfg.n, layout=cfg.layout, steps=cfg.steps,
+         n_rebuilds=rebuilds, pairs=pairs, oracle_pairs=want,
+         pairs_in_cutoff_band=outer - inner, steps_per_s=cfg.steps / run_s)
+    return launches
+
+
+def xla_compare(device) -> dict:
+    """The CLI's ``--compare`` on ``c4_sorted`` at N = 1,000,000 (steps cut
+    from 1000 to 100 for the time limit): both engines from one lattice
+    start, pair counts exact, forces within the gate."""
+    cfg = dataclasses.replace(PRESETS["c4_sorted"], steps=100)
+    system0, _ = init_lattice(cfg.n, cfg.rho, None, cfg.temperature, device)
+    _cuda.reset_launches()
+    res = cli.compare(cfg, system0, device)
+    launches = dict(_cuda.LAUNCHES)
+    pairs = {name: p for name, p, _, _, _ in res["rows"]}
+    check(pairs == {"xla": 40_000_000, "dense": 40_000_000},
+          f"xla_compare: pairs {pairs}, want 40000000 each")
+    check(res["force_ok"], f"xla_compare: forces {res['max_cross_force_err']}"
+          f" apart, gate 2e-4 x {res['force_scale']}")
+    emit("xla_compare", n=cfg.n, steps=cfg.steps,
+         reduced={"steps": [PRESETS["c4_sorted"].steps, cfg.steps]},
+         pairs=pairs,
+         max_cross_force_err=res["max_cross_force_err"],
+         force_scale=res["force_scale"],
+         steps_per_s={name: cfg.steps / el for name, _, el, _, _
+                      in res["rows"]},
+         n_rebuilds={name: r for name, _, _, r, _ in res["rows"]},
+         total_s={name: t for name, _, _, _, t in res["rows"]},
+         launches=launches)
+
+
+def pair_keys(idx: torch.Tensor, directed: bool) -> torch.Tensor:
+    """Sorted int64 keys of the entries of padded rows: i*N + j for each
+    entry j of row i (``directed``), else min*N + max."""
+    n = idx.shape[0]
+    rows = torch.arange(n, device=idx.device)[:, None].expand_as(idx)
+    keep = idx < n
+    i, j = rows[keep], idx[keep].long()
+    if not directed:
+        i, j = torch.minimum(i, j), torch.maximum(i, j)
+    return torch.sort(i * n + j).values
+
+
+def outside_band(keys: torch.Tensor, pos: torch.Tensor, L: float,
+                 radius: float) -> int:
+    """How many of the pairs ``keys`` lie outside the cutoff band."""
+    n = pos.shape[0]
+    d = pos[keys // n] - pos[keys % n]
+    d = d - L * torch.round(d / L)
+    r2 = torch.sum(d * d, dim=-1)
+    r2cut = float(np.float32(radius * radius))
+    return int(((r2 - r2cut).abs() > CUTOFF_BAND * r2cut).sum())
+
+
+def calls_s(fn, reps: int = 2) -> float:
+    """Mean host seconds of ``fn()`` over ``reps`` calls after a warm-up,
+    synchronised on both sides."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def xla_list_delivery(sim: DenseSimulator) -> dict:
+    """``neighbor_list(backend="xla")`` on the caller positions of
+    ``list_delivery`` (N = 1M), half and full rows, against the dense
+    backend's; the seconds a call of either backend at N = 100k and 1M, and
+    what ``auto`` picks there. Returns the launch counts of the xla calls."""
+    cfg, dev = sim.config, sim.device
+    n, rs = cfg.n, cfg.rs
+    pos, box = caller_positions(sim)
+    small, _ = jittered_system(100_000, cfg.rho, seed=7, jitter=0.1,
+                               device=dev)
+    small_L = Box.from_density(100_000, cfg.rho).L
+    _cuda.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx_h, cnt_h = neighbor_list(pos, box.L, rs, half=True, backend="xla")
+    torch.cuda.synchronize()
+    t_half = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx_f, cnt_f = neighbor_list(pos, box.L, rs, half=False, backend="xla")
+    torch.cuda.synchronize()
+    t_full = time.perf_counter() - t0
+    seconds = {"xla": {str(n): t_full, "100000": calls_s(
+        lambda: neighbor_list(small.pos, small_L, rs, backend="xla"))}}
+    launches = no_launches("xla_list_delivery")
+
+    seconds["dense"] = {"100000": calls_s(
+        lambda: neighbor_list(small.pos, small_L, rs, backend="dense"))}
+    t0 = time.perf_counter()
+    idx_hd, _ = neighbor_list(pos, box.L, rs, half=True, backend="dense")
+    torch.cuda.synchronize()
+    t_half_dense = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx_fd, cnt_fd = neighbor_list(pos, box.L, rs, half=False,
+                                   backend="dense")
+    torch.cuda.synchronize()
+    seconds["dense"][str(n)] = time.perf_counter() - t0
+    auto = {str(m): "dense" if api.use_dense("auto", dev, m, L, rs)
+            else "xla" for m, L in ((100_000, small_L), (n, box.L))}
+
+    check(idx_h.is_cuda and idx_h.dtype == torch.int32
+          and idx_h.shape[0] == idx_f.shape[0] == n,
+          "xla_list_delivery: rows of the wrong shape, type or device")
+    check(bool(((idx_f < n).sum(dim=1) == cnt_f).all())
+          and bool(((idx_h < n).sum(dim=1) == cnt_h).all()),
+          "xla_list_delivery: sentinel padding does not match the counts")
+    wrapped = box.wrap(pos)
+    spec = dense_cells.make_spec(box, rs, 40)
+    state, _ = dense_cells.rebuild_dense(dense_cells.from_packed(
+        wrapped, torch.zeros_like(pos),
+        torch.arange(n, dtype=torch.int32, device=dev), spec), spec)
+    in_band = band_pairs(state.pos, state.valid(), spec, rs)
+    diffs = {}
+    for name, a, b, directed in (("full", idx_f, idx_fd, True),
+                                 ("half", idx_h, idx_hd, False)):
+        ka, kb = pair_keys(a, directed), pair_keys(b, directed)
+        only_a = ka[~torch.isin(ka, kb)]
+        only_b = kb[~torch.isin(kb, ka)]
+        check(outside_band(torch.cat([only_a, only_b]), wrapped, box.L,
+                           rs) == 0,
+              f"xla_list_delivery: {name} rows differ from the dense "
+              "backend's by a pair outside the cutoff band")
+        diffs[name] = only_a.numel() + only_b.numel()
+        del ka, kb
+    check(diffs["full"] <= 2 * in_band and diffs["half"] <= in_band,
+          f"xla_list_delivery: {diffs} entries differ from the dense "
+          f"backend, more than the {in_band} pairs in the cutoff band allow")
+    emit("xla_list_delivery", n=n, pairs_half=int(cnt_h.sum()),
+         entries_full=int(cnt_f.sum()), entries_full_dense=int(cnt_fd.sum()),
+         k_half=idx_h.shape[1], k_full=idx_f.shape[1],
+         entries_differing_from_dense=diffs, pairs_in_cutoff_band=in_band,
+         seconds_per_call=seconds,
+         seconds_half={"xla": t_half, "dense": t_half_dense},
+         auto_picks=auto, dense_api_min_n=api.DENSE_API_MIN_N)
+    return launches
+
+
+def cli_phase() -> None:
+    """``python -m md_neighbor_list_tpu_torch`` in subprocesses on the card:
+    c3_verlet with the oracle parity check and a checkpoint, the xla engine
+    resuming it, and the slab engine at P = 1."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "c3.npz")
+        for name, args in (
+                ("save", ["--steps", "200", "--check-parity", "--save",
+                          ckpt]),
+                ("resume_xla", ["--steps", "200", "--check-parity",
+                                "--engine", "xla", "--resume", ckpt]),
+                ("dense_slab_p1", ["--steps", "50", "--engine", "dense_slab",
+                                   "--mesh-devices", "1"])):
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "md_neighbor_list_tpu_torch",
+                 "--preset", "c3_verlet", *args], capture_output=True,
+                text=True, cwd=root, timeout=300)
+            check(out.returncode == 0,
+                  f"cli {name}: exit {out.returncode}: {out.stderr[-2000:]}")
+            summary = out.stdout.strip().splitlines()[-1]
+            check("--check-parity" not in args or "parity=OK" in summary,
+                  f"cli {name}: {summary}")
+            runs[name] = {"seconds": time.perf_counter() - t0,
+                          "summary": summary}
+    emit("cli", runs=runs)
+
+
 def agree(got, want, exact: bool) -> tuple[bool, float]:
     """``got`` against ``want`` (a tensor or a tuple of them, None left
     out): bitwise if ``exact``, else each within ``force_close``."""
@@ -2075,13 +2387,16 @@ def profile_steps(sim: DenseSimulator, carry, path: str,
     def advance(nsteps: int) -> None:
         at[0] = sim._run_chunk(at[0], nsteps)
 
+    def rebuilds() -> int:  # the xla engine keeps its count in ``nbr``
+        return int(getattr(at[0], "nbr", at[0]).n_rebuilds)
+
     traced(lambda: advance(5))  # the first trace pays the set-up
-    before = int(at[0].n_rebuilds)
+    before = rebuilds()
     wall_ms, rows = traced(lambda: advance(steps))
     busy_ms = sum(r[1] for r in rows)
     emit("profile", path=path, steps=steps, wall_ms=wall_ms,
          device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
-         rebuilds=int(at[0].n_rebuilds) - before,
+         rebuilds=rebuilds() - before,
          kernels=[{"name": k[:70], "ms": ms, "calls": c}
                   for k, ms, c in rows[:14]])
 
@@ -2098,6 +2413,19 @@ def profile_neighbor_list(sim: DenseSimulator) -> None:
          device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
          kernels=[{"name": k[:70], "ms": ms, "calls": c}
                   for k, ms, c in rows[:8]])
+
+
+def profile_xla(sim: Simulator, carry) -> None:
+    """The xla engine under the profiler: 50 steps, and one list build
+    (``rebuild_only``) with its device busy share."""
+    profile_steps(sim, carry, "xla_engine")
+    wall_ms, rows = traced(lambda: sim.rebuild_only(carry.system))
+    busy_ms = sum(r[1] for r in rows)
+    emit("profile_rebuild", path="xla_engine", wall_ms=wall_ms,
+         device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+         device_ops=sum(r[2] for r in rows),
+         kernels=[{"name": k[:70], "ms": ms, "calls": c}
+                  for k, ms, c in rows[:10]])
 
 
 def profile_rebuilds(sim: DenseSimulator, state, reps: int = 10) -> None:
@@ -2183,9 +2511,21 @@ def main() -> int:
         profile_steps(sim, carry, "dense_slab")
     del carry, sim
     torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    launches_x, sim, carry = xla_engine(device)
+    if "--profile" in sys.argv[1:]:
+        profile_xla(sim, carry)
+    del carry, sim
+    xla_launches = {"xla_engine": launches_x, "xla_c2": xla_c2(device)}
+    xla_compare(device)
+    torch.cuda.empty_cache()
+    xla_launches["xla_list_delivery"] = xla_list_delivery(
+        DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device))
+    torch.cuda.empty_cache()
+    cli_phase()
     by_path = {"main_path": launches, "list_delivery": delivery,
-               "incremental": inc, "dense_slab": slab}
-    for row in rows:  # launches on the four driven paths, and their sum
+               "incremental": inc, "dense_slab": slab, **xla_launches}
+    for row in rows:  # launches on the driven paths, and their sum
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())

@@ -8,7 +8,9 @@ return the port's NamedTuples on ``device``, and back; likewise the list
 artifact ``(counts, masks)`` of ``dense_lists_half``, whose layout is the same
 in both packages, so either package's decoder reads either's masks; and the
 slab engine's ``SlabCarry``, whose JAX form stacks the P ranks' states on a
-leading axis and whose port form is one carry per rank. The module imports
+leading axis and whose port form is one carry per rank; and the padded-row
+``Simulator``'s ``Carry`` (system, rows, reference positions, counters). The
+module imports
 neither package's counterpart: the caller does the ``np.asarray``.
 """
 
@@ -19,6 +21,7 @@ import torch
 
 from md_neighbor_list_tpu_torch.core.system import System
 from md_neighbor_list_tpu_torch.models.dense_lj import DenseCarry
+from md_neighbor_list_tpu_torch.models.lj_nve import Carry, NeighborState
 from md_neighbor_list_tpu_torch.ops.dense_cells import DenseSpec, DenseState
 from md_neighbor_list_tpu_torch.parallel.dense_slab import SlabCarry
 
@@ -75,6 +78,28 @@ def carry_to_numpy(carry: DenseCarry):
     order of ``carry_from_numpy``."""
     return dense_state_to_numpy(carry.state) + tuple(
         t.cpu().numpy() for t in carry[1:])
+
+
+def sim_carry_from_numpy(pos, vel, force, pid, idx, ref_pos, max_count,
+                         cell_max, overflow, n_rebuilds,
+                         device="cuda") -> Carry:
+    """The ``Simulator`` carry from its ten arrays in field order (the
+    System's four, then the NeighborState's six)."""
+    return Carry(
+        system=system_from_numpy(pos, vel, force, pid, device),
+        nbr=NeighborState(
+            idx=_tensor(idx, torch.int32, device),
+            ref_pos=_tensor(ref_pos, torch.float32, device),
+            max_count=_tensor(max_count, torch.int32, device),
+            cell_max=_tensor(cell_max, torch.int32, device),
+            overflow=_tensor(overflow, torch.bool, device),
+            n_rebuilds=_tensor(n_rebuilds, torch.int32, device)))
+
+
+def sim_carry_to_numpy(carry: Carry):
+    """The ten arrays of ``sim_carry_from_numpy``, in its argument order."""
+    return system_to_numpy(carry.system) + tuple(
+        t.cpu().numpy() for t in carry.nbr)
 
 
 def lists_from_numpy(counts, masks, device="cuda"):

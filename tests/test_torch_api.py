@@ -1,7 +1,8 @@
 """The port's one-call API (``api.py``) on the CPU against the JAX package's
-``neighbor_list(..., backend="dense")`` on the same numpy positions, and
-against the O(N^2) oracle: rows in the caller's order, sentinel padding,
-capacity growth instead of truncation."""
+``neighbor_list(..., backend="dense")`` and ``backend="xla"`` on the same
+numpy positions, and against the O(N^2) oracle: rows in the caller's order,
+sentinel padding, capacity growth instead of truncation, and the JAX
+package's ``backend="auto"`` rule."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -61,6 +62,7 @@ def test_capacity_estimate_equals_the_jax_package():
                                 (1.2, 3.0, 3.0, True)):
         got = tcap.estimate_neighbors(rho, rs, half)
         assert got == jcap.estimate(rho, rs, cell, half).neighbors
+        assert got == tcap.estimate(rho, rs, cell, half).neighbors
 
 
 @pytest.mark.usefixtures("jax_native_decoder")
@@ -87,10 +89,11 @@ def test_neighbor_list_equals_jax_dense_backend(n, seed, half):
         assert _rowsets(idx_t.numpy()) == _rowsets(want_idx.numpy())
 
 
+@pytest.mark.parametrize("backend", ["xla", "dense"])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_pair_list_matches_oracle(seed):
+def test_pair_list_matches_oracle(seed, backend):
     pos, box = _random_positions(2000, 1.0, seed)
-    i, j = tmdnl.pair_list(pos, box, RS, device="cpu")
+    i, j = tmdnl.pair_list(pos, box, RS, backend=backend, device="cpu")
     assert i.dtype == np.int32 and (i < j).all()
     got = set(zip(i.tolist(), j.tolist()))
     assert len(got) == len(i), "duplicate pairs"
@@ -99,10 +102,26 @@ def test_pair_list_matches_oracle(seed):
 
 
 def test_auto_backend_takes_the_dense_engine_when_the_grid_allows():
+    """``backend="auto"`` routes by the JAX package's rule: the dense engine
+    only off the CPU, at N >= DENSE_API_MIN_N and on a box of at least 3
+    cells a side; on the CPU it is the sweep, equal to ``backend="xla"``.
+    The card's branch is the pure routing function, at N below and above
+    the crossover."""
+    from md_neighbor_list_tpu_torch import api
+
+    assert api.DENSE_API_MIN_N == jmdnl.api.DENSE_API_MIN_N == 500_000
     pos, box = _random_positions(1500, 0.8, 2)
     a = tmdnl.neighbor_list(pos, box, 2.5, device="cpu")
-    d = tmdnl.neighbor_list(pos, box, 2.5, backend="dense", device="cpu")
-    assert torch.equal(a[0], d[0]) and torch.equal(a[1], d[1])
+    x = tmdnl.neighbor_list(pos, box, 2.5, backend="xla", device="cpu")
+    assert torch.equal(a[0], x[0]) and torch.equal(a[1], x[1])
+    big = api.DENSE_API_MIN_N
+    L = 100.0  # 40 cells of 2.5 a side
+    assert not api.use_dense("auto", "cpu", 10 * big, L, 2.5)
+    assert not api.use_dense("auto", "cuda", big - 1, L, 2.5)
+    assert api.use_dense("auto", "cuda", big, L, 2.5)
+    assert not api.use_dense("auto", "cuda", big, 7.4, 2.5)  # 2 cells
+    assert api.use_dense("dense", "cpu", 10, 7.4, 2.5)
+    assert not api.use_dense("xla", "cuda", 10 * big, L, 2.5)
 
 
 def test_scalar_box_tensor_input_and_tiny_system_through_the_oracle():
@@ -123,13 +142,15 @@ def test_scalar_box_tensor_input_and_tiny_system_through_the_oracle():
         tmdnl.neighbor_list(pos, box, RS, k_cap=4, device="cpu")
 
 
+@pytest.mark.parametrize("backend", ["xla", "dense"])
 @pytest.mark.parametrize("half", [True, False], ids=["half", "full"])
-def test_explicit_k_cap_overflow_raises(half):
+def test_explicit_k_cap_overflow_raises(half, backend):
     pos, box = _random_positions(2000, 1.0, 9)
     with pytest.raises(ValueError, match="k_cap"):
-        tmdnl.neighbor_list(pos, box, RS, half=half, k_cap=4, device="cpu")
+        tmdnl.neighbor_list(pos, box, RS, half=half, k_cap=4,
+                            backend=backend, device="cpu")
     idx, cnt = tmdnl.neighbor_list(pos, box, RS, half=half, k_cap=160,
-                                   device="cpu")
+                                   backend=backend, device="cpu")
     assert tuple(idx.shape) == (2000, 160) and int(cnt.max()) <= 160
 
 
@@ -157,24 +178,72 @@ def test_empty_input():
 
 
 def test_cell_capacity_grows_on_a_cluster():
-    """256 particles in one cell: cap grows 40 -> ... -> 304 and the lists
-    stay complete (held against the oracle; the JAX kernels in interpret
-    mode are too slow at that capacity)."""
+    """256 particles in one cell: the dense engine's cap grows 40 -> ... ->
+    304 and the lists stay complete (held against the oracle; the JAX
+    kernels in interpret mode are too slow at that capacity)."""
     pos, box = _cluster()
-    i, j = tmdnl.pair_list(pos, box, RS, device="cpu")
+    i, j = tmdnl.pair_list(pos, box, RS, backend="dense", device="cpu")
     assert set(zip(i.tolist(), j.tolist())) == _oracle_pairs(pos, box,
                                                              k_cap=320)
     idx, cnt = tmdnl.neighbor_list(pos, box, RS, half=True, k_cap=320,
-                                   device="cpu")
+                                   backend="dense", device="cpu")
     assert int(cnt.max()) <= 320
     assert _pairset(idx.numpy()) == _oracle_pairs(pos, box, k_cap=320)
 
 
 def test_unported_backend_and_bad_arguments_raise():
     pos, box = _random_positions(400, 1.0, 1)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        tmdnl.neighbor_list(pos, box, RS, backend="xla", device="cpu")
     with pytest.raises(ValueError, match="backend"):
         tmdnl.neighbor_list(pos, box, RS, backend="pallas", device="cpu")
     with pytest.raises(TypeError):
-        tmdnl.pair_list(pos, box, RS, layout="morton", device="cpu")
+        tmdnl.pair_list(pos, box, RS, half=False, device="cpu")
+    pos, box = _random_positions(2000, 1.0, 1)  # a grid: the sweep bins
+    with pytest.raises(ValueError, match="layout"):
+        tmdnl.pair_list(pos, box, RS, layout="hilbert", backend="xla",
+                        device="cpu")
+
+
+@pytest.mark.parametrize("layout", ["rowmajor", "morton"])
+@pytest.mark.parametrize("half", [True, False], ids=["half", "full"])
+@pytest.mark.parametrize("n,seed", [(2000, 8), (700, 3), (64, 3)],
+                         ids=["mc4", "mc3", "oracle"])
+def test_xla_backend_bitwise_equals_jax_xla_backend(n, seed, half, layout):
+    """``backend="xla"`` against the JAX package's, shape included: the
+    density estimate of K, the stable sweep (or the oracle for mc < 3) and
+    the rows in the caller's order bit for bit; ``pair_list`` likewise."""
+    pos, box = _random_positions(n, 1.0, seed)
+    idx_t, cnt_t = tmdnl.neighbor_list(pos, box, RS, half=half, layout=layout,
+                                       backend="xla", device="cpu")
+    idx_j, cnt_j = jmdnl.neighbor_list(jnp.asarray(pos), JBox(L=box.L), RS,
+                                       half=half, layout=layout,
+                                       backend="xla")
+    assert idx_t.dtype == torch.int32 and cnt_t.dtype == torch.int32
+    assert tuple(idx_t.shape) == tuple(idx_j.shape)
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+    np.testing.assert_array_equal(cnt_t.numpy(), np.asarray(cnt_j))
+    if half:
+        it, jt = tmdnl.pair_list(pos, box, RS, layout=layout, backend="xla",
+                                 device="cpu")
+        ij, jj = jmdnl.pair_list(jnp.asarray(pos), box.L, RS, layout=layout,
+                                 backend="xla")
+        np.testing.assert_array_equal(it, ij)
+        np.testing.assert_array_equal(jt, jj)
+
+
+def test_xla_backend_grows_like_jax_xla_backend():
+    """A cell table too small for the cluster grows even under an explicit
+    k_cap, and K grows from the estimate when left to default: the same
+    shapes and rows as the JAX package."""
+    pos, box = _cluster()
+    for k_cap in (None, 320):
+        idx_t, cnt_t = tmdnl.neighbor_list(pos, box, RS, half=True,
+                                           k_cap=k_cap, backend="xla",
+                                           device="cpu")
+        idx_j, cnt_j = jmdnl.neighbor_list(jnp.asarray(pos), JBox(L=box.L),
+                                           RS, half=True, k_cap=k_cap,
+                                           backend="xla")
+        assert tuple(idx_t.shape) == tuple(idx_j.shape)
+        np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+        np.testing.assert_array_equal(cnt_t.numpy(), np.asarray(cnt_j))
+    assert idx_t.shape[1] == 320
+    assert _pairset(idx_t.numpy()) == _oracle_pairs(pos, box, k_cap=320)

@@ -42,7 +42,10 @@ def test_expected_modules_and_sources_exist():
                  "parallel/__init__.py", "parallel/mesh.py",
                  "parallel/dense_slab.py",
                  "models/dense_lj.py", "utils/convert.py", "utils/native.py",
-                 "api.py", "__init__.py"):
+                 "ops/binning.py", "ops/pairlist.py", "ops/lj.py",
+                 "ops/integrate.py", "models/lj_nve.py",
+                 "utils/checkpoint.py", "utils/jsonlog.py", "cli.py",
+                 "__main__.py", "api.py", "__init__.py"):
         assert want in names
     for src in ("geom.cuh", "half_sweep.cuh", "expand.cu", "lists_half.cu",
                 "force_half.cu", "pe_virial_half.cu", "force_full.cu",
@@ -73,8 +76,9 @@ def test_import_needs_no_cuda_toolchain():
         importlib.import_module(".".join(rel.parts).removesuffix(".__init__"))
     import md_neighbor_list_tpu_torch as port
 
-    assert port.__all__ == ["MDConfig", "PRESETS", "DenseSimulator",
-                            "neighbor_list", "pair_list"]
+    assert port.__all__ == ["Box", "MDConfig", "PRESETS", "System",
+                            "init_lattice", "init_random", "neighbor_list",
+                            "pair_list", "DenseSimulator", "Simulator"]
     from md_neighbor_list_tpu_torch.ops import _cuda
 
     assert _cuda._lib is None  # nothing was built or loaded by importing
@@ -100,11 +104,17 @@ def test_cuda_default_entry_points_raise_without_a_card():
     """No fallback that hides the device: the default device is the card."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    from md_neighbor_list_tpu_torch import DenseSimulator, MDConfig
+    from md_neighbor_list_tpu_torch import (DenseSimulator, MDConfig,
+                                            Simulator)
+    from md_neighbor_list_tpu_torch.cli import main
     from md_neighbor_list_tpu_torch.core.system import init_lattice
 
     with pytest.raises(RuntimeError):
         DenseSimulator(MDConfig(n=1728))
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        Simulator(MDConfig(n=1728))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["--n", "1728", "--steps", "1"])
     with pytest.raises((RuntimeError, AssertionError)):
         init_lattice(64, 1.0)
     sim = DenseSimulator(MDConfig(n=1728), device="cpu")  # asked for
@@ -119,7 +129,7 @@ def test_api_runs_on_the_card_by_default_and_raises_without_one():
     from md_neighbor_list_tpu_torch import neighbor_list, pair_list
 
     pos = np.random.default_rng(0).uniform(0, 9.0, (300, 3))
-    for backend in ("auto", "dense"):
+    for backend in ("auto", "xla", "dense"):
         with pytest.raises(RuntimeError, match="CUDA device"):
             neighbor_list(pos, 9.0, 2.8, backend=backend)
         with pytest.raises(RuntimeError, match="CUDA device"):
