@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile | --half-sweep-times | --list-full-times
-                           | --count-times | --rebuild-times]
+                           | --count-times | --rebuild-times | --xla-slab]
 
 Builds the CUDA kernels from ``md_neighbor_list_tpu_torch/csrc``, holds each
 against its plain PyTorch version (at small shapes that exercise wrap-around,
@@ -63,6 +63,14 @@ and must launch none of the kernels (their counters are read around each):
                     ``list_delivery``, half and full, against the dense
                     backend's rows; the seconds a call of both backends at
                     N = 100k and 1M and what ``auto`` picks there;
+  xla_slab          ``SlabSimulator`` (the xla engine's slab decomposition)
+                    on ``c4_sorted`` uncut at P = 4, the ranks four threads
+                    of a ``LocalRing`` on the card: the lattice start's pairs
+                    against the lattice's count and the dense engine's, then
+                    100 steps from the lattice moved so that particles change
+                    slab, against ``Simulator(half_list=False)``;
+  xla_slab_c5       the same engine on ``c5_dd`` (N = 8,000,000, P = 8): the
+                    pairs, then 20 steps;
   cli               ``python -m md_neighbor_list_tpu_torch`` in subprocesses:
                     ``c3_verlet`` with the oracle parity check and a
                     checkpoint, the xla engine resuming it, the slab engine at
@@ -72,14 +80,16 @@ Each phase prints one JSON line; any failure ends the run with a non-zero exit
 code. Without a CUDA device the script fails at once. ``--profile`` adds a
 ``torch.profiler`` breakdown by device kernel of 50 steps of each engine, of
 one ``neighbor_list`` call, of ten incremental and ten full rebuilds, of
-50 steps of the slab engine, and of 50 steps and one list build of the xla
-engine (information only). ``--half-sweep-times`` only
-times the half-force and pe/virial kernels at N = 1,000,000, and
-``--list-full-times`` the list and full-force kernels, and ``--count-times``
-the half- and full-count kernels (each after checking them against their
+50 steps of the slab engine, of 50 steps and one list build of the xla
+engine, and of 10 steps of the xla slab engine at P = 4 (information only).
+``--half-sweep-times`` only times the half-force and pe/virial kernels at
+N = 1,000,000, and ``--list-full-times`` the list and full-force kernels, and
+``--count-times`` the
+half- and full-count kernels (each after checking them against their
 plain versions), and ``--rebuild-times`` K1 (cube, slab form, mover
 stream), K8 and the full and incremental rebuilds on a drifted engine state
-(each kernel bitwise against its plain version first); these print no
+(each kernel bitwise against its plain version first), and ``--xla-slab``
+the phase ``xla_slab`` alone (with ``--profile``, its trace); these print no
 result line: the timing of kernel variants, one tree at a time. With ``MDNL_SMOKE_LOG=<file>`` every
 phase line is also appended to that file (``tools/port_ab.py`` keeps a few
 numbers of each run and drops the rest of its output).
@@ -112,6 +122,8 @@ from md_neighbor_list_tpu_torch.ops import (_cuda, decode, dense_cells,
 from md_neighbor_list_tpu_torch.parallel import mesh
 from md_neighbor_list_tpu_torch.parallel.dense_slab import (
     DenseSlabSimulator, make_slab_spec)
+from md_neighbor_list_tpu_torch.parallel.slab import (DDCapacity,
+                                                      SlabSimulator)
 from md_neighbor_list_tpu_torch.utils import native
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): device memory and fp32
@@ -2152,6 +2164,224 @@ def xla_list_delivery(sim: DenseSimulator) -> dict:
     return launches
 
 
+# ------------------------------------------------------- xla slab engine
+SLAB_SHIFT = 0.45  # the run's start: the lattice moved along x by this
+
+
+def lattice_pairs(cfg: MDConfig) -> int:
+    """The half pairs within rs of the full simple-cubic lattice start
+    (N = m^3 sites, spacing L/m): N times half the lattice vectors shorter
+    than rs, what the O(N^2) oracle counts there. No lattice distance lies
+    within 1e-3 of rs, so no rounding can move a pair across it."""
+    m = round(cfg.n ** (1.0 / 3.0))
+    check(m**3 == cfg.n, f"lattice_pairs: {cfg.n} is no cube")
+    spacing = Box.from_density(cfg.n, cfg.rho).L / m
+    k = int(cfg.rs / spacing) + 1
+    r = np.arange(-k, k + 1)
+    v = np.stack(np.meshgrid(r, r, r), -1).reshape(-1, 3)
+    d = np.sqrt((v * v).sum(axis=1)) * spacing
+    check(np.abs(d - cfg.rs).min() > 1e-3,
+          "lattice_pairs: a lattice distance within 1e-3 of rs")
+    return cfg.n * int(((d > 0) & (d < cfg.rs)).sum()) // 2
+
+
+def slab_rank(ring, cfg: MDConfig, system: System | None, steps: int,
+              device, rebuild_reps: int) -> dict:
+    """One rank of ``SlabSimulator`` on the card: the lattice start by
+    ``init`` and its global pair count (the owned rows' entries, summed over
+    the ring, halved); then ``system`` built (None: the lattice start kept),
+    its energies, ``steps`` NVE steps, the energies, ``rebuild_reps``
+    rebuilds of the final state, the gathered System (rank 0's) and the
+    final state. The ranks run in lockstep, so rank 0's host clock,
+    synchronised, times them all."""
+    sim = SlabSimulator(cfg, device=device, ring=ring)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = sim.init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cl, m = sim.capacity.local, st.idx.shape[0]
+    entries = int(ring.sum(torch.sum(st.idx[:cl] < m)))
+    if system is not None:
+        del st
+        st = sim.build(system)
+    ke0, pe0 = (float(x) for x in sim.energies(st))
+    pid0 = st.pid.cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = sim.run(st, steps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    ke1, pe1 = (float(x) for x in sim.energies(st))
+    t0 = time.perf_counter()
+    for _ in range(rebuild_reps):
+        sim._rebuild(st)
+    torch.cuda.synchronize()
+    rebuild_ms = (time.perf_counter() - t0) / rebuild_reps * 1e3
+    gathered = sim.gather(st)
+    return {"entries": entries, "e0": ke0 + pe0, "e1": ke1 + pe1,
+            "init_s": init_s, "run_s": run_s, "rebuild_ms": rebuild_ms,
+            "n_rebuilds": int(st.n_rebuilds), "overflow": bool(st.overflow),
+            "forces_finite": bool(torch.isfinite(st.force).all()),
+            "pid0": pid0, "pid1": st.pid.cpu().numpy(),
+            "capacity": dataclasses.asdict(sim.capacity),
+            "system": gathered if ring.rank == 0 else None, "state": st}
+
+
+def slab_ranks(cfg: MDConfig, system: System | None, steps: int, device,
+               label: str, rebuild_reps: int) -> tuple[list, dict, dict]:
+    """``slab_rank`` on P threads of a ``LocalRing`` on the card, with the
+    checks every slab phase makes: the owned entries even, every pid held
+    once, the same rebuilds on every rank, no overflow, finite forces and
+    energies, |dE/E| <= 1e-4. Returns (the ranks' results, the re-homed
+    count and the seconds, the launches); rank 0's has the drift."""
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = mesh.run_ranks(cfg.mesh_devices, lambda ring: slab_rank(
+        ring, cfg, system, steps, device, rebuild_reps), device)
+    seconds = time.perf_counter() - t0
+    launches = no_launches(label)
+    r0 = out[0]
+    home = np.full((2, cfg.n), -1)
+    for r, o in enumerate(out):
+        for k, pid in enumerate((o["pid0"], o["pid1"])):
+            held = pid[pid >= 0]
+            check(bool((home[k, held] < 0).all()),
+                  f"{label}: a pid held twice")
+            home[k, held] = r
+    check(bool((home >= 0).all()), f"{label}: a pid held by no rank")
+    check(r0["entries"] % 2 == 0, f"{label}: {r0['entries']} owned entries")
+    check(len({o["n_rebuilds"] for o in out}) == 1,
+          f"{label}: rebuilds differ between ranks")
+    check(not any(o["overflow"] for o in out), f"{label}: overflow")
+    check(all(o["forces_finite"] for o in out), f"{label}: forces not finite")
+    check(math.isfinite(r0["e0"]) and math.isfinite(r0["e1"]),
+          f"{label}: energies not finite")
+    r0["energy_drift"] = abs(r0["e1"] - r0["e0"]) / abs(r0["e0"])
+    check(r0["energy_drift"] <= 1e-4,
+          f"{label}: |dE/E| = {r0['energy_drift']} > 1e-4")
+    return out, {"re_homed": int((home[0] != home[1]).sum()),
+                 "seconds": seconds}, launches
+
+
+def profile_xla_slab(cfg: MDConfig, out: list, device,
+                     steps: int = 10) -> None:
+    """Device time by kernel of ``steps`` more steps of the ranks' final
+    states (``out``, from ``slab_ranks``), traced from this thread around a
+    new ring of threads: the trace holds the card's kernels of every rank."""
+    def advance(k):
+        return mesh.run_ranks(cfg.mesh_devices, lambda ring: SlabSimulator(
+            cfg, capacity=DDCapacity(**out[ring.rank]["capacity"]),
+            device=device, ring=ring)._run_chunk(out[ring.rank]["state"], k),
+            device)
+
+    traced(lambda: advance(2))  # the first trace pays the set-up
+    wall_ms, rows = traced(lambda: advance(steps))
+    busy_ms = sum(r[1] for r in rows)
+    emit("profile", path="xla_slab", steps=steps, wall_ms=wall_ms,
+         device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+         kernels=[{"name": k[:70], "ms": ms, "calls": c}
+                  for k, ms, c in rows[:14]])
+
+
+def dense_lattice_pairs(cfg: MDConfig, device) -> int:
+    """The dense engine's half pairs of the lattice start (K2)."""
+    dense = DenseSimulator(dataclasses.replace(cfg, mesh_devices=1), cap=40,
+                           device=device)
+    pairs = int(dense._rebuild_and_lists(dense.init().state)[3])
+    del dense
+    torch.cuda.empty_cache()
+    return pairs
+
+
+def xla_slab(device, p: int = 4, steps: int = 100) -> dict:
+    """``SlabSimulator`` (the XLA slab engine) on ``c4_sorted`` uncut
+    (N = 1M, P = 4 slabs of width 25 on a ``LocalRing`` of four threads on
+    the one card): the lattice start's pairs against the lattice's count and
+    the dense engine's; then 100 steps from the lattice moved by 0.45 along
+    x (a plane of sites 0.05 below each face, so that particles change slab
+    within the run; from the lattice itself the nearest are 0.5 away), with
+    >= 1 rebuild in the run, particles re-homed, and the gathered positions
+    within 5e-4 of ``Simulator(half_list=False)``'s from the same start.
+    Returns the launch counts of the path."""
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(PRESETS["c4_sorted"], mesh_devices=p)
+    want = lattice_pairs(cfg)
+    dense_pairs = dense_lattice_pairs(cfg, device)
+    system, _ = init_lattice(cfg.n, cfg.rho, None, cfg.temperature, device)
+    box = Box.from_density(cfg.n, cfg.rho)
+    system = system._replace(pos=box.wrap(system.pos + torch.tensor(
+        [SLAB_SHIFT, 0.0, 0.0], device=device)))
+    # the one-rank engine from the same start: not this path's
+    single = Simulator(dataclasses.replace(cfg, half_list=False,
+                                           mesh_devices=1), device=device)
+    sc = single.run(single.build(system), steps)
+    want_pos = torch.empty_like(system.pos)
+    want_pos[sc.system.pid.long()] = sc.system.pos
+    single_rebuilds = int(sc.nbr.n_rebuilds)
+    del single, sc
+    torch.cuda.empty_cache()
+
+    out, more, launches = slab_ranks(cfg, system, steps, device, "xla_slab",
+                                     rebuild_reps=3)
+    r0 = out[0]
+    pairs = r0["entries"] // 2
+    d = (r0["system"].pos - want_pos).abs()
+    gap = float(torch.minimum(d, box.L - d).max())
+    check(pairs == want == dense_pairs,
+          f"xla_slab: {pairs} pairs at the lattice start, the lattice "
+          f"{want}, the dense engine {dense_pairs}")
+    check(r0["n_rebuilds"] >= 2,
+          f"xla_slab: {r0['n_rebuilds']} rebuilds, none in the run")
+    check(more["re_homed"] >= 1, "xla_slab: no particle changed slab")
+    check(gap <= 5e-4, f"xla_slab: positions after {steps} steps {gap} off "
+          "Simulator(half_list=False)'s")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    emit("xla_slab", n=cfg.n, p=p, ring="LocalRing", steps=steps,
+         capacity=r0["capacity"], pairs=pairs, lattice_pairs=want,
+         dense_pairs=dense_pairs, energy_drift=r0["energy_drift"],
+         e0=r0["e0"], e1=r0["e1"], n_rebuilds=r0["n_rebuilds"],
+         single_rebuilds=single_rebuilds, re_homed=more["re_homed"],
+         max_position_gap=gap, steps_per_s=steps / r0["run_s"],
+         rebuild_ms=r0["rebuild_ms"], init_s=r0["init_s"],
+         ranks_seconds=more["seconds"],
+         phase_seconds=time.perf_counter() - t_start, card=smi)
+    if "--profile" in sys.argv[1:]:
+        profile_xla_slab(cfg, out, device)
+    return launches
+
+
+def xla_slab_c5(device, steps: int = 20) -> dict:
+    """``SlabSimulator`` on ``c5_dd`` (N = 8M, P = 8 on a ``LocalRing`` of
+    eight threads on the one card, steps cut from 1000 to 20 for the time
+    limit; one rebuild timed): the lattice start's pairs against the
+    lattice's count and the dense engine's, then 20 steps from it. Returns
+    the launch counts."""
+    t_start = time.perf_counter()
+    cfg = PRESETS["c5_dd"]
+    want = lattice_pairs(cfg)
+    dense_pairs = dense_lattice_pairs(cfg, device)
+    out, more, launches = slab_ranks(cfg, None, steps, device,
+                                     "xla_slab_c5", rebuild_reps=1)
+    r0 = out[0]
+    pairs = r0["entries"] // 2
+    check(pairs == want == dense_pairs,
+          f"xla_slab_c5: {pairs} pairs at the lattice start, the lattice "
+          f"{want}, the dense engine {dense_pairs}")
+    emit("xla_slab_c5", n=cfg.n, p=cfg.mesh_devices, ring="LocalRing",
+         steps=steps, reduced={"steps": [cfg.steps, steps]},
+         capacity=r0["capacity"], pairs=pairs, lattice_pairs=want,
+         dense_pairs=dense_pairs, energy_drift=r0["energy_drift"],
+         e0=r0["e0"], e1=r0["e1"], n_rebuilds=r0["n_rebuilds"],
+         re_homed=more["re_homed"], steps_per_s=steps / r0["run_s"],
+         rebuild_ms=r0["rebuild_ms"], init_s=r0["init_s"],
+         ranks_seconds=more["seconds"],
+         phase_seconds=time.perf_counter() - t_start)
+    return launches
+
+
 def cli_phase() -> None:
     """``python -m md_neighbor_list_tpu_torch`` in subprocesses on the card:
     c3_verlet with the oracle parity check and a checkpoint, the xla engine
@@ -2476,6 +2706,9 @@ def main() -> int:
     if "--rebuild-times" in sys.argv[1:]:
         rebuild_times(device)
         return 0
+    if "--xla-slab" in sys.argv[1:]:
+        xla_slab(device)
+        return 0
     small_shapes(device)
     sim = DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device)
     rows = full_width(sim)
@@ -2521,6 +2754,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     xla_launches["xla_list_delivery"] = xla_list_delivery(
         DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device))
+    torch.cuda.empty_cache()
+    xla_launches["xla_slab"] = xla_slab(device)
+    torch.cuda.empty_cache()
+    xla_launches["xla_slab_c5"] = xla_slab_c5(device)
     torch.cuda.empty_cache()
     cli_phase()
     by_path = {"main_path": launches, "list_delivery": delivery,

@@ -11,9 +11,12 @@ of its own); the CLI (``python -m md_neighbor_list_tpu_torch``) with
 checkpoints and JSON-lines logs;
 the half-count and full-sweep force and count kernels (parity passes); the
 incremental rebuild (``DenseSimulator(incremental=True)``) with its merge
-kernel; and the slab domain decomposition
+kernel; the slab domain decomposition
 (``parallel.dense_slab.DenseSlabSimulator`` on ``torch.distributed``) with the
-slab forms of the expand, half-list and half-force kernels. The module layout
+slab forms of the expand, half-list and half-force kernels; and the slab
+decomposition of the padded-row engine, ``SlabSimulator``
+(``parallel/slab.py``, plain PyTorch), on the same ring or on P threads of one
+process (``parallel.mesh.LocalRing``, ``run_ranks``). The module layout
 mirrors the JAX package (``core/``, ``ops/``, ``models/``, ``parallel/``,
 ``utils/``), so a module's
 counterpart is found by its path; ``ops/dense_force.py`` stands for
@@ -27,9 +30,10 @@ from md_neighbor_list_tpu_torch.core.system import (System, init_lattice,
                                                     init_random)
 from md_neighbor_list_tpu_torch.models.dense_lj import DenseSimulator
 from md_neighbor_list_tpu_torch.models.lj_nve import Simulator
+from md_neighbor_list_tpu_torch.parallel.slab import SlabSimulator
 
 __version__ = "0.1.0"
 
 __all__ = ["Box", "MDConfig", "PRESETS", "System", "init_lattice",
            "init_random", "neighbor_list", "pair_list", "DenseSimulator",
-           "Simulator"]
+           "Simulator", "SlabSimulator"]

@@ -10,12 +10,13 @@ counts and forces:
   python -m md_neighbor_list_tpu_torch --device cpu --n 4096 --compare
 
 Engines: ``xla`` (padded-row ``Simulator``), ``dense`` (``DenseSimulator``),
-``dense_slab`` (``DenseSlabSimulator``: in process at ``--mesh-devices 1``;
-for P > 1 one process per rank, started by ``torchrun --nproc-per-node=P -m
-md_neighbor_list_tpu_torch ...``, rank 0 printing). ``slab``, the JAX
-package's XLA slab engine, is not ported yet and raises. Runs on ``--device``
-(the card by default). Emits JSON-lines metrics on stderr and a summary on
-stdout.
+``dense_slab`` (``DenseSlabSimulator``: in process at ``--mesh-devices 1``)
+and ``slab`` (``SlabSimulator``, the XLA slab engine: P >= 2 only). A slab
+run with P > 1 takes one process per rank, started by ``torchrun
+--nproc-per-node=P -m md_neighbor_list_tpu_torch ...``, rank 0 printing. A
+box ``dense_slab`` cannot tile falls back to ``slab``, with a warning, as in
+the JAX package. Runs on ``--device`` (the card by default). Emits JSON-lines
+metrics on stderr and a summary on stdout.
 """
 
 from __future__ import annotations
@@ -42,12 +43,13 @@ from md_neighbor_list_tpu_torch.ops.pairlist import build_neighbor_lists
 from md_neighbor_list_tpu_torch.parallel.dense_slab import (
     DenseSlabSimulator, make_slab_spec)
 from md_neighbor_list_tpu_torch.parallel.mesh import init_ring
+from md_neighbor_list_tpu_torch.parallel.slab import (SlabSimulator,
+                                                      check_geometry)
 from md_neighbor_list_tpu_torch.utils.checkpoint import load, save
 from md_neighbor_list_tpu_torch.utils.jsonlog import JsonLogger
 
 TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
-SLAB_PENDING = ("the XLA slab engine (parallel/slab.py) is not ported yet: "
-                "ROADMAP.md, queue A.14")
+SLAB_ENGINES = ("slab", "dense_slab")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -77,13 +79,13 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _ring(p: int, device):
+def _ring(engine: str, p: int, device):
     """The ring of a P > 1 slab run: this process's rank, from the env://
     variables that ``torchrun`` sets."""
     missing = [k for k in TORCHRUN_VARS if k not in os.environ]
     if missing:
         raise RuntimeError(
-            f"--engine dense_slab with {p} slabs runs one process per rank: "
+            f"--engine {engine} with {p} slabs runs one process per rank: "
             f"start it as `torchrun --nproc-per-node={p} -m "
             "md_neighbor_list_tpu_torch ...` (the env:// variables "
             f"{', '.join(missing)} are not set)")
@@ -116,20 +118,25 @@ def main(argv=None) -> int:
                    steps=cfg.steps, device=str(device))
         generator = torch.Generator(device=device).manual_seed(args.seed)
         return _compare(cfg, generator, args.check_parity, logger, device)
-    if engine == "slab":
-        raise NotImplementedError(f"--engine slab: {SLAB_PENDING}")
-    ring = None
     if engine == "dense_slab":
+        # fall back to the XLA slab engine for a box the dense slabs cannot
+        # tile. Only a tiny box lands here (under 3 cells a side, or fewer
+        # rs-thick z-layers than ranks), and there the slab engine refuses
+        # the box too, with its own ValueError
         try:
             make_slab_spec(Box.from_density(cfg.n, cfg.rho), cfg.rs,
                            cfg.mesh_devices)
         except ValueError as e:
-            # the JAX package falls back to its XLA slab engine here
-            raise NotImplementedError(
-                f"dense_slab cannot tile this box ({e}), and "
-                f"{SLAB_PENDING}") from e
-        if cfg.mesh_devices > 1:
-            ring = _ring(cfg.mesh_devices, device)
+            JsonLogger().log("engine_fallback", wanted="dense_slab",
+                             reason=str(e))
+            print(f"WARNING: dense_slab cannot tile this box ({e}); falling "
+                  "back to the correctness-only XLA slab engine", flush=True)
+            engine = "slab"
+    if engine == "slab":
+        check_geometry(cfg)  # its ValueError before any rank starts
+    ring = None
+    if engine in SLAB_ENGINES and cfg.mesh_devices > 1:
+        ring = _ring(engine, cfg.mesh_devices, device)
     try:
         return _run(args, cfg, engine, ring, device)
     finally:
@@ -146,6 +153,8 @@ def _run(args, cfg, engine, ring, device) -> int:
 
     if engine == "dense_slab":
         sim = DenseSlabSimulator(cfg, device=device, ring=ring)
+    elif engine == "slab":
+        sim = SlabSimulator(cfg, device=device, ring=ring)
     elif engine == "dense":
         sim = DenseSimulator(cfg, device=device)
     else:
@@ -163,10 +172,10 @@ def _run(args, cfg, engine, ring, device) -> int:
     carry = sim.run(carry, cfg.steps)
     ke1, pe1 = (float(x) for x in sim.energies(carry))
     elapsed = time.time() - t1
-    if engine == "dense_slab":
+    if engine in SLAB_ENGINES:
         system = sim.gather(carry)
         rebuilds = int(carry.n_rebuilds)
-        pressure = None  # the DD engine: energies only
+        pressure = None  # the DD engines: energies only
     else:
         if engine == "dense":
             pos, vel, force = sim.to_system(carry)

@@ -28,6 +28,10 @@ from md_neighbor_list_tpu_torch.ops.binning import (NEIGHBOR_OFFSETS, BinData,
 from md_neighbor_list_tpu_torch.ops.common import compact_rows
 
 
+# Rows whose entries the stable build translates at once
+TRANSLATE_ROWS = 1 << 16
+
+
 class NeighborLists(NamedTuple):
     """Padded neighbour lists over *sorted* particle order.
 
@@ -143,11 +147,13 @@ def build_neighbor_lists_stable(pos: torch.Tensor, box: Box, grid: CellGrid,
     perm = bins.perm.long()
     idx_s, cnt_s = sweep_from_bins(pos[perm], bins, box, grid, radius, k_cap,
                                    half, chunk)
-    # sorted-space entries -> original slots (sentinel n -> n)
+    # sorted-space entries -> original slots (sentinel n -> n), a block of
+    # rows at a time: no (N, K) int64 index or second (N, K) copy is made
     perm_ext = torch.cat([bins.perm, bins.perm.new_full((1,), n)])
-    entries = perm_ext[torch.clamp(idx_s, max=n).long()]
-    idx = torch.zeros_like(idx_s)
-    idx[perm] = entries
+    idx = torch.empty_like(idx_s)
+    for start in range(0, n, TRANSLATE_ROWS):
+        rows = slice(start, start + TRANSLATE_ROWS)
+        idx[perm[rows]] = perm_ext[torch.clamp(idx_s[rows], max=n).long()]
     cnt = torch.zeros_like(cnt_s)
     cnt[perm] = cnt_s
     mx = torch.max(cnt)

@@ -12,11 +12,18 @@ pair, a reduction one ``dist.all_reduce``. Backends: ``gloo`` for CPU tensors,
 With no group (P = 1) a shift is the identity and a reduction returns its
 input: the self-``ppermute`` of the JAX P = 1 mode. A group of one process
 keeps the identity shifts and still sends its reductions through the group.
+
+``LocalRing`` has ``Ring``'s surface for P ranks that are P threads of one
+process, on one device or several: the counterpart of the virtual-device mesh
+on which the JAX package runs its slab engine on one host. NCCL takes one
+process a card and gloo moves no CUDA tensor by send/recv, so this is how P
+ranks run on one card. ``run_ranks`` starts them.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 
 import torch
 import torch.distributed as dist
@@ -135,3 +142,116 @@ class Ring:
         parts = [torch.empty_like(t) for _ in range(self.size)]
         dist.all_gather(parts, t.contiguous(), group=self.group)
         return torch.stack(parts)
+
+
+class _Hub:
+    """What the P threads of a ``LocalRing`` share: two sets of slots (an
+    exchange posts into one set, the next into the other) and a barrier."""
+
+    def __init__(self, size: int, timeout: float):
+        self.size = size
+        self.barrier = threading.Barrier(size, timeout=timeout)
+        self.slots = ([None] * size, [None] * size)
+
+
+class LocalRing:
+    """One rank of a ring of P threads in one process, with ``Ring``'s
+    surface. Every exchange is a barrier of all P ranks, so every rank must
+    make the same calls in the same order (as over a process group). Each
+    rank posts a copy of its tensor: a shift hands over a copy, with the
+    value semantics of ``ppermute``, and nothing a rank later updates in place
+    is read by another. Reductions fold the posted tensors in rank order, so
+    every rank gets the same bits. A rank that does not arrive within
+    ``timeout`` seconds, or an ``abort``, breaks the barrier: every rank
+    waiting in an exchange then raises ``threading.BrokenBarrierError``."""
+
+    def __init__(self, hub: _Hub, rank: int):
+        self._hub = hub
+        self._turn = 0
+        self.rank, self.size = rank, hub.size
+
+    @staticmethod
+    def ring_of(size: int, timeout: float = 600.0) -> list["LocalRing"]:
+        """The ``size`` ranks of one new ring, in rank order."""
+        hub = _Hub(size, timeout)
+        return [LocalRing(hub, r) for r in range(size)]
+
+    def abort(self) -> None:
+        """Break the barrier: every rank in or entering an exchange raises."""
+        self._hub.barrier.abort()
+
+    def _exchange(self, t: torch.Tensor) -> list:
+        """Post a copy of ``t``; returns every rank's posted tensor, in rank
+        order. A set of slots is posted into again only two exchanges later,
+        after a barrier that every rank passes once it has read this one."""
+        slots = self._hub.slots[self._turn]
+        self._turn ^= 1
+        slots[self.rank] = t.clone()
+        self._hub.barrier.wait()
+        return list(slots)
+
+    def _shift(self, t: torch.Tensor, frm: int, async_op: bool):
+        out = self._exchange(t)[frm % self.size].to(t.device)
+        return _Pending([], out) if async_op else out
+
+    def shift_plus(self, t: torch.Tensor, async_op: bool = False):
+        """Send ``t`` to rank + 1 and return what rank - 1 sent."""
+        return self._shift(t, self.rank - 1, async_op)
+
+    def shift_minus(self, t: torch.Tensor, async_op: bool = False):
+        """Send ``t`` to rank - 1 and return what rank + 1 sent."""
+        return self._shift(t, self.rank + 1, async_op)
+
+    def _fold(self, t: torch.Tensor, op) -> torch.Tensor:
+        parts = [q.to(t.device) for q in self._exchange(t)]
+        out = parts[0]
+        for q in parts[1:]:
+            out = op(out, q)
+        return out
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the ranks, on every rank."""
+        return self._fold(t, torch.add)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """The maximum of ``t`` over the ranks, on every rank."""
+        return self._fold(t, torch.maximum)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(P, *t.shape): every rank's ``t`` in rank order, on every rank."""
+        return torch.stack([q.to(t.device) for q in self._exchange(t)])
+
+
+def run_ranks(p: int, fn, device="cpu", timeout: float = 600.0) -> list:
+    """Run ``fn(ring)`` for the P ranks of a new ``LocalRing``, each in a
+    thread of its own (on ``rank_device(device, rank)`` for a card), and
+    return their results in rank order. A rank that raises aborts the ring,
+    so that every other rank raises too instead of waiting; then the first
+    exception that is not the others' ``BrokenBarrierError`` is raised."""
+    rings = LocalRing.ring_of(p, timeout)
+    results = [None] * p
+    errors = []
+    lock = threading.Lock()
+    cuda = torch.device(device).type == "cuda"
+
+    def body(ring: LocalRing) -> None:
+        try:
+            if cuda:
+                torch.cuda.set_device(rank_device(device, ring.rank))
+            results[ring.rank] = fn(ring)
+        except BaseException as e:  # re-raised below, in the caller
+            with lock:
+                errors.append(e)
+            ring.abort()
+
+    threads = [threading.Thread(target=body, args=(r,),
+                                name=f"slab-rank-{r.rank}") for r in rings]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise next((e for e in errors
+                    if not isinstance(e, threading.BrokenBarrierError)),
+                   errors[0])
+    return results

@@ -1,0 +1,415 @@
+"""SlabSimulator: slab domain decomposition of the padded-row ("xla") engine
+(PyTorch port of ``md_neighbor_list_tpu/parallel/slab.py``).
+
+The periodic box is split into P slabs along x over a ring of P ranks
+(``parallel/mesh.py``: ``Ring`` over ``torch.distributed``, one process a
+rank; or ``LocalRing``, P threads of one process). Per rank, all state lives
+in fixed-capacity slot arrays:
+
+  combined index space per rank, size M = cap + 2*gcap:
+    [0, cap)            owned slots          (pid >= 0 marks occupancy)
+    [cap, cap+gcap)     ghosts from the LEFT  neighbour (x just below my lo)
+    [cap+gcap, M)       ghosts from the RIGHT neighbour (x just above my hi)
+
+Protocol per step (neighbour shifts and one scalar ``max`` vote: the JAX
+package's ``ppermute`` and ``pmax``):
+
+  kick; drift; global rebuild vote = max(4*max_disp^2 > skin^2), read on the
+  host once a step (the JAX step branches on the device, ``lax.cond``)
+  if rebuild: migrate emigrants to the +-1 neighbours -> recompact the owned
+              slots; select the face bands (within rs of each face), record
+              the send index lists, exchange the ghosts (pos + pid); bin +
+              sweep the combined set (stable slot order, inactive slots
+              masked)
+  else:       re-gather positions at the recorded send lists, shift, and
+              overwrite the ghost positions (the ghost *set* stays valid
+              between rebuilds by the skin argument)
+  forces over the combined set with FULL lists -> owned forces complete
+  locally (no reverse force exchange); kick.
+
+Geometric preconditions (checked): slab width w > rs (the halo is only +-1
+deep); P >= 2; for P == 2, w >= 2*rs (else one particle could land twice in
+the same rank's ghost blocks). There is no P = 1 mode: ``Simulator`` is the
+one-rank engine.
+
+Plain PyTorch on the rank's device, no kernel: the JAX engine reaches no
+Pallas call. The step is functional (it returns new tensors), so a chunk's
+rollback keeps the carry it started from. The sticky overflow flag is reduced
+over the ring before the host acts on it, so every rank grows and rebuilds
+together.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from md_neighbor_list_tpu_torch.core.box import Box
+from md_neighbor_list_tpu_torch.core.capacity import estimate, round_up
+from md_neighbor_list_tpu_torch.core.config import MDConfig
+from md_neighbor_list_tpu_torch.core.system import System, init_lattice
+from md_neighbor_list_tpu_torch.ops import lj
+from md_neighbor_list_tpu_torch.ops.binning import CellGrid, make_grid
+from md_neighbor_list_tpu_torch.ops.common import compact_rows
+from md_neighbor_list_tpu_torch.ops.integrate import (drift, half_kick,
+                                                      kinetic_energy)
+from md_neighbor_list_tpu_torch.ops.pairlist import \
+    build_neighbor_lists_stable
+from md_neighbor_list_tpu_torch.parallel.mesh import Ring, rank_device
+
+
+@dataclasses.dataclass(frozen=True)
+class DDCapacity:
+    """Static per-rank capacities, grown on overflow."""
+
+    local: int  # owned particle slots per rank
+    ghost: int  # ghost slots per side
+    mig: int  # migration buffer slots per direction
+    neighbors: int  # K, full-list padded rows
+    cell: int  # dense cell-table depth
+    growth: float = 1.5
+
+    def grown(self) -> "DDCapacity":
+        g = self.growth
+        return dataclasses.replace(
+            self,
+            local=round_up(int(self.local * g) + 8, 8),
+            ghost=round_up(int(self.ghost * g) + 8, 8),
+            mig=round_up(int(self.mig * g) + 8, 8),
+            neighbors=round_up(int(self.neighbors * g) + 8, 8),
+            cell=round_up(int(self.cell * g) + 8, 8),
+        )
+
+
+def estimate_dd(config: MDConfig, box: Box, cell_size: float) -> DDCapacity:
+    p = config.mesh_devices
+    per_dev = config.n / p
+    base = estimate(config.rho, config.rs, cell_size, half_list=False)
+    face = config.rho * box.L * box.L  # particles per unit slab depth
+    return DDCapacity(
+        local=round_up(int(per_dev * 1.3) + 64, 8),
+        ghost=round_up(int(face * config.rs * 1.5) + 64, 8),
+        mig=round_up(int(face * max(config.skin, 0.1) * 2.0) + 64, 8),
+        neighbors=base.neighbors,
+        cell=base.cell,
+    )
+
+
+class DDState(NamedTuple):
+    """One rank's slab state (the JAX state's entry of this rank)."""
+
+    pos: torch.Tensor  # (cap, 3)
+    vel: torch.Tensor  # (cap, 3)
+    force: torch.Tensor  # (cap, 3)
+    pid: torch.Tensor  # (cap,) i32, -1 = empty
+    ghost_pos: torch.Tensor  # (2, gcap, 3)  [0]=from-left, [1]=from-right
+    ghost_pid: torch.Tensor  # (2, gcap) i32
+    send_idx: torch.Tensor  # (2, gcap) i32  [0]=low-face sends, [1]=high-face
+    idx: torch.Tensor  # (M, K) i32 neighbour rows, sentinel M
+    ref_pos: torch.Tensor  # (cap, 3)
+    n_rebuilds: torch.Tensor  # () i32
+    overflow: torch.Tensor  # () bool (sticky)
+
+
+def check_geometry(config: MDConfig) -> tuple[Box, CellGrid, float]:
+    """(box, grid, slab width) of a slab run, or the JAX package's
+    ``ValueError`` for a configuration it refuses. Needs no ring, so a caller
+    can check before any rank starts."""
+    if config.mesh_devices < 2:
+        raise ValueError("SlabSimulator needs mesh_devices >= 2; "
+                         "use Simulator for a single chip")
+    box = Box.from_density(config.n, config.rho)
+    grid = make_grid(box, config.rs)
+    if not grid.usable:
+        raise ValueError("box too small for a cell grid; DD unsupported")
+    p = config.mesh_devices
+    w = box.L / p
+    if w <= config.rs:
+        raise ValueError(
+            f"slab width {w:.3f} must exceed rs={config.rs} "
+            "(halo exchange is only +-1 neighbor deep)")
+    if p == 2 and w < 2 * config.rs:
+        raise ValueError("P=2 requires slab width >= 2*rs")
+    return box, grid, w
+
+
+def _gather_rows(arr: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
+    """Gather rows with one sentinel row appended (idx == len(arr) -> fill)."""
+    ext = torch.cat([arr, torch.full((1,) + arr.shape[1:], fill,
+                                     dtype=arr.dtype, device=arr.device)])
+    return ext[idx.long()]
+
+
+class SlabSimulator:
+    """LJ/NVE over P slabs, this rank being ``ring.rank``. API mirrors
+    ``Simulator``. ``ring`` is a ``parallel.mesh.Ring`` or ``LocalRing`` of
+    ``config.mesh_devices`` ranks; ``device`` "cuda" runs on
+    ``cuda:rank % device_count``."""
+
+    def __init__(self, config: MDConfig, capacity: DDCapacity | None = None,
+                 device="cuda", ring: Ring | None = None):
+        self.box, self.grid, self.w = check_geometry(config)
+        self.ring = Ring() if ring is None else ring
+        if self.ring.size != config.mesh_devices:
+            raise ValueError(
+                f"config.mesh_devices = {config.mesh_devices} but the ring "
+                f"has {self.ring.size} ranks")
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "SlabSimulator runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run on the CPU")
+        self.device = rank_device(device, self.ring.rank)
+        self.config = config
+        self.p = config.mesh_devices
+        self.capacity = capacity or estimate_dd(config, self.box,
+                                                self.grid.cell_size)
+        # the f32 constants of the JAX step: XLA turns x / f32(w) into
+        # x * f32(1 / f32(w)), so the slab index takes that product; the
+        # face bands are f32 sums of the rank's f32 lo
+        w32 = np.float32(self.w)
+        self._inv_w = float(np.float32(1.0) / w32)
+        lo = np.float32(self.ring.rank) * w32
+        self._band_low = float(lo + np.float32(config.rs))
+        self._band_high = float((lo + w32) - np.float32(config.rs))
+
+    # ------------------------------------------------------------ per rank
+    def _combined(self, st: DDState):
+        xpos = torch.cat([st.pos, st.ghost_pos[0], st.ghost_pos[1]])
+        xpid = torch.cat([st.pid, st.ghost_pid[0], st.ghost_pid[1]])
+        return xpos, xpid >= 0
+
+    def _forces(self, st: DDState):
+        """(owned forces, PE of the owned rows) over the combined set."""
+        xpos, _ = self._combined(st)
+        cl = st.pid.shape[0]
+        owned = torch.cat([st.pid >= 0, torch.zeros(
+            (xpos.shape[0] - cl,), dtype=torch.bool, device=self.device)])
+        f_all, u = lj.forces_energy(xpos, st.idx, self.box, self.config.rc,
+                                    half=False, energy_rows=owned)
+        return f_all[:cl], u
+
+    def _migrate(self, st: DDState) -> DDState:
+        ring, p = self.ring, self.p
+        cl, mig = st.pid.shape[0], self.capacity.mig
+        valid = st.pid >= 0
+        t = torch.clamp(torch.floor(st.pos[:, 0] * self._inv_w).to(
+            torch.int32), 0, p - 1)
+        delta = torch.remainder(t - ring.rank, p)
+        go_r = valid & (delta == 1)
+        # at P = 2 both neighbours are one rank: every emigrant goes right
+        go_l = (valid & (delta == p - 1) if p > 2
+                else torch.zeros_like(valid))
+        lost = valid & (delta != 0) & ~go_r & ~go_l  # moved >1 slab: a bug
+        stay = valid & ~go_r & ~go_l & ~lost
+
+        slots = torch.arange(cl, dtype=torch.int32, device=self.device)
+        idx_r, cnt_r = compact_rows(slots, go_r, mig, fill=cl)
+        idx_l, cnt_l = compact_rows(slots, go_l, mig, fill=cl)
+
+        def pack(idx):
+            return (_gather_rows(st.pos, idx, 0.0),
+                    _gather_rows(st.vel, idx, 0.0),
+                    _gather_rows(st.pid, idx, -1))
+
+        from_left = [ring.shift_plus(a) for a in pack(idx_r)]
+        from_right = [ring.shift_minus(a) for a in pack(idx_l)]
+        all_pos = torch.cat([st.pos, from_left[0], from_right[0]])
+        all_vel = torch.cat([st.vel, from_left[1], from_right[1]])
+        all_pid = torch.cat([torch.where(stay, st.pid, -1), from_left[2],
+                             from_right[2]])
+        valid_all = all_pid >= 0
+        # the stable compaction of the JAX argsort(~valid)[:cl]: occupied
+        # slots first, each group in slot order
+        order = torch.argsort((~valid_all).to(torch.int32), stable=True)[:cl]
+        new_pid = all_pid[order]
+        new_vel = torch.where((new_pid >= 0)[:, None], all_vel[order], 0.0)
+        count = torch.sum(valid_all)
+        over = (count > cl) | (cnt_r > mig) | (cnt_l > mig) | torch.any(lost)
+        return st._replace(pos=all_pos[order], vel=new_vel, pid=new_pid,
+                           overflow=st.overflow | over)
+
+    def _halo_exchange(self, st: DDState) -> DDState:
+        ring = self.ring
+        cl, gcap = st.pid.shape[0], self.capacity.ghost
+        valid = st.pid >= 0
+        x = st.pos[:, 0]
+        low = valid & (x < self._band_low)
+        high = valid & (x >= self._band_high)
+
+        slots = torch.arange(cl, dtype=torch.int32, device=self.device)
+        idx_low, cnt_low = compact_rows(slots, low, gcap, fill=cl)
+        idx_high, cnt_high = compact_rows(slots, high, gcap, fill=cl)
+        over = (cnt_low > gcap) | (cnt_high > gcap)
+
+        # low-face set -> left neighbour (shift_minus): its from-right block;
+        # high-face set -> right neighbour (shift_plus): its from-left block
+        ghost_r_pos = ring.shift_minus(_gather_rows(st.pos, idx_low, 0.0))
+        ghost_r_pid = ring.shift_minus(_gather_rows(st.pid, idx_low, -1))
+        ghost_l_pos = ring.shift_plus(_gather_rows(st.pos, idx_high, 0.0))
+        ghost_l_pid = ring.shift_plus(_gather_rows(st.pid, idx_high, -1))
+        return st._replace(
+            ghost_pos=torch.stack([ghost_l_pos, ghost_r_pos]),
+            ghost_pid=torch.stack([ghost_l_pid, ghost_r_pid]),
+            send_idx=torch.stack([idx_low, idx_high]),
+            overflow=st.overflow | over)
+
+    def _refresh_ghosts(self, st: DDState) -> DDState:
+        """Non-rebuild steps: the same send sets, fresh positions."""
+        ghost_r_pos = self.ring.shift_minus(
+            _gather_rows(st.pos, st.send_idx[0], 0.0))
+        ghost_l_pos = self.ring.shift_plus(
+            _gather_rows(st.pos, st.send_idx[1], 0.0))
+        return st._replace(ghost_pos=torch.stack([ghost_l_pos, ghost_r_pos]))
+
+    def _sweep(self, st: DDState) -> DDState:
+        cfg, cap = self.config, self.capacity
+        xpos, xactive = self._combined(st)
+        nl = build_neighbor_lists_stable(
+            xpos, self.box, self.grid, cfg.rs, cap.neighbors, cap.cell,
+            half=False, layout=cfg.layout, active=xactive)
+        return st._replace(idx=nl.idx, ref_pos=st.pos,
+                           n_rebuilds=st.n_rebuilds + 1,
+                           overflow=st.overflow | nl.overflow)
+
+    def _rebuild(self, st: DDState) -> DDState:
+        return self._sweep(self._halo_exchange(self._migrate(st)))
+
+    def step_fn(self, st: DDState) -> DDState:
+        """One velocity-Verlet step; returns a new state."""
+        cfg, box = self.config, self.box
+        vel = half_kick(st.vel, st.force, cfg.dt)
+        pos = drift(st.pos, vel, cfg.dt, box)
+        st = st._replace(pos=pos, vel=vel)
+
+        need = cfg.rebuild_every_step
+        if not need:
+            disp = box.min_image(pos - st.ref_pos)
+            d2 = torch.max(torch.where(st.pid >= 0,
+                                       torch.sum(disp * disp, dim=-1), 0.0))
+            d2 = self.ring.max(d2)
+            # the one host read of the step: the same vote on every rank
+            need = bool(4.0 * d2 > float(np.float32(cfg.skin * cfg.skin)))
+        st = self._rebuild(st) if need else self._refresh_ghosts(st)
+
+        force, _ = self._forces(st)
+        return st._replace(vel=half_kick(st.vel, force, cfg.dt), force=force)
+
+    def _run_chunk(self, st: DDState, nsteps: int) -> DDState:
+        for _ in range(nsteps):
+            st = self.step_fn(st)
+        return st
+
+    def _initial_build(self, st: DDState) -> DDState:
+        st = self._rebuild(st)
+        force, _ = self._forces(st)
+        return st._replace(force=force)
+
+    def _overflowed(self, st: DDState) -> bool:
+        """The sticky flag of any rank (a collective: every rank calls it)."""
+        return bool(self.ring.max(st.overflow.to(torch.int32)))
+
+    # ----------------------------------------------------------------- host
+    def _scatter(self, system: System) -> DDState:
+        """This rank's slab of a global System (the same on every rank), in
+        the first slots in the System's row order."""
+        cap, dev, p = self.capacity, self.device, self.p
+        cl, gcap, K = cap.local, cap.ghost, cap.neighbors
+        M = cl + 2 * gcap
+        # the JAX host's numpy slab index: an f32 division, truncated
+        w = torch.tensor(np.float32(self.w), device=dev)
+        slab = torch.clamp((system.pos[:, 0] / w).to(torch.int64), 0, p - 1)
+        counts = torch.bincount(slab, minlength=p).tolist()
+        for d, held in enumerate(counts):  # the same verdict on every rank
+            if held > cl:
+                raise ValueError(
+                    f"slab {d} holds {held} particles > capacity {cl}; "
+                    "grow DDCapacity.local")
+        sel = torch.nonzero(slab == self.ring.rank)[:, 0]
+        k = sel.shape[0]
+        pos = torch.zeros((cl, 3), dtype=torch.float32, device=dev)
+        vel = torch.zeros_like(pos)
+        pid = torch.full((cl,), -1, dtype=torch.int32, device=dev)
+        pos[:k] = system.pos[sel]
+        vel[:k] = system.vel[sel]
+        pid[:k] = system.pid[sel]
+        return DDState(
+            pos=pos, vel=vel, force=torch.zeros_like(pos), pid=pid,
+            ghost_pos=torch.zeros((2, gcap, 3), dtype=torch.float32,
+                                  device=dev),
+            ghost_pid=torch.full((2, gcap), -1, dtype=torch.int32,
+                                 device=dev),
+            send_idx=torch.full((2, gcap), cl, dtype=torch.int32, device=dev),
+            # all sentinels, replaced by the build's sweep before any read:
+            # a broadcast view, no (M, K) buffer
+            idx=torch.full((1, 1), M, dtype=torch.int32,
+                           device=dev).expand(M, K),
+            ref_pos=pos.clone(),
+            n_rebuilds=torch.zeros((), dtype=torch.int32, device=dev),
+            overflow=torch.zeros((), dtype=torch.bool, device=dev))
+
+    def gather(self, st: DDState) -> System:
+        """Inverse of ``_scatter``: the global System in original-pid order,
+        on every rank (a collective)."""
+        pid = self.ring.gather(st.pid).reshape(-1)
+        keep = pid >= 0
+        n = self.config.n
+        held = int(keep.sum())
+        if held != n:
+            raise AssertionError(f"lost particles: {held} != {n}")
+        order = pid[keep].long()
+        out = {}
+        for name in ("pos", "vel", "force"):
+            a = self.ring.gather(getattr(st, name)).reshape(-1, 3)[keep]
+            dst = torch.empty((n, 3), dtype=torch.float32, device=a.device)
+            dst[order] = a
+            out[name] = dst
+        return System(pos=out["pos"], vel=out["vel"], force=out["force"],
+                      pid=torch.arange(n, dtype=torch.int32,
+                                       device=self.device))
+
+    # ------------------------------------------------------------------ API
+    def init(self, generator: torch.Generator | None = None) -> DDState:
+        """A lattice start: every rank makes the same System (a generator of
+        its own with the same seed, or None) and takes its own slab of it."""
+        cfg = self.config
+        system, _ = init_lattice(cfg.n, cfg.rho, generator, cfg.temperature,
+                                 self.device)
+        return self.build(system)
+
+    def build(self, system: System) -> DDState:
+        """Slab state from a global System (the same on every rank); grows
+        every capacity until no rank overflows."""
+        system = System(*(t.to(self.device) for t in system))
+        while True:
+            st = self._initial_build(self._scatter(system))
+            if not self._overflowed(st):
+                return st
+            self.capacity = self.capacity.grown()
+
+    def run(self, st: DDState, nsteps: int, chunk: int = 100) -> DDState:
+        """Advance ``nsteps`` steps in chunks. A chunk in which any rank
+        overflowed is undone on every rank: the state at its start is
+        gathered, every capacity grows, and it is rebuilt and redone."""
+        done = 0
+        while done < nsteps:
+            this = min(chunk, nsteps - done)
+            snapshot = st  # step_fn leaves it untouched
+            st = self._run_chunk(st, this)
+            if self._overflowed(st):
+                system = self.gather(snapshot)
+                self.capacity = self.capacity.grown()
+                st = self.build(system)
+                continue
+            done += this
+        return st
+
+    def energies(self, st: DDState):
+        """(KE, PE) summed over the ring, as 0-d tensors on every rank."""
+        valid = st.pid >= 0
+        ke = kinetic_energy(torch.where(valid[:, None], st.vel, 0.0))
+        _, pe = self._forces(st)
+        return self.ring.sum(ke), self.ring.sum(pe)

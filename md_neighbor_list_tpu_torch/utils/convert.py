@@ -7,11 +7,11 @@ dtypes: (3, R, mc, cap) f32, (R, mc, cap) i32, (N, 3) f32, (N,) i32) and
 return the port's NamedTuples on ``device``, and back; likewise the list
 artifact ``(counts, masks)`` of ``dense_lists_half``, whose layout is the same
 in both packages, so either package's decoder reads either's masks; and the
-slab engine's ``SlabCarry``, whose JAX form stacks the P ranks' states on a
-leading axis and whose port form is one carry per rank; and the padded-row
-``Simulator``'s ``Carry`` (system, rows, reference positions, counters). The
-module imports
-neither package's counterpart: the caller does the ``np.asarray``.
+slab engine's ``SlabCarry`` and the XLA slab engine's ``DDState``, whose JAX
+forms stack the P ranks' states on a leading axis and whose port forms are one
+state per rank; and the padded-row ``Simulator``'s ``Carry`` (system, rows,
+reference positions, counters). The module imports neither package's
+counterpart: the caller does the ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -24,11 +24,16 @@ from md_neighbor_list_tpu_torch.models.dense_lj import DenseCarry
 from md_neighbor_list_tpu_torch.models.lj_nve import Carry, NeighborState
 from md_neighbor_list_tpu_torch.ops.dense_cells import DenseSpec, DenseState
 from md_neighbor_list_tpu_torch.parallel.dense_slab import SlabCarry
+from md_neighbor_list_tpu_torch.parallel.slab import DDState
 
 # SlabCarry fields in order, with their types
 _SLAB_DTYPES = (torch.float32, torch.float32, torch.int32, torch.float32,
                 torch.int32, torch.float32, torch.float32, torch.int32,
                 torch.int32, torch.bool)
+# DDState fields in order, with their types
+_DD_DTYPES = (torch.float32, torch.float32, torch.float32, torch.int32,
+              torch.float32, torch.int32, torch.int32, torch.int32,
+              torch.float32, torch.int32, torch.bool)
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -113,21 +118,45 @@ def lists_to_numpy(counts: torch.Tensor, masks: torch.Tensor):
     return counts.cpu().numpy(), masks.cpu().numpy()
 
 
+def _split_ranks(kind, dtypes, arrays, device) -> list:
+    """One ``kind`` per rank from its fields' arrays, each with the leading
+    axis P."""
+    if len(arrays) != len(kind._fields):
+        raise ValueError(f"expected {len(kind._fields)} arrays, got "
+                         f"{len(arrays)}")
+    arrays = [np.asarray(a) for a in arrays]
+    return [kind(*(_tensor(a[r], dt, device)
+                   for a, dt in zip(arrays, dtypes)))
+            for r in range(arrays[0].shape[0])]
+
+
+def _stack_ranks(states) -> tuple:
+    """The fields' arrays in order, the ranks stacked on the leading axis."""
+    return tuple(np.stack([s[i].cpu().numpy() for s in states])
+                 for i in range(len(states[0])))
+
+
 def slab_carries_from_numpy(*arrays, device="cuda") -> list[SlabCarry]:
     """The P per-rank carries of a JAX ``SlabCarry`` given as its ten arrays
     in field order (pos, vel, pid, gpos, gpid, force, ref_pos, n_rebuilds,
     n_migrated, overflow), each with the leading axis P."""
-    if len(arrays) != len(SlabCarry._fields):
-        raise ValueError(f"expected {len(SlabCarry._fields)} arrays, got "
-                         f"{len(arrays)}")
-    arrays = [np.asarray(a) for a in arrays]
-    return [SlabCarry(*(_tensor(a[r], dt, device)
-                        for a, dt in zip(arrays, _SLAB_DTYPES)))
-            for r in range(arrays[0].shape[0])]
+    return _split_ranks(SlabCarry, _SLAB_DTYPES, arrays, device)
 
 
 def slab_carries_to_numpy(carries) -> tuple:
     """Inverse of ``slab_carries_from_numpy``: the ten arrays in field order,
     the ranks stacked on the leading axis (the JAX ``SlabCarry``'s shapes)."""
-    return tuple(np.stack([c[i].cpu().numpy() for c in carries])
-                 for i in range(len(SlabCarry._fields)))
+    return _stack_ranks(carries)
+
+
+def dd_states_from_numpy(*arrays, device="cuda") -> list[DDState]:
+    """The P per-rank states of a JAX ``DDState`` given as its eleven arrays
+    in field order (pos, vel, force, pid, ghost_pos, ghost_pid, send_idx,
+    idx, ref_pos, n_rebuilds, overflow), each with the leading axis P."""
+    return _split_ranks(DDState, _DD_DTYPES, arrays, device)
+
+
+def dd_states_to_numpy(states) -> tuple:
+    """Inverse of ``dd_states_from_numpy``: the eleven arrays in field order,
+    the ranks stacked on the leading axis (the JAX ``DDState``'s shapes)."""
+    return _stack_ranks(states)

@@ -2,25 +2,31 @@
 (``utils/jsonlog.py``) and CLI (``python -m md_neighbor_list_tpu_torch``) on
 the CPU: npz files written by either package load in the other bit for bit,
 resume is exact, and the CLI's parity check, compare mode and save/resume run,
-the latter also for a P = 2 slab run over two ``env://`` gloo ranks."""
+the latter also for P = 2 runs of both slab engines over two ``env://`` gloo
+ranks."""
 
 import io
 import json
 import os
 import pathlib
+import re
 import socket
 import subprocess
 import sys
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
+from md_neighbor_list_tpu import cli as jcli
 from md_neighbor_list_tpu.core.system import System as JSystem
 from md_neighbor_list_tpu.utils import checkpoint as jckpt
 from md_neighbor_list_tpu.utils import jsonlog as jlog
 from md_neighbor_list_tpu_torch.core.config import MDConfig
 from md_neighbor_list_tpu_torch.models.lj_nve import Simulator
+from md_neighbor_list_tpu_torch.parallel.mesh import run_ranks
+from md_neighbor_list_tpu_torch.parallel.slab import SlabSimulator
 from md_neighbor_list_tpu_torch.utils import checkpoint as tckpt
 from md_neighbor_list_tpu_torch.utils import convert
 from md_neighbor_list_tpu_torch.utils import jsonlog as tlog
@@ -161,16 +167,40 @@ def test_cli_compare_mode():
     assert cmp["ok"]
 
 
-def test_cli_slab_engine_and_unlaunched_ranks_raise():
-    out = _cli("--n", "4096", "--steps", "1", "--engine", "slab")
-    assert out.returncode != 0 and "A.14" in out.stderr
+def _jax_cli_refusal(args, capsys):
+    """The JAX CLI's stdout and ValueError for ``args``, in this process (the
+    slab engines refuse before any device work)."""
+    with pytest.raises(ValueError) as e:
+        jcli.main(list(args))
+    return capsys.readouterr().out, str(e.value)
+
+
+def test_cli_slab_engine_and_unlaunched_ranks_raise(capsys):
+    """``--engine slab`` at P = 1 and the ``dense_slab`` -> ``slab`` fallback
+    of a box ``dense_slab`` cannot tile end in the JAX CLI's own ValueError
+    (the fallback after the same WARNING); P = 2 without the env://
+    variables names ``torchrun``."""
+    args = ("--n", "4096", "--steps", "1", "--engine", "slab")
+    _, want = _jax_cli_refusal(args, capsys)
+    assert "mesh_devices >= 2" in want
+    out = _cli(*args, "--mesh-devices", "1")
+    assert out.returncode != 0 and f"ValueError: {want}" in out.stderr
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
-    out = _cli("--n", "4096", "--steps", "1", "--engine", "dense_slab",
-               "--mesh-devices", "2", env=env)
+    out = _cli(*args, "--mesh-devices", "2", env=env)
     assert out.returncode != 0 and "torchrun" in out.stderr
-    out = _cli("--n", "64", "--steps", "1", "--engine", "dense_slab")
-    assert out.returncode != 0 and "A.14" in out.stderr  # no fallback
+    assert "--engine slab with 2 slabs" in out.stderr
+    args = ("--n", "64", "--steps", "1", "--engine", "dense_slab")
+    jout, want = _jax_cli_refusal(args, capsys)
+    out = _cli(*args)
+    assert out.returncode != 0 and f"ValueError: {want}" in out.stderr
+    # the same WARNING line but for the reason, the dense engine's own words
+    warning = re.compile(r"WARNING: dense_slab cannot tile this box \(box too "
+                         r"small .*\); falling back to the correctness-only "
+                         r"XLA slab engine")
+    for text in (jout, out.stdout):
+        assert any(warning.fullmatch(ln) for ln in text.splitlines()), text
+    assert any(e["event"] == "engine_fallback" for e in _events(out.stderr))
 
 
 def _free_port() -> int:
@@ -214,3 +244,50 @@ def test_cli_dense_slab_resume_over_two_gloo_ranks(tmp_path):
                                                        / "p1.npz") as b:
         np.testing.assert_allclose(a["pos"], b["pos"], rtol=0, atol=1e-5)
         np.testing.assert_allclose(a["vel"], b["vel"], rtol=0, atol=1e-4)
+
+
+def test_cli_slab_resume_over_two_gloo_ranks(tmp_path):
+    """An xla run saves; two ranks started as ``torchrun`` would start them
+    resume it with the XLA slab engine at P = 2; rank 0 reports and writes,
+    and its final state is the one two ``LocalRing`` ranks in this process
+    reach from the same file, bit for bit."""
+    ckpt = str(tmp_path / "s.npz")
+    args = ("--preset", "c3_verlet", "--n", "4096", "--steps", "20")
+    out = _cli(*args, "--engine", "xla", "--save", ckpt)
+    assert out.returncode == 0, out.stderr[-2000:]
+
+    port = _free_port()
+    procs = []
+    for rank in (0, 1):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "md_neighbor_list_tpu_torch", "--device",
+             "cpu", *args, "--engine", "slab", "--mesh-devices", "2",
+             "--resume", ckpt, "--save", str(tmp_path / f"p2_{rank}.npz")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=ROOT))
+    outs = [p.communicate(timeout=300) for p in procs]
+    for p, (so, se) in zip(procs, outs):
+        assert p.returncode == 0, se[-2000:]
+    assert "slab: N=4096" in outs[0][0] and outs[1][0] == ""
+    assert '"event": "resumed"' in outs[0][1]
+    done = [e for e in _events(outs[0][1]) if e["event"] == "run_done"][0]
+    assert done["pressure"] is None and done["rebuilds"] >= 1
+    assert not (tmp_path / "p2_1.npz").exists()  # rank 0 alone writes
+
+    cfg = MDConfig(n=4096, steps=20, mesh_devices=2)
+    system, _ = tckpt.load(ckpt, device="cpu")
+
+    def fn(ring):
+        sim = SlabSimulator(cfg, device="cpu", ring=ring)
+        st = sim.run(sim.build(system), cfg.steps)
+        return sim.gather(st), int(st.n_rebuilds)
+
+    (want, rebuilds), _ = run_ranks(2, fn)
+    assert rebuilds == done["rebuilds"]
+    with np.load(tmp_path / "p2_0.npz") as a:
+        for name in ("pos", "vel", "force"):
+            np.testing.assert_array_equal(a[name],
+                                          getattr(want, name).numpy())

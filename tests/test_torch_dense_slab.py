@@ -5,11 +5,6 @@ conftest's 8-device CPU mesh) at P = 2, whose ranks here are two processes on
 a gloo group (``tests/torch_slab_ranks.py``, a ``FileStore`` under the test's
 temporary directory)."""
 
-import json
-import pathlib
-import subprocess
-import sys
-
 import jax
 import numpy as np
 import pytest
@@ -25,12 +20,11 @@ from md_neighbor_list_tpu_torch.ops import dense_force, oracle
 from md_neighbor_list_tpu_torch.parallel.dense_slab import DenseSlabSimulator
 from md_neighbor_list_tpu_torch.parallel.mesh import Ring
 from md_neighbor_list_tpu_torch.utils import convert
+from torch_slab_ranks import spawn_ranks
 
 # tests/test_dense_slab.py's configuration: L = 16, mc = 9; at P = 2
 # mc_z = 8, nz = 4 (anisotropic cells)
 CFG = dict(n=4096, rho=1.0, rc=1.5, skin=0.2, dt=0.001, temperature=0.8)
-WORKER = pathlib.Path(__file__).resolve().parent / "torch_slab_ranks.py"
-RANK_SECONDS = 600
 
 
 def _gen(seed):
@@ -40,27 +34,6 @@ def _gen(seed):
 def _wrapped_gap(a, b, L):
     d = np.abs(a - b)
     return np.minimum(d, L - d).max()
-
-
-def _run_ranks(tmp_path, world: int, job: dict) -> list:
-    """Run ``world`` ranks of ``tests/torch_slab_ranks.py`` on one gloo
-    group; returns each rank's outputs."""
-    outs = [tmp_path / f"rank{r}.npz" for r in range(world)]
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), str(r), str(world),
-         str(tmp_path / "store"), json.dumps(job), str(outs[r])],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=RANK_SECONDS)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-3000:]
-    return [dict(np.load(o)) for o in outs]
 
 
 # ------------------------------------------------------------------ P = 1
@@ -162,7 +135,7 @@ def test_p2_gloo_matches_jax_p2(tmp_path):
     np.savez(tmp_path / "system.npz", pos=pos, vel=vel)
     job = dict(config=CFG, cap=16, steps=steps, chunk=steps,
                system=str(tmp_path / "system.npz"))
-    ranks = _run_ranks(tmp_path, 2, job)
+    ranks = spawn_ranks(tmp_path, 2, job)
     out = ranks[0]
     for other in ranks[1:]:  # every rank gathers the same global state
         np.testing.assert_array_equal(other["pos1"], out["pos1"])
@@ -195,7 +168,7 @@ def test_p2_gloo_migration_conserves_every_particle(tmp_path):
              vel=vel.astype(np.float32))
     job = dict(config=dict(CFG, temperature=1.5, dt=0.002), cap=16,
                steps=60, chunk=20, system=str(tmp_path / "system.npz"))
-    ranks = _run_ranks(tmp_path, 2, job)
+    ranks = spawn_ranks(tmp_path, 2, job)
     for out in ranks:
         assert np.array_equal(np.sort(out["pids"]), np.arange(n))
         assert int(out["n_migrated"]) > 0, "no migration exercised"

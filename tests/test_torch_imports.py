@@ -40,7 +40,7 @@ def test_expected_modules_and_sources_exist():
                  "ops/dense_force.py", "ops/decode.py", "ops/_cuda.py",
                  "ops/incremental.py", "ops/slab_kernels.py",
                  "parallel/__init__.py", "parallel/mesh.py",
-                 "parallel/dense_slab.py",
+                 "parallel/dense_slab.py", "parallel/slab.py",
                  "models/dense_lj.py", "utils/convert.py", "utils/native.py",
                  "ops/binning.py", "ops/pairlist.py", "ops/lj.py",
                  "ops/integrate.py", "models/lj_nve.py",
@@ -78,7 +78,8 @@ def test_import_needs_no_cuda_toolchain():
 
     assert port.__all__ == ["Box", "MDConfig", "PRESETS", "System",
                             "init_lattice", "init_random", "neighbor_list",
-                            "pair_list", "DenseSimulator", "Simulator"]
+                            "pair_list", "DenseSimulator", "Simulator",
+                            "SlabSimulator"]
     from md_neighbor_list_tpu_torch.ops import _cuda
 
     assert _cuda._lib is None  # nothing was built or loaded by importing
@@ -177,9 +178,17 @@ def test_slab_engine_runs_on_the_card_by_default_and_raises_without_one():
     from md_neighbor_list_tpu_torch.parallel import mesh
     from md_neighbor_list_tpu_torch.parallel.dense_slab import \
         DenseSlabSimulator
+    from md_neighbor_list_tpu_torch.parallel.slab import SlabSimulator
 
     with pytest.raises(RuntimeError, match="CUDA device"):
         DenseSlabSimulator(MDConfig(n=4096, rc=1.5, skin=0.2))
+    rings = mesh.LocalRing.ring_of(2)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        SlabSimulator(MDConfig(n=4096, rc=1.5, skin=0.2, mesh_devices=2),
+                      ring=rings[0])
+    sim = SlabSimulator(MDConfig(n=4096, rc=1.5, skin=0.2, mesh_devices=2),
+                        device="cpu", ring=rings[1])  # asked for
+    assert sim.device.type == "cpu" and sim.ring.rank == 1
     sim = DenseSlabSimulator(MDConfig(n=4096, rc=1.5, skin=0.2),
                              device="cpu")  # asked for
     assert sim.device.type == "cpu" and sim.ring.size == 1

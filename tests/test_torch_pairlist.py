@@ -147,6 +147,20 @@ def test_stable_build_with_active_bitwise_equals_the_jax_package(layout,
     assert not np.isin(idx[idx < 2000], np.nonzero(~active)[0]).any()
 
 
+def test_stable_build_translates_rows_in_blocks(monkeypatch):
+    """The entry translation a block of rows at a time (blocks of 300 rows
+    here, the last one short) gives the JAX stable build's rows."""
+    pos, L = _uniform(2000, 10)
+    jbox, tbox = JBox(L=L), TBox(L=L)
+    jnl = _jax_build(True)(jnp.asarray(pos), jbox, jb.make_grid(jbox, RS),
+                           RS, 192, 64, False, "morton", None)
+    monkeypatch.setattr(tp, "TRANSLATE_ROWS", 300)
+    tnl = tp.build_neighbor_lists_stable(
+        torch.from_numpy(pos), tbox, tb.make_grid(tbox, RS), RS, 192, 64,
+        False, "morton")
+    _assert_lists_equal(jnl, tnl)
+
+
 def test_stable_build_refuses_a_small_box():
     pos, L = _uniform(256, 8)
     tbox = TBox(L=L)
