@@ -76,12 +76,23 @@ and must launch none of the kernels (their counters are read around each):
                     checkpoint, the xla engine resuming it, the slab engine at
                     P = 1.
 
+Since the engines run each chunk as one captured CUDA graph (``run`` replays one
+step, the rebuild a conditional node), phase ``graph_chunk`` follows
+``main_path``, ``incremental`` and ``xla_engine``: from the path's final carry,
+100 steps by ``run``, every replay under ``set_sync_debug_mode("error")`` (a
+host read inside a chunk fails the run), against 100 steps of the eager
+``step_fn``: equal rebuilds (and branch counts), positions within 5e-4, the
+drift, steps/s of both and the capture's seconds. The timed runs leave their
+one capture out of steps/s and print it as ``capture_s``.
+
 Each phase prints one JSON line; any failure ends the run with a non-zero exit
 code. Without a CUDA device the script fails at once. ``--profile`` adds a
 ``torch.profiler`` breakdown by device kernel of 50 steps of each engine, of
 one ``neighbor_list`` call, of ten incremental and ten full rebuilds, of
 50 steps of the slab engine, of 50 steps and one list build of the xla
-engine, and of 10 steps of the xla slab engine at P = 4 (information only).
+engine, and of 10 steps of the xla slab engine at P = 4, and beside the graph
+replays of each ``graph_chunk`` engine 50 of its eager steps (information
+only).
 ``--half-sweep-times`` only times the half-force and pe/virial kernels at
 N = 1,000,000, and ``--list-full-times`` the list and full-force kernels, and
 ``--count-times`` the
@@ -99,6 +110,7 @@ The last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -116,6 +128,7 @@ from md_neighbor_list_tpu_torch import (PRESETS, DenseSimulator, MDConfig,
                                         pair_list)
 from md_neighbor_list_tpu_torch.core.box import Box
 from md_neighbor_list_tpu_torch.core.system import System, init_lattice
+from md_neighbor_list_tpu_torch.models import dense_lj, lj_nve
 from md_neighbor_list_tpu_torch.ops import (_cuda, decode, dense_cells,
                                             dense_force, dense_ref,
                                             incremental, oracle, slab_kernels)
@@ -124,7 +137,7 @@ from md_neighbor_list_tpu_torch.parallel.dense_slab import (
     DenseSlabSimulator, make_slab_spec)
 from md_neighbor_list_tpu_torch.parallel.slab import (DDCapacity,
                                                       SlabSimulator)
-from md_neighbor_list_tpu_torch.utils import native
+from md_neighbor_list_tpu_torch.utils import graphs, native
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): device memory and fp32
 # outside the tensor cores. The bounds below are stated against them.
@@ -219,6 +232,37 @@ def device_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def captured_seconds(sim, before: int, path: str) -> float:
+    """The host seconds of the one graph capture that a timed run of ``sim``
+    made (its first chunk captures the step: the counterpart of the JAX
+    engine's compile, left out of steps/s and reported on its own)."""
+    made = sim._runner.captures - before
+    check(made == 1, f"{path}: {made} graph captures in the timed run, "
+          "expected 1")
+    return sim._runner.capture_s
+
+
+@contextlib.contextmanager
+def strict_replays():
+    """``torch.cuda.set_sync_debug_mode("error")`` around every
+    ``StepGraph.replay``: a synchronising call (a host read) inside a chunk
+    raises there."""
+    replay = graphs.StepGraph.replay
+
+    def strict(self, nsteps):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            replay(self, nsteps)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    graphs.StepGraph.replay = strict
+    try:
+        yield
+    finally:
+        graphs.StepGraph.replay = replay
 
 
 def force_close(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float]:
@@ -879,6 +923,7 @@ def main_path(sim: DenseSimulator) -> dict:
     ke0, pe0 = (float(x) for x in sim.energies(carry))
     e0 = ke0 + pe0
 
+    captures = sim._runner.captures
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     steps = 0
@@ -889,6 +934,7 @@ def main_path(sim: DenseSimulator) -> dict:
         if steps >= 200 and time.perf_counter() - t0 > MAX_RUN_SECONDS:
             break
     run_s = time.perf_counter() - t0
+    capture_s = captured_seconds(sim, captures, "main_path")
 
     ke1, pe1 = (float(x) for x in sim.energies(carry))
     drift = abs((ke1 + pe1) - e0) / abs(e0)
@@ -911,7 +957,8 @@ def main_path(sim: DenseSimulator) -> dict:
     result = {"n": cfg.n, "cap": sim.spec.cap, "pairs": pairs, "steps": steps,
               "energy_drift": drift, "e0": e0, "e1": ke1 + pe1,
               "pressure": pressure, "n_rebuilds": rebuilds, "kept": kept,
-              "steps_per_s": steps / run_s, "build_ms": build_ms}
+              "steps_per_s": steps / (run_s - capture_s),
+              "capture_s": capture_s, "build_ms": build_ms}
     emit("main_path", **result)
 
     need = {"expand": rebuilds + 1, "lists_half": 1,
@@ -924,6 +971,90 @@ def main_path(sim: DenseSimulator) -> dict:
     emit("launches", path="main_path", launches=launches,
          expected_at_least=need)
     return launches, carry
+
+
+# ------------------------------------------------------------ graph chunk
+GRAPH_STEPS = 100  # steps by ``run`` and by ``step_fn`` from one carry
+# The graph and the eager loop part by the order of float atomics (K3's
+# reactions, the xla engine's Newton-3 scatter), which the dynamics then
+# amplify: positions are held within the slab-against-cube tolerance.
+TRAJECTORY_TOL = 5e-4
+
+
+def graph_chunk(sim, carry, path: str) -> None:
+    """From one carry cloned twice: ``GRAPH_STEPS`` steps by ``run`` (one
+    step captured as a CUDA graph and replayed, the rebuild a conditional
+    node; every replay under ``strict_replays``) and as many by a loop of
+    the eager ``step_fn`` (the vote read on the host each step). Equal
+    rebuilds, for the incremental engine equal branch counts, positions
+    within ``TRAJECTORY_TOL`` of each other, |dE/E| of the graph run at most
+    1e-4; steps/s of both and the capture's seconds. With ``--profile``, the
+    device's busy share of 50 eager steps beside ``profile``'s 50 graph
+    steps."""
+    xla = isinstance(sim, Simulator)
+    clone = lj_nve._clone if xla else dense_lj._clone
+
+    def rebuilds(c) -> int:
+        return int(c.nbr.n_rebuilds if xla else c.n_rebuilds)
+
+    def by_pid(c) -> np.ndarray:
+        if not xla:
+            return sim.to_system(c)[0]
+        out = np.empty(tuple(c.system.pos.shape), np.float32)
+        out[c.system.pid.cpu().numpy()] = c.system.pos.cpu().numpy()
+        return out
+
+    graph, eager = clone(carry), clone(carry)
+    e0 = sum(float(x) for x in sim.energies(carry))
+    taken = [] if xla else [sim._taken.tolist()]
+    captures = sim._runner.captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with strict_replays():
+        graph = sim.run(graph, GRAPH_STEPS, chunk=GRAPH_STEPS)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    capture_s = captured_seconds(sim, captures, f"graph_chunk {path}")
+    if not xla:
+        taken.append(sim._taken.tolist())
+    t0 = time.perf_counter()
+    for _ in range(GRAPH_STEPS):
+        eager = sim.step_fn(eager)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    if not xla:
+        taken.append(sim._taken.tolist())
+
+    d = np.abs(by_pid(graph) - by_pid(eager))
+    gap = float(np.minimum(d, sim.box.L - d).max())
+    e1 = sum(float(x) for x in sim.energies(graph))
+    drift = abs(e1 - e0) / abs(e0)
+    r_graph, r_eager = rebuilds(graph), rebuilds(eager)
+    check(r_graph == r_eager > rebuilds(carry),
+          f"graph_chunk {path}: {r_graph} rebuilds by the graph, {r_eager} "
+          f"eager, {rebuilds(carry)} at the start")
+    branches = {}
+    if not xla:
+        by_graph = [b - a for a, b in zip(taken[0], taken[1])]
+        by_eager = [b - a for a, b in zip(taken[1], taken[2])]
+        check(by_graph == by_eager,
+              f"graph_chunk {path}: branch counts {by_graph} by the graph, "
+              f"{by_eager} eager")
+        branches = {"incremental_kept": by_graph[0],
+                    "full_fallbacks": by_graph[1]}
+    check(gap <= TRAJECTORY_TOL,
+          f"graph_chunk {path}: positions {gap} apart after {GRAPH_STEPS} "
+          f"steps, more than {TRAJECTORY_TOL}")
+    check(drift <= 1e-4, f"graph_chunk {path}: |dE/E| = {drift} > 1e-4")
+    emit("graph_chunk", path=path, steps=GRAPH_STEPS,
+         n_rebuilds=r_graph - rebuilds(carry), **branches,
+         position_gap=gap, tolerance=TRAJECTORY_TOL, energy_drift=drift,
+         steps_per_s_graph=GRAPH_STEPS / (graph_s - capture_s),
+         steps_per_s_eager=GRAPH_STEPS / eager_s, capture_s=capture_s,
+         launches_per_step=sim._runner.graph.per_step,
+         launches_per_branch=sim._runner.graph.per_body)
+    if "--profile" in sys.argv[1:]:
+        profile_steps(sim, eager, f"{path}_eager", eager=True)
 
 
 # -------------------------------------------------------- list delivery
@@ -1253,11 +1384,13 @@ def incremental_path(sim: DenseSimulator):
           "incremental: the lattice seed did not take the full rebuild")
     ke0, pe0 = (float(x) for x in sim.energies(carry))
     e0 = ke0 + pe0
+    captures = sim._runner.captures
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     carry = sim.run(carry, cfg.steps)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    capture_s = captured_seconds(sim, captures, "incremental")
     ke1, pe1 = (float(x) for x in sim.energies(carry))
     drift = abs((ke1 + pe1) - e0) / abs(e0)
     kept = int(carry.state.valid().sum())
@@ -1274,7 +1407,8 @@ def incremental_path(sim: DenseSimulator):
     build_ms = chained_builds_ms(sim, carry.state)
     emit("incremental", n=cfg.n, cap=sim.spec.cap, steps=cfg.steps,
          energy_drift=drift, e0=e0, e1=ke1 + pe1, n_rebuilds=rebuilds,
-         kept=kept, steps_per_s=cfg.steps / run_s, build_ms=build_ms,
+         kept=kept, steps_per_s=cfg.steps / (run_s - capture_s),
+         capture_s=capture_s, build_ms=build_ms,
          incremental_rebuilds=taken[0], full_fallbacks=taken[1],
          chained_builds_incremental=sim.incremental_rebuilds - taken[0])
     need = {"merge": rebuilds - 1, "expand": rebuilds + taken[1],
@@ -1934,14 +2068,16 @@ def xla_engine(device) -> tuple[dict, Simulator, object]:
     _cuda.reset_launches()
     sim = Simulator(cfg, device=device)
     carry = sim.init()
-    start = carry
+    start = System(*(t.clone() for t in carry.system))  # run works in place
     pairs = xla_pairs(carry)
     ke0, pe0 = (float(x) for x in sim.energies(carry))
+    captures = sim._runner.captures
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     carry = sim.run(carry, cfg.steps)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    capture_s = captured_seconds(sim, captures, "xla_engine")
     ke1, pe1 = (float(x) for x in sim.energies(carry))
     ke, pe, w = (float(x) for x in sim.thermo(carry))
     pressure = sim.pressure(carry)
@@ -1962,9 +2098,9 @@ def xla_engine(device) -> tuple[dict, Simulator, object]:
 
     e0, e1 = ke0 + pe0, ke1 + pe1
     drift = abs(e1 - e0) / abs(e0)
-    want = int(oracle.pair_count(start.system.pos, sim.box, cfg.rs))
-    f_o, _ = oracle.forces_energy(start.system.pos, sim.box, cfg.rc)
-    ok, f_err = within_force_gate(start.system.force, f_o)
+    want = int(oracle.pair_count(start.pos, sim.box, cfg.rs))
+    f_o, _ = oracle.forces_energy(start.pos, sim.box, cfg.rc)
+    ok, f_err = within_force_gate(start.force, f_o)
     dense = DenseSimulator(cfg, cap=40, device=device)
     dense_pairs = int(dense._rebuild_and_lists(dense.init().state)[3])
     del dense
@@ -1986,7 +2122,8 @@ def xla_engine(device) -> tuple[dict, Simulator, object]:
                    "cell": sim.capacity.cell},
          pairs=pairs, oracle_pairs=want, dense_pairs=dense_pairs,
          force_err_vs_oracle=f_err, steps=cfg.steps, energy_drift=drift,
-         e0=e0, e1=e1, n_rebuilds=rebuilds, steps_per_s=cfg.steps / run_s,
+         e0=e0, e1=e1, n_rebuilds=rebuilds,
+         steps_per_s=cfg.steps / (run_s - capture_s), capture_s=capture_s,
          rebuild_only_ms=build_ms, thermo={"ke": ke, "pe": pe, "virial": w},
          pressure=pressure)
     return launches, sim, carry
@@ -2001,11 +2138,13 @@ def xla_c2(device) -> dict:
     _cuda.reset_launches()
     sim = Simulator(cfg, device=device)
     carry = sim.init()
+    captures = sim._runner.captures
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     carry = sim.run(carry, cfg.steps)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
+    capture_s = captured_seconds(sim, captures, "xla_c2")
     pairs = xla_pairs(carry)
     rebuilds = int(carry.nbr.n_rebuilds)
     launches = no_launches("xla_c2")
@@ -2023,7 +2162,8 @@ def xla_c2(device) -> dict:
     check(not bool(carry.nbr.overflow), "xla_c2: overflow")
     emit("xla_c2", n=cfg.n, layout=cfg.layout, steps=cfg.steps,
          n_rebuilds=rebuilds, pairs=pairs, oracle_pairs=want,
-         pairs_in_cutoff_band=outer - inner, steps_per_s=cfg.steps / run_s)
+         pairs_in_cutoff_band=outer - inner,
+         steps_per_s=cfg.steps / (run_s - capture_s), capture_s=capture_s)
     return launches
 
 
@@ -2607,15 +2747,21 @@ def traced(fn) -> tuple[float, list]:
 
 
 def profile_steps(sim: DenseSimulator, carry, path: str,
-                  steps: int = 50) -> None:
+                  steps: int = 50, eager: bool = False) -> None:
     """Device time of ``steps`` NVE steps by kernel, with the device's busy
     share of the traced window (tracing slows the host side down, so the
     share in an untraced run is higher: compare ``device_busy_ms / steps``
-    with the path's time per step)."""
+    with the path's time per step). The steps are a chunk (for the engines
+    with a chunk runner, replays of the captured step), or with ``eager``
+    a loop of ``step_fn``."""
     at = [carry]  # the steps update the carry's tensors in place
 
     def advance(nsteps: int) -> None:
-        at[0] = sim._run_chunk(at[0], nsteps)
+        if not eager:
+            at[0] = sim._run_chunk(at[0], nsteps)
+            return
+        for _ in range(nsteps):
+            at[0] = sim.step_fn(at[0])
 
     def rebuilds() -> int:  # the xla engine keeps its count in ``nbr``
         return int(getattr(at[0], "nbr", at[0]).n_rebuilds)
@@ -2625,6 +2771,7 @@ def profile_steps(sim: DenseSimulator, carry, path: str,
     wall_ms, rows = traced(lambda: advance(steps))
     busy_ms = sum(r[1] for r in rows)
     emit("profile", path=path, steps=steps, wall_ms=wall_ms,
+         graph=not eager and hasattr(sim, "_runner"),
          device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
          rebuilds=rebuilds() - before,
          kernels=[{"name": k[:70], "ms": ms, "calls": c}
@@ -2717,6 +2864,7 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         profile_steps(sim, carry, "main_path")
         profile_neighbor_list(sim)
+    graph_chunk(sim, carry, "main_path")
     del carry
     delivery = list_delivery(
         DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device))
@@ -2727,6 +2875,7 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         profile_rebuilds(sim, drifted_state(sim, carry.state))
         profile_steps(sim, carry, "incremental")
+    graph_chunk(sim, carry, "incremental")
     del carry
     emit("incremental_kernels", n=sim.config.n, cap=sim.spec.cap,
          kernels=[row_k8], **numbers)
@@ -2748,6 +2897,7 @@ def main() -> int:
     launches_x, sim, carry = xla_engine(device)
     if "--profile" in sys.argv[1:]:
         profile_xla(sim, carry)
+    graph_chunk(sim, carry, "xla_engine")
     del carry, sim
     xla_launches = {"xla_engine": launches_x, "xla_c2": xla_c2(device)}
     xla_compare(device)

@@ -12,11 +12,17 @@ cap growth; the particle state lives in the dense cell-block layout
   guarantees every rc-pair stays inside the stale neighbourhood while
   2*max_disp <= skin.
 
-The engine runs eagerly. The rebuild vote is a device scalar read on the host
-once per step (one synchronisation); a device-side branch is left to a CUDA
-graph over a chunk. Within a chunk the state is updated IN PLACE: ``step_fn``
-and ``run`` consume the carry they are given, and ``run`` clones the carry at
-the start of each chunk so that an overflow can roll back to it.
+A chunk of steps runs as one device program on the card, as the JAX
+``run_chunk`` (``jit(lax.scan(step))``) does: ``run`` replays a CUDA graph of
+one step (``utils/graphs.py``) in which the rebuild is a conditional node on
+the device's displacement vote, and the host reads the sticky overflow flag
+once a chunk. The step updates the carry IN PLACE: every rebuilt tensor and
+the force are copied into the carry's own storage, so the graph's addresses
+hold from step to step and from rebuild to rebuild. ``run`` consumes the
+carry it is given and clones it at the start of each chunk, so that an
+overflow can roll back to it. On the CPU the same step runs eagerly and reads
+the vote on the host; ``step_fn`` is that eager step on either device, as the
+JAX ``step_fn`` is one step outside the scan.
 
 Which implementation runs is decided by the device alone: tensors on a CUDA
 device go through the CUDA kernels, tensors on the CPU through their plain
@@ -26,9 +32,11 @@ to ask for.
 ``incremental=True`` sends every rebuild through the incremental rebuild
 (``ops/incremental.py``: only the particles that changed cell are sorted and
 merged in by the K8 kernel), and through the full rebuild when the mover
-stream trips the JAX package's window predicate. The branch costs one host
-read per rebuild. Unlike the JAX package, whose ``"jnp"`` engine ignores the
-flag, the port honours it on the CPU too, where it runs the plain versions.
+stream trips the JAX package's window predicate (the JAX ``lax.cond``). In the
+step the two are branches of their own on flags the incremental branch sets,
+since conditional nodes do not nest; the counts of each are kept on the
+device. Unlike the JAX package, whose ``"jnp"`` engine ignores the flag, the
+port honours it on the CPU too, where it runs the plain versions.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from md_neighbor_list_tpu_torch.ops.dense_cells import (DenseState,
                                                         to_packed)
 from md_neighbor_list_tpu_torch.ops.incremental import \
     rebuild_dense_incremental
+from md_neighbor_list_tpu_torch.utils.graphs import ChunkRunner, eager_cond
 
 
 class DenseCarry(NamedTuple):
@@ -74,10 +83,6 @@ class DenseSimulator:
                  incremental: bool = False):
         self.config = config
         self.incremental = incremental
-        # rebuilds by branch: incremental ones kept, and full rebuilds taken
-        # because the mover stream tripped the window predicate
-        self.incremental_rebuilds = 0
-        self.full_fallbacks = 0
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -86,6 +91,22 @@ class DenseSimulator:
         self.box = Box.from_density(config.n, config.rho)
         self.cap = cap
         self.spec = make_spec(self.box, config.rs, cap)
+        # rebuilds by branch, counted on the device: incremental ones kept,
+        # and full rebuilds taken because the mover stream tripped the window
+        # predicate
+        self._taken = torch.zeros(2, dtype=torch.int64, device=self.device)
+        # the step's flags for the two branches after an incremental rebuild:
+        # take the full rebuild, keep the merged state
+        self._window = torch.zeros(2, dtype=torch.bool, device=self.device)
+        self._runner = ChunkRunner()
+
+    @property
+    def incremental_rebuilds(self) -> int:
+        return int(self._taken[0])
+
+    @property
+    def full_fallbacks(self) -> int:
+        return int(self._taken[1])
 
     def _grow(self) -> None:
         self.cap = grow_cap(self.cap)
@@ -97,32 +118,63 @@ class DenseSimulator:
         return dense_force.dense_forces_half(state.pos, self.spec,
                                              self.config.rc, want_pe)
 
-    def _rebuild_state(self, state: DenseState) -> DenseState:
-        """The rebuild of the step loop and of ``_rebuild_and_lists``: the
-        full one, or with ``incremental`` the incremental one unless its
-        window predicate holds (the JAX engine's ``lax.cond``, here one host
-        read). Taking the full path is the reference's own algorithm, never a
-        response to a kernel's failure."""
-        if self.incremental:
-            new, window_overflow = rebuild_dense_incremental(state, self.spec)
-            if not bool(window_overflow):
-                self.incremental_rebuilds += 1
-                return new
-            self.full_fallbacks += 1
-        return rebuild_dense(state, self.spec)[0]
+    def _rebuilt(self, state: DenseState) -> DenseState:
+        """The rebuild of ``_rebuild_and_lists``, into new tensors: the full
+        one, or with ``incremental`` the incremental one unless its window
+        predicate holds (one host read). Taking the full path is the
+        reference's own algorithm, never a response to a kernel's failure."""
+        if not self.incremental:
+            return rebuild_dense(state, self.spec)[0]
+        new, window_overflow = rebuild_dense_incremental(state, self.spec)
+        self._taken.add_(torch.stack([~window_overflow, window_overflow]))
+        if bool(window_overflow):
+            return rebuild_dense(state, self.spec)[0]
+        return new
 
-    def _do_rebuild(self, carry: DenseCarry) -> DenseCarry:
-        state = self._rebuild_state(carry.state)
-        kept = torch.sum(state.valid())
-        return carry._replace(
-            state=state,
-            ref_pos=state.pos.clone(),  # state.pos is drifted in place
-            n_rebuilds=carry.n_rebuilds + 1,
-            overflow=carry.overflow | (kept != self.config.n),
-        )
+    def _rebuild(self, carry: DenseCarry, need, cond) -> None:
+        """Rebuild ``carry`` in place where the 0-d bool ``need`` holds
+        (``None``: always), branching through ``cond``: the rebuilt state is
+        copied into the carry's tensors."""
+        spec, n = self.spec, self.config.n
 
-    def step_fn(self, carry: DenseCarry) -> DenseCarry:
-        """One velocity-Verlet step. Updates ``carry``'s tensors in place."""
+        def take(new: DenseState) -> None:
+            for dst, src in zip(carry.state, new):
+                dst.copy_(src)
+            carry.ref_pos.copy_(new.pos)  # state.pos is drifted in place
+            carry.n_rebuilds.add_(1)
+            carry.overflow.logical_or_(torch.sum(new.valid()) != n)
+
+        def full() -> None:
+            take(rebuild_dense(carry.state, spec)[0])
+
+        def when(body) -> None:
+            if need is None:
+                body()
+            else:
+                cond(need, body)
+
+        if not self.incremental:
+            when(full)
+            return
+        merged = []
+
+        def incremental() -> None:
+            new, window_overflow = rebuild_dense_incremental(carry.state,
+                                                             spec)
+            merged.append(new)
+            self._window.copy_(torch.stack([window_overflow,
+                                            ~window_overflow]))
+            self._taken.add_(torch.stack([~window_overflow, window_overflow]))
+
+        # the JAX engine's lax.cond on the window predicate, as two branches
+        # on the flags the incremental branch sets
+        self._window.zero_()
+        when(incremental)
+        cond(self._window[0], full)
+        cond(self._window[1], lambda: take(merged[0]))
+
+    def _step(self, carry: DenseCarry, cond) -> None:
+        """One velocity-Verlet step, in place, branching through ``cond``."""
         cfg = self.config
         dt = float(np.float32(cfg.dt))
         state = carry.state
@@ -132,43 +184,54 @@ class DenseSimulator:
         state.pos.add_(state.vel, alpha=dt)
 
         # unwrapped coordinates make the displacement an exact difference
-        need = cfg.rebuild_every_step
-        if not need:
+        need = None
+        if not cfg.rebuild_every_step:
             disp = state.pos - carry.ref_pos
             d2 = torch.sum(disp * disp, dim=0)  # (R, mc, cap)
             d2max = torch.max(torch.where(state.valid(), d2, 0.0))
-            # the one host read of the step: the vote decides what to launch
-            need = bool(4.0 * d2max > cfg.skin * cfg.skin)
-        if need:
-            carry = self._do_rebuild(carry)
+            need = 4.0 * d2max > cfg.skin * cfg.skin
+        self._rebuild(carry, need, cond)
 
-        force, _ = self._forces(carry.state)
-        carry.state.vel.add_(force, alpha=0.5 * dt)
-        return carry._replace(force=force)
+        force, _ = self._forces(state)
+        carry.force.copy_(force)
+        state.vel.add_(carry.force, alpha=0.5 * dt)
+
+    def step_fn(self, carry: DenseCarry) -> DenseCarry:
+        """One velocity-Verlet step, eager (the vote read on the host).
+        Updates ``carry``'s tensors in place and returns it."""
+        self._step(carry, eager_cond)
+        return carry
 
     def _run_chunk(self, carry: DenseCarry, nsteps: int) -> DenseCarry:
-        for _ in range(nsteps):
-            carry = self.step_fn(carry)
+        """``nsteps`` steps in place: replays of one captured graph on the
+        card, eager steps on the CPU."""
+        self._runner.run(lambda cond: self._step(carry, cond), nsteps,
+                         [*carry.state, carry.force, carry.ref_pos,
+                          carry.n_rebuilds, carry.overflow, self._taken,
+                          self._window], key=self.spec)
         return carry
 
     def _initial_build(self, state: DenseState) -> DenseCarry:
+        """The first rebuild and forces, into ``state``'s tensors and new
+        ones: the carry whose storage the steps keep."""
         carry = DenseCarry(
             state=state,
             force=torch.zeros_like(state.pos),
-            ref_pos=state.pos,
+            ref_pos=torch.empty_like(state.pos),
             n_rebuilds=torch.zeros((), dtype=torch.int32, device=self.device),
             overflow=torch.zeros((), dtype=torch.bool, device=self.device),
         )
-        carry = self._do_rebuild(carry)
+        self._rebuild(carry, None, eager_cond)
         force, _ = self._forces(carry.state)
-        return carry._replace(force=force)
+        carry.force.copy_(force)
+        return carry
 
     def _rebuild_and_lists(self, state: DenseState):
         """The timed neighbour-list build: wrap + keys + sort + expand + the
         one-pass half-list kernel emitting the complete artifact — packed hit
         masks and half counts (total pairs = sum of counts over valid
         slots). Returns (new_state, counts, masks, total)."""
-        new = self._rebuild_state(state)
+        new = self._rebuilt(state)
         counts, masks = dense_force.dense_lists_half(new.pos, self.spec,
                                                      self.config.rs)
         total = torch.sum(torch.where(new.valid(), counts, 0))
@@ -205,9 +268,11 @@ class DenseSimulator:
 
     def run(self, carry: DenseCarry, nsteps: int,
             chunk: int = 100) -> DenseCarry:
-        """Advance ``nsteps`` steps in chunks. A chunk that overflowed a
-        cell is undone: the state at its start is rebuilt with a larger
-        ``cap`` (``n_rebuilds`` restarts there) and the chunk is redone."""
+        """Advance ``nsteps`` steps in chunks, in place. A chunk that
+        overflowed a cell is undone: the state at its start is rebuilt with a
+        larger ``cap`` (``n_rebuilds`` restarts there) and the chunk is
+        redone. Returns the carry (the one given, unless a chunk was
+        undone)."""
         done = 0
         while done < nsteps:
             this = min(chunk, nsteps - done)

@@ -10,12 +10,17 @@ under which no pair can cross into rc undetected. Every op is plain PyTorch
 on ``device`` (the card unless the caller asks for the CPU); the JAX package
 computes the same in XLA, outside any Pallas kernel.
 
-The engine runs eagerly, and its step is functional: ``step_fn`` returns new
-tensors and leaves the carry it was given as it was. Where the JAX step
-branches on the device (``lax.cond``), the vote is read on the host once a
-step; the sticky overflow flag is read once a chunk. A chunk that overflowed
-is rolled back to the carry it started from, the capacities grow, and the
-chunk is redone: never a silent truncation.
+A chunk of steps runs as one device program on the card, as the JAX
+``run_chunk`` (``jit(lax.scan(step))``) does: ``run`` replays a CUDA graph of
+one step (``utils/graphs.py``) in which the rebuild is a conditional node on
+the device's displacement vote (the JAX ``lax.cond``). That step writes every
+new tensor into the carry's own storage, so ``run`` consumes the carry it is
+given; it clones the carry at the start of each chunk and reads the sticky
+overflow flag once a chunk. A chunk that overflowed is rolled back to that
+clone, the capacities grow, and the chunk is redone: never a silent
+truncation. On the CPU the same step runs eagerly and reads the vote on the
+host. ``step_fn`` is one eager step and stays functional: it returns a new
+carry and leaves the one it was given as it was.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from md_neighbor_list_tpu_torch.ops.binning import CellGrid, make_grid
 from md_neighbor_list_tpu_torch.ops.integrate import (drift, half_kick,
                                                       kinetic_energy)
 from md_neighbor_list_tpu_torch.ops.pairlist import build_neighbor_lists
+from md_neighbor_list_tpu_torch.utils.graphs import ChunkRunner, eager_cond
 
 
 class NeighborState(NamedTuple):
@@ -52,6 +58,15 @@ class NeighborState(NamedTuple):
 class Carry(NamedTuple):
     system: System
     nbr: NeighborState
+
+
+def _tensors(carry: Carry) -> list[torch.Tensor]:
+    return [*carry.system, *carry.nbr]
+
+
+def _clone(carry: Carry) -> Carry:
+    return Carry(System(*(t.clone() for t in carry.system)),
+                 NeighborState(*(t.clone() for t in carry.nbr)))
 
 
 class Simulator:
@@ -81,6 +96,7 @@ class Simulator:
                     cell=capacity.cell if config.cell_capacity is None
                     else config.cell_capacity)
         self.capacity = capacity
+        self._runner = ChunkRunner()
 
     # ---------------------------------------------------------- internals
     def _do_rebuild(self, system: System, nbr: NeighborState | None) -> Carry:
@@ -99,38 +115,53 @@ class Simulator:
         else:
             n_rebuilds = nbr.n_rebuilds + 1
             overflow = nl.overflow | nbr.overflow  # sticky
+        # ref_pos in storage of its own: the steps update pos in place
         return Carry(system, NeighborState(
-            idx=nl.idx, ref_pos=pos_sorted, max_count=nl.max_count,
+            idx=nl.idx, ref_pos=pos_sorted.clone(), max_count=nl.max_count,
             cell_max=nl.cell_max, overflow=overflow, n_rebuilds=n_rebuilds))
 
     def _forces(self, carry: Carry):
         return lj.forces_energy(carry.system.pos, carry.nbr.idx, self.box,
                                 self.config.rc, self.config.half_list)
 
-    def step_fn(self, carry: Carry) -> Carry:
-        """One velocity-Verlet step; returns a new carry."""
+    def _step(self, carry: Carry, cond) -> None:
+        """One velocity-Verlet step written into ``carry``'s tensors,
+        branching through ``cond``."""
         cfg, box = self.config, self.box
         system, nbr = carry
         vel = half_kick(system.vel, system.force, cfg.dt)
-        pos = drift(system.pos, vel, cfg.dt, box)
-        system = system._replace(pos=pos, vel=vel)
+        system.pos.copy_(drift(system.pos, vel, cfg.dt, box))
+        system.vel.copy_(vel)
 
-        need = cfg.rebuild_every_step
-        if not need:
-            disp = box.min_image(pos - nbr.ref_pos)
+        def rebuild() -> None:  # the overflow flag stays sticky in it
+            for dst, src in zip(_tensors(carry),
+                                _tensors(self._do_rebuild(system, nbr))):
+                dst.copy_(src)
+
+        if cfg.rebuild_every_step:
+            rebuild()
+        else:
+            disp = box.min_image(system.pos - nbr.ref_pos)
             d2max = torch.max(torch.sum(disp * disp, dim=-1))
-            # the one host read of the step: the vote decides what runs
-            need = bool(4.0 * d2max > float(np.float32(cfg.skin * cfg.skin)))
-        if need:
-            system, nbr = self._do_rebuild(system, nbr)
+            cond(4.0 * d2max > float(np.float32(cfg.skin * cfg.skin)),
+                 rebuild)
 
-        force, _ = self._forces(Carry(system, nbr))
-        vel = half_kick(system.vel, force, cfg.dt)
-        return Carry(system._replace(vel=vel, force=force), nbr)
+        force, _ = self._forces(carry)
+        system.vel.copy_(half_kick(system.vel, force, cfg.dt))
+        system.force.copy_(force)
+
+    def step_fn(self, carry: Carry) -> Carry:
+        """One velocity-Verlet step, eager (the vote read on the host);
+        returns a new carry."""
+        out = _clone(carry)
+        self._step(out, eager_cond)
+        return out
 
     def _run_chunk(self, carry: Carry, nsteps: int) -> Carry:
-        for _ in range(nsteps):
-            carry = self.step_fn(carry)
+        """``nsteps`` steps in place: replays of one captured graph on the
+        card, eager steps on the CPU."""
+        self._runner.run(lambda cond: self._step(carry, cond), nsteps,
+                         _tensors(carry), key=self.capacity)
         return carry
 
     def _initial_build(self, system: System) -> Carry:
@@ -160,7 +191,9 @@ class Simulator:
     def build(self, system: System) -> Carry:
         """Carry from a System (any row order, on any device); grows the
         capacities until the build fits."""
-        system = System(*(t.to(self.device) for t in system))
+        # a copy: the carry is updated in place and must not share the
+        # caller's storage
+        system = System(*(t.to(self.device, copy=True) for t in system))
         while True:
             carry = self._initial_build(system)
             if not bool(carry.nbr.overflow):
@@ -173,14 +206,15 @@ class Simulator:
         return self._do_rebuild(system, None)
 
     def run(self, carry: Carry, nsteps: int, chunk: int = 100) -> Carry:
-        """Advance ``nsteps`` steps in chunks of ``chunk``. Between chunks the
-        host reads the sticky overflow flag and, on overflow, rebuilds the
-        carry the chunk started from with grown capacities and redoes the
-        chunk."""
+        """Advance ``nsteps`` steps in chunks of ``chunk``, in place. Between
+        chunks the host reads the sticky overflow flag and, on overflow,
+        rebuilds the carry the chunk started from with grown capacities and
+        redoes the chunk. Returns the carry (the one given, unless a chunk
+        was undone)."""
         done = 0
         while done < nsteps:
             this = min(chunk, nsteps - done)
-            snapshot = carry  # step_fn leaves it untouched
+            snapshot = _clone(carry)
             carry = self._run_chunk(carry, this)
             if bool(carry.nbr.overflow):
                 self._grow()

@@ -10,7 +10,10 @@ module is imported; the first kernel launch builds.
 ``launch(name, ...)`` is the only place a kernel is launched: it calls the C
 entry ``mdnl_<name>`` on PyTorch's current stream, raises when the entry
 returns a CUDA error, and adds one to ``LAUNCHES[name]``. There is no
-fallback: a failed build or launch is an error.
+fallback: a failed build or launch is an error. ``graph_if`` and
+``graph_body`` place the conditional nodes of a captured graph
+(``csrc/graph_cond.cu``, for ``utils/graphs.py``); they launch no kernel of
+``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -149,6 +152,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, "mdnl_" + name)
             fn.argtypes = argtypes + [_P]  # every pointer, and the stream
             fn.restype = _I
+        lib.mdnl_graph_if.argtypes = [_P, ctypes.POINTER(_P), _P]
+        lib.mdnl_graph_body.argtypes = [_P, _P]
+        for fn in (lib.mdnl_graph_if, lib.mdnl_graph_body):
+            fn.restype = _I
         _lib = lib
     return _lib
 
@@ -164,6 +171,32 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch "
                            f"(cudaError {err})")
     LAUNCHES[name] += 1
+
+
+def graph_if(pred: torch.Tensor) -> int:
+    """Append to the graph that the current stream captures an "if" node on
+    the 0-d bool CUDA tensor ``pred``; return its empty body graph (a
+    ``cudaGraph_t`` as an int) for ``graph_body``."""
+    if pred.dtype != torch.bool or pred.numel() != 1 or not pred.is_cuda:
+        raise ValueError("a branch condition is a 0-d bool CUDA tensor, got "
+                         f"{pred.dtype} of shape {tuple(pred.shape)} on "
+                         f"{pred.device}")
+    body = _P()
+    with torch.cuda.device(pred.device):
+        err = library().mdnl_graph_if(pred.data_ptr(), ctypes.byref(body),
+                                      torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conditional graph node not added (cudaError "
+                           f"{err}): is the current stream capturing?")
+    return body.value
+
+
+def graph_body(body: int, child: int) -> None:
+    """Place the graph ``child`` (a ``cudaGraph_t`` as an int) into the
+    conditional body ``body`` from ``graph_if``, as a child graph node."""
+    err = library().mdnl_graph_body(body, child)
+    if err != 0:
+        raise RuntimeError(f"conditional body not filled (cudaError {err})")
 
 
 def check_cuda(*tensors: torch.Tensor) -> None:

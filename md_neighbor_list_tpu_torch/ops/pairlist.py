@@ -22,8 +22,8 @@ import torch
 
 from md_neighbor_list_tpu_torch.core.box import Box
 from md_neighbor_list_tpu_torch.ops import oracle
-from md_neighbor_list_tpu_torch.ops.binning import (NEIGHBOR_OFFSETS, BinData,
-                                                    CellGrid, bin_particles,
+from md_neighbor_list_tpu_torch.ops.binning import (BinData, CellGrid,
+                                                    bin_particles,
                                                     rowmajor_key)
 from md_neighbor_list_tpu_torch.ops.common import compact_rows
 
@@ -60,8 +60,11 @@ def sweep_from_bins(pos_sorted: torch.Tensor, bins: BinData, box: Box,
 
     Returns (idx (N, K), count (N,)). Candidate validity is an explicit
     ``cand < N`` mask. Half lists keep ``cand > i`` in sorted order. r2 is
-    summed as dx*dx + dy*dy + dz*dz, each step rounded, so the mask is the
-    JAX package's bit for bit."""
+    summed as dx*dx + dy*dy + dz*dz, each product and sum rounded to f32.
+    The mask is the JAX package's bit for bit except for a pair whose r2
+    lies within an ulp of the cutoff: XLA on the CPU contracts the sum into
+    fused multiply-adds, which can put such a pair one ulp on the other side
+    (``tests/test_torch_cutoff_band.py``)."""
     n = pos_sorted.shape[0]
     dev = pos_sorted.device
     cell_cap = bins.table.shape[1]
@@ -69,7 +72,10 @@ def sweep_from_bins(pos_sorted: torch.Tensor, bins: BinData, box: Box,
     cnt = torch.empty((n,), dtype=torch.int32, device=dev)
     # a sentinel row keeps the gathers in bounds; masked out by cand < n
     pos_gather = torch.cat([pos_sorted, pos_sorted.new_zeros((1, 3))])
-    offsets = torch.from_numpy(NEIGHBOR_OFFSETS).to(dev)
+    # NEIGHBOR_OFFSETS (dx fastest, then dy, dz) made on the device: a copy
+    # from the host would have no place in a captured graph
+    k = torch.arange(27, dtype=torch.int32, device=dev)
+    offsets = torch.stack([k % 3, k // 3 % 3, k // 9], dim=-1) - 1
     r2cut = _r2_f32(radius)
 
     for start in range(0, n, chunk):

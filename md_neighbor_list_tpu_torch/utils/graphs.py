@@ -1,0 +1,172 @@
+"""Run a chunk of engine steps as one device program: the port's counterpart
+of the JAX engines' ``jit(lax.scan(step))`` with the rebuild under
+``lax.cond``. The JAX package has no module for this; XLA compiles it.
+
+An engine writes its step once, as ``step(cond)``. The step updates tensors
+that keep their storage (every new result is copied into them) and branches
+only through ``cond(pred, body)``: ``pred`` a 0-d bool tensor on the step's
+device, ``body`` a function of no arguments that writes only into tensors
+that outlive it. A body calls no ``cond``: a branch that depends on another
+is a second ``cond`` on a flag that the first body sets and the step clears
+before it.
+
+``ChunkRunner.run(step, nsteps, carry, key)`` runs the step ``nsteps`` times:
+
+- on the CPU, eagerly, each ``cond`` reading ``pred`` on the host
+  (``eager_cond``, which is also how one eager step runs on the card);
+- on a CUDA device, as ``nsteps`` replays of one ``StepGraph`` with no host
+  read between them, then one read of the branch counters. The graph is
+  captured for the carry's tensors (their addresses, shapes and types) and
+  the caller's ``key``, and captured again when any of them changes, as the
+  JAX engine compiles again after its capacity grows.
+
+``StepGraph`` captures one step: first every body is run once, eagerly, on a
+side stream, with the carry saved before and restored after (this builds the
+kernel library, sizes the sort's scratch space and takes every branch); then
+the step is captured into a ``torch.cuda.CUDAGraph``, each ``cond`` as a
+conditional node (``ops/_cuda.graph_if``, ``csrc/graph_cond.cu``); then each
+body is captured as a graph of its own and placed into its node. A capture
+that fails raises: there is no host-branch loop on the card to fall back to.
+
+Launches: ``ops/_cuda.launch`` counts a kernel when it is called, so a
+captured kernel is counted once at capture and never at replay. The capture
+notes the launches of the step outside its bodies and of each body, puts the
+counters back as they were, and each chunk adds the step's launches times
+the steps and each body's launches times the times it ran on the device
+(``accrue``).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Sequence
+
+import torch
+
+from md_neighbor_list_tpu_torch.ops import _cuda
+
+Cond = Callable[[torch.Tensor, Callable[[], None]], None]
+Step = Callable[[Cond], None]
+
+
+def eager_cond(pred: torch.Tensor, body: Callable[[], None]) -> None:
+    """The branch taken on the host: one read of ``pred``."""
+    if bool(pred):
+        body()
+
+
+def accrue(counts: dict, per_step: dict, per_body: Sequence[dict],
+           taken: Sequence[int], steps: int) -> None:
+    """Add to the launch counters ``counts`` what ``steps`` replays did: the
+    step's own launches each step, and each body's each time it ran
+    (``taken``, in the order of ``per_body``)."""
+    for name, n in per_step.items():
+        counts[name] += steps * n
+    for body, times in zip(per_body, taken):
+        for name, n in body.items():
+            counts[name] += times * n
+
+
+def _launched_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
+            if v != before[k]}
+
+
+class StepGraph:
+    """One step captured as a CUDA graph with its branches as conditional
+    nodes. ``carry``: every tensor the step writes (saved and restored
+    around the warm-up)."""
+
+    def __init__(self, step: Step, carry: Sequence[torch.Tensor]):
+        device = carry[0].device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            saved = [t.clone() for t in carry]
+            step(lambda pred, body: body())  # every branch, once
+            for t, s in zip(carry, saved):
+                t.copy_(s)
+        torch.cuda.current_stream(device).wait_stream(side)
+        del saved
+
+        counts = dict(_cuda.LAUNCHES)
+        self._nodes: list[tuple[int, Callable[[], None]]] = []
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        try:
+            with torch.cuda.graph(self.graph):
+                step(self._node)
+            self.per_step = _launched_since(counts)
+            # each body's count of runs, raised inside the body
+            self.hits = torch.zeros(len(self._nodes), dtype=torch.int64,
+                                    device=device)
+            self.per_body: list[dict] = []
+            self._bodies = []  # keep the body graphs and their pool alive
+            pool = torch.cuda.graph_pool_handle()
+            for i, (node, body) in enumerate(self._nodes):
+                mark = dict(_cuda.LAUNCHES)
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    graph.capture_begin(pool=pool)
+                    try:
+                        self._capturing_body = True
+                        body()
+                        self.hits[i].add_(1)
+                    finally:
+                        self._capturing_body = False
+                        graph.capture_end()
+                self.per_body.append(_launched_since(mark))
+                _cuda.graph_body(node, graph.raw_cuda_graph())
+                self._bodies.append(graph)
+            self.graph.instantiate()
+        finally:
+            _cuda.LAUNCHES.update(counts)  # nothing captured has run
+        self._nodes.clear()  # the bodies' closures are no longer needed
+
+    _capturing_body = False
+
+    def _node(self, pred: torch.Tensor, body: Callable[[], None]) -> None:
+        if self._capturing_body:
+            raise RuntimeError("a branch inside a branch: conditional nodes "
+                               "do not nest in a body graph")
+        self._nodes.append((_cuda.graph_if(pred), body))
+
+    def replay(self, nsteps: int) -> None:
+        """``nsteps`` steps on the device; the host reads nothing."""
+        self.hits.zero_()
+        for _ in range(nsteps):
+            self.graph.replay()
+
+    def settle(self, nsteps: int) -> None:
+        """After ``replay(nsteps)``: one read of the branch counters, and the
+        launches of the replays added to ``_cuda.LAUNCHES``."""
+        accrue(_cuda.LAUNCHES, self.per_step, self.per_body,
+               self.hits.tolist(), nsteps)
+
+
+class ChunkRunner:
+    """An engine's chunk: ``step`` run ``nsteps`` times over ``carry``."""
+
+    def __init__(self):
+        self.graph: StepGraph | None = None
+        self._key = None
+        self.captures = 0  # graphs captured so far
+        self.capture_s = 0.0  # host seconds of the last capture, warm-up in
+
+    def run(self, step: Step, nsteps: int, carry: Sequence[torch.Tensor],
+            key=None) -> None:
+        if not carry[0].is_cuda:
+            for _ in range(nsteps):
+                step(eager_cond)
+            return
+        full_key = (key, tuple((t.data_ptr(), tuple(t.shape), t.dtype)
+                               for t in carry))
+        if self.graph is None or full_key != self._key:
+            self.graph = None  # free the old graph's memory first
+            t0 = time.perf_counter()
+            self.graph = StepGraph(step, carry)
+            self.capture_s = time.perf_counter() - t0
+            self._key = full_key
+            self.captures += 1
+        self.graph.replay(nsteps)
+        self.graph.settle(nsteps)

@@ -14,8 +14,10 @@ import torch
 
 from md_neighbor_list_tpu_torch.ops import (_cuda, dense_cells, dense_force,
                                             incremental, slab_kernels)
-from torch_port_util import (CASES, RC, RS, clustered_system, numpy_system,
-                             scatter_slots, torch_state)
+from md_neighbor_list_tpu_torch.utils import graphs
+from torch_port_util import (BAND_N, BAND_RHO, CASES, RC, RS,
+                             clustered_system, cutoff_band_inputs,
+                             numpy_system, scatter_slots, torch_state)
 
 pytestmark = pytest.mark.gpu
 
@@ -548,3 +550,150 @@ def test_lists_and_full_sweep_on_scattered_slots(card, cap):
                         ("count_half", 1), ("count_full", 1),
                         ("force_full", 2), ("force_full_pe", 2)):
         assert after[name] == before[name] + times, name
+
+
+def test_cutoff_band_pair_left_out_on_the_card(card):
+    """The pair of ``tests/test_torch_cutoff_band.py`` whose step-rounded f32
+    r2 is the cutoff: K2, K5 and K7 leave it out on the card, bitwise as
+    their plain versions do (their r2 is rounded step by step, never
+    contracted into fused multiply-adds)."""
+    pos, _, rs = cutoff_band_inputs()
+    n = BAND_N
+    state, spec, _ = torch_state(pos, np.zeros_like(pos),
+                                 np.arange(n, dtype=np.int32), 32, rs=rs,
+                                 rho=BAND_RHO)
+    state = dense_cells.DenseState(*(t.to(card) for t in state))
+    new, _ = dense_cells.rebuild_dense(state, spec)
+    valid = new.valid()
+    assert int(valid.sum()) == n
+    counts, masks = dense_force.dense_lists_half(new.pos, spec, rs)
+    counts_p, masks_p = dense_force.lists_half_plain(new.pos, spec, rs)
+    assert torch.equal(counts, counts_p) and torch.equal(masks, masks_p)
+    half = dense_force.dense_counts_half(new.pos, spec, rs)
+    assert torch.equal(half, dense_force.counts_half_plain(new.pos, spec, rs))
+    full = dense_force.dense_counts(new.pos, valid, spec, rs)
+    assert torch.equal(full, dense_force.counts_full_plain(new.pos, valid,
+                                                           spec, rs))
+    assert int(counts[valid].sum()) == int(half[valid].sum()) == 55_954
+    assert int(full[valid].sum()) == 2 * 55_954
+
+
+HOT = dict(dt=0.005, temperature=2.0)  # a rebuild every few steps
+
+
+def _strict_replays(monkeypatch):
+    """Every ``StepGraph.replay`` under ``set_sync_debug_mode("error")``: a
+    host read inside a chunk raises."""
+    replay = graphs.StepGraph.replay
+
+    def strict(self, nsteps):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            replay(self, nsteps)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(graphs.StepGraph, "replay", strict)
+
+
+@pytest.mark.parametrize("engine, cap", [("dense", 32), ("dense", 384),
+                                         ("incremental", 32), ("xla", None)])
+def test_graph_chunk_matches_eager_steps(card, engine, cap, monkeypatch):
+    """``run`` (one captured step replayed, the rebuild a conditional node)
+    against a loop of the eager ``step_fn`` from one carry: the same
+    rebuilds and branch counts, positions within 5e-4 (K3's and the xla
+    scatter's reactions are float atomics), no host read inside the chunk,
+    and the launches counted under replay those of the eager loop plus the
+    capture's warm-up, which takes every branch once. At cap 384 the sweeps
+    opt into more than 48 KB of shared memory while being captured."""
+    from md_neighbor_list_tpu_torch import (DenseSimulator, MDConfig,
+                                            Simulator)
+    from md_neighbor_list_tpu_torch.models import dense_lj, lj_nve
+    from md_neighbor_list_tpu_torch.utils import convert
+
+    n, steps = 1728, 40
+    pos, vel, pid = numpy_system(n, seed=5)
+    system = convert.system_from_numpy(pos, 1.4 * vel, np.zeros_like(pos),
+                                       pid, device=card)
+    if engine == "xla":
+        sim = Simulator(MDConfig(n=n, **HOT), device=card)
+        clone, rebuilds = lj_nve._clone, lambda c: int(c.nbr.n_rebuilds)
+
+        def by_pid(c):
+            out = np.empty((n, 3), np.float32)
+            out[c.system.pid.cpu().numpy()] = c.system.pos.cpu().numpy()
+            return out
+    else:
+        sim = DenseSimulator(MDConfig(n=n, **HOT), cap=cap, device=card,
+                             incremental=engine == "incremental")
+        clone, rebuilds = dense_lj._clone, lambda c: int(c.n_rebuilds)
+
+        def by_pid(c):
+            return sim.to_system(c)[0]
+    carry = sim.build(system)
+    eager, graph = clone(carry), clone(carry)
+
+    taken = [getattr(sim, "_taken", torch.zeros(2)).tolist()]
+    _cuda.reset_launches()
+    for _ in range(steps):
+        eager = sim.step_fn(eager)
+    torch.cuda.synchronize()
+    eager_launches = dict(_cuda.LAUNCHES)
+    taken.append(getattr(sim, "_taken", torch.zeros(2)).tolist())
+
+    _strict_replays(monkeypatch)
+    _cuda.reset_launches()
+    graph = sim.run(graph, steps, chunk=steps)
+    torch.cuda.synchronize()
+    graph_launches = dict(_cuda.LAUNCHES)
+    taken.append(getattr(sim, "_taken", torch.zeros(2)).tolist())
+
+    assert sim._runner.captures == 1
+    assert rebuilds(graph) == rebuilds(eager) > rebuilds(carry) + 1
+    if engine == "incremental":
+        assert [b - a for a, b in zip(taken[0], taken[1])] == \
+            [b - a for a, b in zip(taken[1], taken[2])]
+    d = np.abs(by_pid(graph) - by_pid(eager))
+    assert np.minimum(d, sim.box.L - d).max() < 5e-4
+    captured = sim._runner.graph
+    for name, count in graph_launches.items():
+        warm = captured.per_step.get(name, 0) + sum(
+            b.get(name, 0) for b in captured.per_body)
+        assert count == eager_launches[name] + warm, name
+    if engine != "xla":
+        assert graph_launches["forces_half"] == steps + 1
+
+
+def test_graph_recaptured_after_the_capacity_grows(card):
+    """Rows that fit the start exactly overflow inside a chunk (rs = 1.42
+    next to the lattice's second shell, as in ``test_torch_simulator``): the
+    chunk rolls back, the capacity grows and a new graph is captured for the
+    rebuilt carry; the run ends where an engine with ample rows ends."""
+    from md_neighbor_list_tpu_torch import MDConfig, Simulator
+    from md_neighbor_list_tpu_torch.core.capacity import Capacity
+    from md_neighbor_list_tpu_torch.utils import convert
+
+    n = 1728
+    pos, vel, pid = numpy_system(n, seed=3)
+    cfg = MDConfig(n=n, rho=1.0, dt=0.002, skin=0.12, rc=1.3,
+                   temperature=1.0)
+
+    def system():
+        return convert.system_from_numpy(pos, vel, np.zeros_like(pos), pid,
+                                         device=card)
+
+    ample = Simulator(cfg, device=card)
+    want = ample.run(ample.build(system()), 20, chunk=10)
+    start = ample.build(system())
+    tight = Capacity(neighbors=int(start.nbr.max_count),
+                     cell=ample.capacity.cell)
+    sim = Simulator(cfg, capacity=tight, device=card)
+    carry = sim.run(sim.build(system()), 20, chunk=10)
+    assert sim.capacity.neighbors > tight.neighbors
+    assert sim._runner.captures >= 2 and not bool(carry.nbr.overflow)
+    assert int(carry.nbr.n_rebuilds) == int(want.nbr.n_rebuilds)
+    got = np.empty((n, 3), np.float32)
+    got[carry.system.pid.cpu().numpy()] = carry.system.pos.cpu().numpy()
+    ref = np.empty((n, 3), np.float32)
+    ref[want.system.pid.cpu().numpy()] = want.system.pos.cpu().numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=5e-4)

@@ -104,6 +104,27 @@ def clustered_system(k: int, seed: int, n: int = 700, rs: float = RS):
     return pos, vel, pid
 
 
+# A pair on the f32 cutoff (tests/test_torch_cutoff_band.py): 2,000 points
+# drawn uniformly at density 0.8, and rs set so that the f32 r2 of pair
+# (1140, 1334), rounded step by step, equals the f32 cutoff exactly
+BAND_N, BAND_RHO, BAND_SEED = 2000, 0.8, 22
+BAND_PAIR = (1140, 1334)
+
+
+def cutoff_band_inputs():
+    """(pos (N, 3) f32, L, rs): rs is the square root of the float64 value
+    of the pair's step-rounded f32 min-image r2, so that the f32 cutoff is
+    that r2 exactly."""
+    L = float((BAND_N / BAND_RHO) ** (1.0 / 3.0))
+    pos = np.random.default_rng(BAND_SEED).uniform(
+        0, L, (BAND_N, 3)).astype(np.float32)
+    d = pos[BAND_PAIR[0]] - pos[BAND_PAIR[1]]
+    d = d - np.float32(L) * np.round(d / np.float32(L))
+    sq = d * d  # each product rounded to f32
+    r2 = (sq[0] + sq[1]) + sq[2]  # each sum rounded to f32
+    return pos, L, float(np.sqrt(np.float64(r2)))
+
+
 def jax_state(pos, vel, pid, cap, rs=RS, rho=1.0):
     box = JBox.from_density(pos.shape[0], rho)
     spec = jdc.make_spec(box, rs, cap)
