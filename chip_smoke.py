@@ -34,7 +34,9 @@ launch counters set to 0 just before and read just after:
   dense_slab     ``DenseSlabSimulator`` (the slab domain decomposition) in its
                  P = 1 self-halo mode on a one-rank NCCL group at
                  N = 1,000,000: 40,000,000 pairs, 1000 NVE steps through the
-                 slab forms of K1-K3, the trajectory of the cube engine after
+                 slab forms of K1-K3 (replays of one captured step, the
+                 group's ``all_reduce`` calls in the graph: ``chunk`` says
+                 "graph"), the trajectory of the cube engine after
                  100 steps. Before it, phase ``small_slab_shapes`` holds the
                  slab forms against their plain versions and the oracle at
                  nz = 1 and at cap 384 (a cluster in one cell), and grows the
@@ -78,12 +80,23 @@ and must launch none of the kernels (their counters are read around each):
 
 Since the engines run each chunk as one captured CUDA graph (``run`` replays one
 step, the rebuild a conditional node), phase ``graph_chunk`` follows
-``main_path``, ``incremental`` and ``xla_engine``: from the path's final carry,
-100 steps by ``run``, every replay under ``set_sync_debug_mode("error")`` (a
-host read inside a chunk fails the run), against 100 steps of the eager
-``step_fn``: equal rebuilds (and branch counts), positions within 5e-4, the
+``main_path``, ``incremental``, ``dense_slab`` and ``xla_engine``: from the
+path's final carry, 100 steps by ``run``, every replay under
+``set_sync_debug_mode("error")`` (a host read inside a chunk fails the run),
+against 100 steps of the eager ``step_fn``: equal rebuilds (and branch
+counts), positions within 5e-4 (the slab engine's gathered by pid), the
 drift, steps/s of both and the capture's seconds. The timed runs leave their
-one capture out of steps/s and print it as ``capture_s``.
+one capture out of steps/s and print it as ``capture_s``. Phase
+``build_graph`` follows ``graph_chunk`` on the two ``DenseSimulator`` paths:
+the list build ``_rebuild_and_lists`` as one replay of its captured graph (the
+state copied into the engine's buffers first) against its eager twin on five
+states (the lattice's ``from_packed`` seed, which trips the incremental
+engine's window predicate, the lattice start, three drifted states): state,
+counts and masks bitwise, totals and branch counts equal; ``build_ms`` both
+ways. Phase ``entry`` (after ``dense_slab``) drives the port's entry points,
+``md_neighbor_list_tpu_torch/entry.py``: ``entry()`` and one step at
+N = 8,192, then ``dryrun_multichip(4)`` (four ``LocalRing`` threads on the
+card, eager steps, with its P = 2 overlap phase), whose gates raise.
 
 Each phase prints one JSON line; any failure ends the run with a non-zero exit
 code. Without a CUDA device the script fails at once. ``--profile`` adds a
@@ -126,13 +139,14 @@ import torch
 from md_neighbor_list_tpu_torch import (PRESETS, DenseSimulator, MDConfig,
                                         Simulator, api, cli, neighbor_list,
                                         pair_list)
+from md_neighbor_list_tpu_torch import entry as entry_points
 from md_neighbor_list_tpu_torch.core.box import Box
 from md_neighbor_list_tpu_torch.core.system import System, init_lattice
 from md_neighbor_list_tpu_torch.models import dense_lj, lj_nve
 from md_neighbor_list_tpu_torch.ops import (_cuda, decode, dense_cells,
                                             dense_force, dense_ref,
                                             incremental, oracle, slab_kernels)
-from md_neighbor_list_tpu_torch.parallel import mesh
+from md_neighbor_list_tpu_torch.parallel import dense_slab, mesh
 from md_neighbor_list_tpu_torch.parallel.dense_slab import (
     DenseSlabSimulator, make_slab_spec)
 from md_neighbor_list_tpu_torch.parallel.slab import (DDCapacity,
@@ -895,10 +909,14 @@ def full_width(sim: DenseSimulator) -> list[dict]:
 
 
 # ------------------------------------------------------------ main path
-def chained_builds_ms(sim: DenseSimulator, state, reps: int = 10) -> float:
+def chained_builds_ms(sim: DenseSimulator, state, reps: int = 10,
+                      build=None) -> float:
     """ms per list build over ``reps`` chained builds, each from a state
     drifted ballistically so that the largest displacement is skin/2 — the
-    state a rebuild sees when the displacement vote fires."""
+    state a rebuild sees when the displacement vote fires. ``build``: the
+    engine's ``_rebuild_and_lists`` (on the card one replay of the captured
+    build), or its eager twin."""
+    build = build or sim._rebuild_and_lists
     v2 = torch.sum(state.vel * state.vel, dim=0)
     tau = 0.5 * sim.config.skin / torch.sqrt(torch.max(v2))
 
@@ -906,7 +924,7 @@ def chained_builds_ms(sim: DenseSimulator, state, reps: int = 10) -> float:
         st = state
         for _ in range(reps):
             st = st._replace(pos=st.pos + tau * st.vel)
-            st, _, _, _ = sim._rebuild_and_lists(st)
+            st, _, _, _ = build(st)
 
     return time_ms(chain, 1) / reps
 
@@ -986,18 +1004,25 @@ def graph_chunk(sim, carry, path: str) -> None:
     step captured as a CUDA graph and replayed, the rebuild a conditional
     node; every replay under ``strict_replays``) and as many by a loop of
     the eager ``step_fn`` (the vote read on the host each step). Equal
-    rebuilds, for the incremental engine equal branch counts, positions
+    rebuilds, for the two dense engines equal branch counts, positions
     within ``TRAJECTORY_TOL`` of each other, |dE/E| of the graph run at most
-    1e-4; steps/s of both and the capture's seconds. With ``--profile``, the
-    device's busy share of 50 eager steps beside ``profile``'s 50 graph
-    steps."""
+    1e-4; steps/s of both and the capture's seconds. The engine is the cube
+    or incremental ``DenseSimulator``, the xla ``Simulator`` or the slab
+    engine (its positions gathered by pid over the ring). With
+    ``--profile``, the device's busy share of 50 eager steps beside
+    ``profile``'s 50 graph steps."""
     xla = isinstance(sim, Simulator)
-    clone = lj_nve._clone if xla else dense_lj._clone
+    slab = isinstance(sim, DenseSlabSimulator)
+    counted = not (xla or slab)  # the dense engines count their branches
+    clone = (lj_nve._clone if xla else dense_slab._clone if slab
+             else dense_lj._clone)
 
     def rebuilds(c) -> int:
         return int(c.nbr.n_rebuilds if xla else c.n_rebuilds)
 
     def by_pid(c) -> np.ndarray:
+        if slab:
+            return sim.gather(c).pos.cpu().numpy()
         if not xla:
             return sim.to_system(c)[0]
         out = np.empty(tuple(c.system.pos.shape), np.float32)
@@ -1006,7 +1031,7 @@ def graph_chunk(sim, carry, path: str) -> None:
 
     graph, eager = clone(carry), clone(carry)
     e0 = sum(float(x) for x in sim.energies(carry))
-    taken = [] if xla else [sim._taken.tolist()]
+    taken = [sim._taken.tolist()] if counted else []
     captures = sim._runner.captures
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1015,14 +1040,14 @@ def graph_chunk(sim, carry, path: str) -> None:
     torch.cuda.synchronize()
     graph_s = time.perf_counter() - t0
     capture_s = captured_seconds(sim, captures, f"graph_chunk {path}")
-    if not xla:
+    if counted:
         taken.append(sim._taken.tolist())
     t0 = time.perf_counter()
     for _ in range(GRAPH_STEPS):
         eager = sim.step_fn(eager)
     torch.cuda.synchronize()
     eager_s = time.perf_counter() - t0
-    if not xla:
+    if counted:
         taken.append(sim._taken.tolist())
 
     d = np.abs(by_pid(graph) - by_pid(eager))
@@ -1034,7 +1059,7 @@ def graph_chunk(sim, carry, path: str) -> None:
           f"graph_chunk {path}: {r_graph} rebuilds by the graph, {r_eager} "
           f"eager, {rebuilds(carry)} at the start")
     branches = {}
-    if not xla:
+    if counted:
         by_graph = [b - a for a, b in zip(taken[0], taken[1])]
         by_eager = [b - a for a, b in zip(taken[1], taken[2])]
         check(by_graph == by_eager,
@@ -1055,6 +1080,109 @@ def graph_chunk(sim, carry, path: str) -> None:
          launches_per_branch=sim._runner.graph.per_body)
     if "--profile" in sys.argv[1:]:
         profile_steps(sim, eager, f"{path}_eager", eager=True)
+
+
+# ------------------------------------------------------------ build graph
+def build_states(sim: DenseSimulator, carry) -> list[tuple[str, object]]:
+    """The states the captured build is held on: the ``from_packed`` seed of
+    the lattice start (nearly every particle away from its cell: the mover
+    stream trips the window predicate), the lattice start's rebuilt state,
+    and three drifted states (the path's final state moved ballistically to
+    a largest displacement of skin/2, and two Gaussian drifts)."""
+    cfg = sim.config
+    system, _ = init_lattice(cfg.n, cfg.rho, None, cfg.temperature,
+                             sim.device)
+    seed = dense_cells.from_packed(system.pos, system.vel, system.pid,
+                                   sim.spec)
+    lattice = sim._rebuild_and_lists_eager(seed)[0]
+    st = carry.state
+    v2 = torch.sum(st.vel * st.vel, dim=0)
+    tau = 0.5 * cfg.skin / torch.sqrt(torch.max(v2))
+    g = torch.Generator(sim.device).manual_seed(12)
+    out = [("from_packed_seed", seed), ("lattice", lattice),
+           ("ballistic_skin_half", st._replace(pos=st.pos + tau * st.vel))]
+    for sigma in (0.05, 0.1):
+        dr = sigma * torch.randn(st.pos.shape, generator=g,
+                                 device=sim.device)
+        out.append((f"gauss_{sigma}", st._replace(
+            pos=st.pos + torch.where(st.valid()[None], dr, 0.0))))
+    return out
+
+
+def build_graph(sim: DenseSimulator, carry, path: str) -> None:
+    """``_rebuild_and_lists`` on the card (the state copied into the
+    engine's buffers, then one replay of the captured build, every replay
+    under ``strict_replays``) against its eager twin on each of
+    ``build_states``: the state, counts and masks bitwise, the totals equal,
+    the branch counts equal (one state must take the full rebuild of the
+    incremental engine); then ``build_ms`` both ways."""
+    cases = []
+    for label, state in build_states(sim, carry):
+        before = sim._taken.clone()
+        want = sim._rebuild_and_lists_eager(state)
+        mid = sim._taken.clone()
+        with strict_replays():
+            got = sim._rebuild_and_lists(state)
+        by_eager = (mid - before).tolist()
+        by_graph = (sim._taken - mid).tolist()
+        same = [torch.equal(a, b) for a, b in
+                zip((*got[0], got[1], got[2]), (*want[0], want[1], want[2]))]
+        check(all(same) and int(got[3]) == int(want[3]),
+              f"build_graph {path} {label}: captured build differs from the "
+              f"eager one (pos, vel, pid, counts, masks equal: {same}; "
+              f"totals {int(got[3])}, {int(want[3])})")
+        check(by_graph == by_eager,
+              f"build_graph {path} {label}: branch counts {by_graph} "
+              f"captured, {by_eager} eager")
+        cases.append({"state": label, "pairs": int(got[3]),
+                      "incremental_kept": by_graph[0],
+                      "full_fallbacks": by_graph[1]})
+        del want, got
+    if sim.incremental:
+        check(any(c["full_fallbacks"] for c in cases)
+              and any(c["incremental_kept"] for c in cases),
+              f"build_graph {path}: not both branches taken: {cases}")
+    check(sim._build_runner.captures == 1,
+          f"build_graph {path}: {sim._build_runner.captures} captures")
+    emit("build_graph", path=path, n=sim.config.n, cap=sim.spec.cap,
+         cases=cases, capture_s=sim._build_runner.capture_s,
+         build_ms_graph=chained_builds_ms(sim, carry.state),
+         build_ms_eager=chained_builds_ms(
+             sim, carry.state, build=sim._rebuild_and_lists_eager),
+         launches_per_build=sim._build_runner.graph.per_step,
+         launches_per_branch=sim._build_runner.graph.per_body)
+
+
+# ------------------------------------------------------------ entry points
+def entry_phase(device) -> dict:
+    """The port's entry points (``md_neighbor_list_tpu_torch/entry.py``):
+    ``entry()`` and one step of the function it returns (N = 8,192: every
+    slot kept, finite velocities), then ``dryrun_multichip(4)``, the slab
+    engine's ranks four ``LocalRing`` threads on the card (eager steps by
+    design), with its P = 2 overlap phase: at least 2 rebuilds and 1
+    migration, conservation, the oracle's pairs and |dE/E| < 1e-4 (it raises
+    on a gate). Returns the launch counts of both."""
+    _cuda.reset_launches()
+    fn, (carry,) = entry_points.entry(device=device)
+    out = fn(carry)
+    valid = int(out.state.valid().sum())
+    finite = bool(torch.isfinite(out.state.vel).all())
+    check(valid == 8192 and finite,
+          f"entry: {valid} valid slots after a step, finite: {finite}")
+    t0 = time.perf_counter()
+    dry = entry_points.dryrun_multichip(4, device=device)
+    dry_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    need = {"expand": 1, "forces_half": 2, "expand_slab": 1,
+            "forces_half_slab": 1, "lists_half_slab": 1}
+    for name, least in need.items():
+        check(launches[name] >= least,
+              f"launches: {name} launched {launches[name]} times on the "
+              f"entry path, expected at least {least}")
+    emit("entry", n=fn.__self__.config.n, valid=valid,
+         dryrun_multichip=dry, dryrun_s=dry_s)
+    emit("launches", path="entry", launches=launches, expected_at_least=need)
+    return launches
 
 
 # -------------------------------------------------------- list delivery
@@ -1942,10 +2070,10 @@ def slab_c5_geometry(device, cfg=PRESETS["c5_dd"]) -> dict:
 
 
 def slab_build(sim: DenseSlabSimulator, carry):
-    """One list build of the slab engine: its rebuild, the ghost refresh
-    and the slab list pass."""
-    carry = sim._rebuild(carry)
-    carry = sim._refresh_ghosts(carry)
+    """One list build of the slab engine, into ``carry``'s tensors: its
+    rebuild, the ghost refresh and the slab list pass."""
+    sim._rebuild(carry)
+    sim._refresh_ghosts(carry)
     slab_kernels.slab_lists_half(*sim._ext(carry), sim.spec, sim.config.rs)
     return carry
 
@@ -1954,9 +2082,10 @@ def dense_slab_path(device, cfg=PRESETS["c4_sorted"]
                     ) -> tuple[dict, object, DenseSlabSimulator]:
     """``DenseSlabSimulator`` at P = 1 on a one-rank NCCL group, N = 1M,
     cap = 40, from the lattice start: the pair count (40 per particle on
-    the lattice), 1000 NVE steps, and after the first 100 the trajectory of
-    the cube engine. Returns the launch counts of the path, the carry and
-    the engine."""
+    the lattice), 1000 NVE steps (replays of one captured step, its
+    ``all_reduce`` calls in the graph), and after the first 100 the
+    trajectory of the cube engine. Returns the launch counts of the path,
+    the carry and the engine."""
     # the cube engine's 100 steps come first: they are not this path's
     cube = DenseSimulator(cfg, cap=40, device=device)
     cc = cube.run(cube.init(), 100)
@@ -1974,6 +2103,7 @@ def dense_slab_path(device, cfg=PRESETS["c4_sorted"]
     check(pairs == 40 * cfg.n, f"dense_slab: {pairs} pairs, want {40 * cfg.n}")
     ke0, pe0 = (float(x) for x in sim.energies(carry))
     e0 = ke0 + pe0
+    captures = sim._runner.captures
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     carry = sim.run(carry, 100)
@@ -1989,6 +2119,9 @@ def dense_slab_path(device, cfg=PRESETS["c4_sorted"]
     carry = sim.run(carry, cfg.steps - 100)
     torch.cuda.synchronize()
     run_s += time.perf_counter() - t0
+    chunk = "graph" if sim.ring.capturable else "eager"
+    capture_s = (captured_seconds(sim, captures, "dense_slab")
+                 if chunk == "graph" else 0.0)
     ke1, pe1 = (float(x) for x in sim.energies(carry))
     drift = abs((ke1 + pe1) - e0) / abs(e0)
     kept = int((carry.pid >= 0).sum())
@@ -2010,14 +2143,17 @@ def dense_slab_path(device, cfg=PRESETS["c4_sorted"]
     check(bool(torch.isfinite(carry.force).all()),
           "dense_slab: forces not finite")
 
+    at = [dense_slab._clone(carry)]  # the builds update it in place
+
     def chain(reps=10):
-        st = carry
         for _ in range(reps):
+            st = at[0]
             v2 = torch.sum(st.vel * st.vel, dim=0)
             tau = 0.5 * cfg.skin / torch.sqrt(torch.max(v2))
-            st = slab_build(sim, st._replace(pos=st.pos + tau * st.vel))
+            at[0] = slab_build(sim, st._replace(pos=st.pos + tau * st.vel))
 
     build_ms = time_ms(chain, 1) / 10
+    del at
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -2025,9 +2161,9 @@ def dense_slab_path(device, cfg=PRESETS["c4_sorted"]
          pairs=pairs, steps=cfg.steps, energy_drift=drift, e0=e0,
          e1=ke1 + pe1, n_rebuilds=rebuilds, n_migrated=int(carry.n_migrated),
          kept=kept, max_position_gap_100_steps=gap,
-         cube_rebuilds_100_steps=cube_rebuilds,
-         steps_per_s=cfg.steps / run_s, build_ms=build_ms, card=smi,
-         backend=mesh.backend_for(device))
+         cube_rebuilds_100_steps=cube_rebuilds, chunk=chunk,
+         steps_per_s=cfg.steps / (run_s - capture_s), capture_s=capture_s,
+         build_ms=build_ms, card=smi, backend=mesh.backend_for(device))
     need = {"expand_slab": rebuilds, "lists_half_slab": 1,
             "forces_half_slab": 2 * cfg.steps + 1, "forces_half_slab_pe": 2}
     for name, least in need.items():
@@ -2865,6 +3001,7 @@ def main() -> int:
         profile_steps(sim, carry, "main_path")
         profile_neighbor_list(sim)
     graph_chunk(sim, carry, "main_path")
+    build_graph(sim, carry, "main_path")
     del carry
     delivery = list_delivery(
         DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device))
@@ -2876,6 +3013,7 @@ def main() -> int:
         profile_rebuilds(sim, drifted_state(sim, carry.state))
         profile_steps(sim, carry, "incremental")
     graph_chunk(sim, carry, "incremental")
+    build_graph(sim, carry, "incremental")
     del carry
     emit("incremental_kernels", n=sim.config.n, cap=sim.spec.cap,
          kernels=[row_k8], **numbers)
@@ -2891,8 +3029,11 @@ def main() -> int:
     slab, carry, sim = dense_slab_path(device)
     if "--profile" in sys.argv[1:]:
         profile_steps(sim, carry, "dense_slab")
+    graph_chunk(sim, carry, "dense_slab")
     del carry, sim
     torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    entry_launches = entry_phase(device)
     torch.cuda.empty_cache()
     launches_x, sim, carry = xla_engine(device)
     if "--profile" in sys.argv[1:]:
@@ -2911,7 +3052,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_phase()
     by_path = {"main_path": launches, "list_delivery": delivery,
-               "incremental": inc, "dense_slab": slab, **xla_launches}
+               "incremental": inc, "dense_slab": slab,
+               "entry": entry_launches, **xla_launches}
     for row in rows:  # launches on the driven paths, and their sum
         row["launches_by_path"] = {p: c[row["name"]]
                                    for p, c in by_path.items()}

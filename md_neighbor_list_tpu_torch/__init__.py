@@ -16,7 +16,8 @@ kernel; the slab domain decomposition
 slab forms of the expand, half-list and half-force kernels; and the slab
 decomposition of the padded-row engine, ``SlabSimulator``
 (``parallel/slab.py``, plain PyTorch), on the same ring or on P threads of one
-process (``parallel.mesh.LocalRing``, ``run_ranks``). The module layout
+process (``parallel.mesh.LocalRing``, ``run_ranks``); and the entry points
+of ``__graft_entry__.py`` (``entry.py``). The module layout
 mirrors the JAX package (``core/``, ``ops/``, ``models/``, ``parallel/``,
 ``utils/``), so a module's
 counterpart is found by its path; ``ops/dense_force.py`` stands for

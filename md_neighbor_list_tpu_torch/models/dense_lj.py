@@ -24,6 +24,14 @@ overflow can roll back to it. On the CPU the same step runs eagerly and reads
 the vote on the host; ``step_fn`` is that eager step on either device, as the
 JAX ``step_fn`` is one step outside the scan.
 
+The timed list build, ``_rebuild_and_lists``, is one device program on the
+card too, as the JAX ``jit`` of the rebuild and the list kernel is: the
+caller's state is copied into the engine's own buffers and one captured graph
+(the rebuild, its branches as conditional nodes, then the list kernel) is
+replayed. What it returns are the graph's own tensors, which the next build
+overwrites; ``_rebuild_and_lists_eager`` is its eager twin, which the CPU
+runs.
+
 Which implementation runs is decided by the device alone: tensors on a CUDA
 device go through the CUDA kernels, tensors on the CPU through their plain
 versions. The default device is the card; ``device="cpu"`` is for the caller
@@ -99,6 +107,11 @@ class DenseSimulator:
         # take the full rebuild, keep the merged state
         self._window = torch.zeros(2, dtype=torch.bool, device=self.device)
         self._runner = ChunkRunner()
+        # the list build's input buffers (made for a spec), its chunk runner
+        # and what its step leaves: (counts, masks, total)
+        self._build_in: DenseState | None = None
+        self._build_runner = ChunkRunner()
+        self._lists = None
 
     @property
     def incremental_rebuilds(self) -> int:
@@ -119,10 +132,9 @@ class DenseSimulator:
                                              self.config.rc, want_pe)
 
     def _rebuilt(self, state: DenseState) -> DenseState:
-        """The rebuild of ``_rebuild_and_lists``, into new tensors: the full
-        one, or with ``incremental`` the incremental one unless its window
-        predicate holds (one host read). Taking the full path is the
-        reference's own algorithm, never a response to a kernel's failure."""
+        """The rebuild of ``_rebuild_and_lists_eager``, into new tensors: the
+        full one, or with ``incremental`` the incremental one unless its
+        window predicate holds (one host read)."""
         if not self.incremental:
             return rebuild_dense(state, self.spec)[0]
         new, window_overflow = rebuild_dense_incremental(state, self.spec)
@@ -135,7 +147,7 @@ class DenseSimulator:
         """Rebuild ``carry`` in place where the 0-d bool ``need`` holds
         (``None``: always), branching through ``cond``: the rebuilt state is
         copied into the carry's tensors."""
-        spec, n = self.spec, self.config.n
+        n = self.config.n
 
         def take(new: DenseState) -> None:
             for dst, src in zip(carry.state, new):
@@ -144,8 +156,18 @@ class DenseSimulator:
             carry.n_rebuilds.add_(1)
             carry.overflow.logical_or_(torch.sum(new.valid()) != n)
 
+        self._rebuild_state(carry.state, need, cond, take)
+
+    def _rebuild_state(self, state: DenseState, need, cond, take) -> None:
+        """Rebuild ``state`` where ``need`` holds (``None``: always), branching
+        through ``cond``, and hand the rebuilt state to ``take``: the full
+        rebuild, or with ``incremental`` the incremental one unless its window
+        predicate holds. Taking the full path is the reference's own
+        algorithm, never a response to a kernel's failure."""
+        spec = self.spec
+
         def full() -> None:
-            take(rebuild_dense(carry.state, spec)[0])
+            take(rebuild_dense(state, spec)[0])
 
         def when(body) -> None:
             if need is None:
@@ -159,8 +181,7 @@ class DenseSimulator:
         merged = []
 
         def incremental() -> None:
-            new, window_overflow = rebuild_dense_incremental(carry.state,
-                                                             spec)
+            new, window_overflow = rebuild_dense_incremental(state, spec)
             merged.append(new)
             self._window.copy_(torch.stack([window_overflow,
                                             ~window_overflow]))
@@ -230,12 +251,62 @@ class DenseSimulator:
         """The timed neighbour-list build: wrap + keys + sort + expand + the
         one-pass half-list kernel emitting the complete artifact — packed hit
         masks and half counts (total pairs = sum of counts over valid
-        slots). Returns (new_state, counts, masks, total)."""
+        slots). Returns (new_state, counts, masks, total), ``total`` a 0-d
+        tensor.
+
+        On the card, one replay of a captured graph (``_captured_build``):
+        the returned tensors are the engine's, and the next build overwrites
+        them (clone what must outlive it; the masks are about 206 MB at
+        N = 1M). On the CPU, the eager twin, into new tensors."""
+        if state.pos.is_cuda:
+            return self._captured_build(state)
+        return self._rebuild_and_lists_eager(state)
+
+    def _rebuild_and_lists_eager(self, state: DenseState):
+        """``_rebuild_and_lists`` eagerly, into new tensors, the window
+        predicate of the incremental engine read on the host."""
         new = self._rebuilt(state)
         counts, masks = dense_force.dense_lists_half(new.pos, self.spec,
                                                      self.config.rs)
         total = torch.sum(torch.where(new.valid(), counts, 0))
         return new, counts, masks, total
+
+    def _build_step(self, state: DenseState, cond) -> None:
+        """The list build as a step: ``state`` rebuilt in place (the
+        incremental engine's branches through ``cond``), then the list kernel;
+        leaves (counts, masks, total) in ``self._lists``. Made during a
+        capture, those are the graph's outputs."""
+        def take(new: DenseState) -> None:
+            for dst, src in zip(state, new):
+                dst.copy_(src)
+
+        self._rebuild_state(state, None, cond, take)
+        counts, masks = dense_force.dense_lists_half(state.pos, self.spec,
+                                                     self.config.rs)
+        total = torch.sum(torch.where(state.valid(), counts, 0))
+        self._lists = (counts, masks, total)
+
+    def _captured_build(self, state: DenseState):
+        """``state`` copied into the engine's build buffers, then the build
+        step once by the build's chunk runner: on the card one replay of a
+        graph captured for the spec (again after the capacity grows), with no
+        host read; on the CPU the step eagerly."""
+        spec = self.spec
+        shape = (spec.rows, spec.mc, spec.cap)
+        if self._build_in is None or self._build_in.pid.shape != shape:
+            self._build_in = DenseState(
+                pos=torch.empty((3,) + shape, dtype=torch.float32,
+                                device=self.device),
+                vel=torch.empty((3,) + shape, dtype=torch.float32,
+                                device=self.device),
+                pid=torch.empty(shape, dtype=torch.int32, device=self.device))
+        buf = self._build_in
+        for dst, src in zip(buf, state):
+            dst.copy_(src)
+        self._build_runner.run(lambda cond: self._build_step(buf, cond), 1,
+                               [*buf, self._taken, self._window],
+                               key=(spec, self.incremental))
+        return (buf, *self._lists)
 
     @staticmethod
     def _kinetic(state: DenseState) -> torch.Tensor:

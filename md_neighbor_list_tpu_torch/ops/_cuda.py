@@ -25,6 +25,7 @@ import pathlib
 import shlex
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -71,6 +72,7 @@ _ENTRIES = {
 
 # kernel launches so far, by kernel; reset_launches() zeroes them
 LAUNCHES = {name: 0 for name in _ENTRIES}
+_counting = threading.Lock()  # ranks of a LocalRing launch from threads
 
 _lib = None
 build_log: list[str] = []  # compiler output of the last build (ptxas -v)
@@ -170,7 +172,8 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch "
                            f"(cudaError {err})")
-    LAUNCHES[name] += 1
+    with _counting:
+        LAUNCHES[name] += 1
 
 
 def graph_if(pred: torch.Tensor) -> int:

@@ -13,7 +13,7 @@ contiguous dense layer block:
                  between rebuilds by the skin argument), posted before the
                  interior force pass and waited on after it; 1 shift returning
                  the Newton-3 seam reactions; 1 scalar max for the rebuild
-                 vote, read on the host
+                 vote, a 0-d device tensor on which the rebuild branches
   per rebuild    wrap; exchange the BOUNDARY LAYERS both ways (pos, vel, pid:
                  emigrants can only live there, having moved <= 1 cell); key
                  own + received records relative to my slab (emigrants and
@@ -36,9 +36,18 @@ enter each boundary particle twice into the sort), and unwrapped keys (the
 ring mod would alias the top layer to a left-emigrant key). For production
 single-card runs ``DenseSimulator`` is the engine (no ghost layer).
 
-As in ``models/dense_lj.py`` the engine runs eagerly, one host read per step
-decides the rebuild, and a chunk updates the carry IN PLACE (``run`` clones it
-at the start of each chunk for the rollback).
+As in ``models/dense_lj.py`` a chunk of steps runs as one device program on
+the card, as the JAX ``jit(shard_map(lax.scan(step)))`` does: ``run`` replays
+a CUDA graph of one step (``utils/graphs.py``) in which the rebuild, with its
+collectives, is a conditional node on the reduced vote, and the ring's
+``all_reduce`` calls are captured with the rest. The step updates the carry IN
+PLACE (every rebuilt tensor, the ghosts and the force are copied into the
+carry's own storage); ``run`` clones the carry at the start of each chunk for
+the rollback. That needs a ring whose exchanges can be captured
+(``ring.capturable``: no group, or an NCCL group of one process). On a
+``LocalRing``, whose exchanges are host barriers, and on the CPU the same step
+runs eagerly and reads the vote on the host, by design; ``step_fn`` is that
+eager step on any ring.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from md_neighbor_list_tpu_torch.ops.slab_kernels import (SlabSpec,
                                                          slab_lists_half,
                                                          slab_sort_expand)
 from md_neighbor_list_tpu_torch.parallel.mesh import Ring, rank_device
+from md_neighbor_list_tpu_torch.utils.graphs import ChunkRunner, eager_cond
 
 
 def make_slab_spec(box: Box, rs: float, p: int, cap: int = 40) -> SlabSpec:
@@ -100,7 +110,9 @@ class DenseSlabSimulator:
     """LJ/NVE over P dense slabs, this process being rank ``ring.rank``. API
     mirrors ``DenseSimulator``. ``ring`` is a ``parallel.mesh.Ring`` (None:
     P = 1 with no process group); ``config.mesh_devices`` must be its size.
-    ``device`` "cuda" runs on ``cuda:rank % device_count``."""
+    ``device`` "cuda" runs on ``cuda:rank % device_count``. ``run`` replays a
+    captured step where ``ring.capturable`` holds, and runs the eager step on
+    a ``LocalRing``."""
 
     def __init__(self, config: MDConfig, cap: int = 40, device="cuda",
                  ring: Ring | None = None):
@@ -122,30 +134,33 @@ class DenseSlabSimulator:
         self.p = config.mesh_devices
         self.cap = cap
         self.spec = make_slab_spec(self.box, config.rs, self.p, cap)
+        self._runner = ChunkRunner()
 
     def _grow(self) -> None:
         self.cap = grow_cap(self.cap)
         self.spec = make_slab_spec(self.box, self.config.rs, self.p, self.cap)
 
     # ------------------------------------------------------------ internals
-    def _seam_shift(self, layer_pos: torch.Tensor) -> torch.Tensor:
-        """The ring seam's +L on the z channel of a received right-ghost
-        layer (rank P-1's right neighbour is rank 0), added by the RECEIVER
-        with one rounded f32 add: the ghost images then equal the cube's
-        in-kernel ``z + L`` bit for bit. Returns a tensor of its own."""
-        if self.ring.rank != self.p - 1:
-            return layer_pos
-        g = layer_pos.clone()  # at P = 1 the "received" layer is my own
-        g[2] += float(np.float32(self.spec.L))
-        return g
+    def _set_ghosts(self, carry: SlabCarry, layer_pos: torch.Tensor) -> None:
+        """Copy a received right-ghost layer into ``carry.gpos``, with the
+        ring seam's +L on its z channel on rank P-1 (whose right neighbour is
+        rank 0), added by the RECEIVER with one rounded f32 add: the ghost
+        images then equal the cube's in-kernel ``z + L`` bit for bit."""
+        carry.gpos.copy_(layer_pos)  # at P = 1 the "received" layer is my own
+        if self.ring.rank == self.p - 1:
+            carry.gpos[2] += float(np.float32(self.spec.L))
 
-    def _refresh_ghosts(self, carry: SlabCarry) -> SlabCarry:
+    def _refresh_ghosts(self, carry: SlabCarry) -> None:
         """Shift my first owned layer's positions to the left neighbour (the
         ghost SET is frozen between rebuilds)."""
-        g = self.ring.shift_minus(carry.pos[:, :self.spec.mc])
-        return carry._replace(gpos=self._seam_shift(g))
+        mc = self.spec.mc
+        self._set_ghosts(carry, self.ring.shift_minus(carry.pos[:, :mc]))
 
-    def _rebuild(self, carry: SlabCarry) -> SlabCarry:
+    def _rebuild(self, carry: SlabCarry) -> None:
+        """Rebuild ``carry`` in place: the rebuilt slots, the ghost pids, the
+        reference positions and the counters are copied into its tensors.
+        Every rank calls it at the same step (the vote is global), so its
+        collectives pair up."""
         spec, ring = self.spec, self.ring
         mc, nz = spec.mc, spec.nz
         pos = torch.remainder(carry.pos, spec.L)
@@ -166,22 +181,24 @@ class DenseSlabSimulator:
             # seam shift: records enter the sort in the wrapped global frame
             first = slice(0, mc)
             last = slice((nz - 1) * mc, nz * mc)
-            recv_l = [ring.shift_plus(t) for t in (  # left nbr's top layer
-                pos[:, last], carry.vel[:, last], carry.pid[last])]
-            recv_r = [ring.shift_minus(t) for t in (  # right nbr's bottom
-                pos[:, first], carry.vel[:, first], carry.pid[first])]
+            recv = [[ring.shift_plus(t) for t in (  # left nbr's top layer
+                pos[:, last], carry.vel[:, last], carry.pid[last])]]
+            if not (self.p == 2 and nz == 1):
+                # the right nbr's bottom layer; at P = 2 with one layer a
+                # rank it is the layer just received (both neighbours are
+                # one rank), and a second copy would be kept twice
+                recv.append([ring.shift_minus(t) for t in (
+                    pos[:, first], carry.vel[:, first], carry.pid[first])])
             k_own = slab_keys(pos, valid, spec, z0)
-            k_l = slab_keys(recv_l[0], recv_l[2] >= 0, spec, z0)
-            k_r = slab_keys(recv_r[0], recv_r[2] >= 0, spec, z0)
-            keys = torch.cat([k_own.reshape(-1), k_l.reshape(-1),
-                              k_r.reshape(-1)])
+            keys = torch.cat([k_own.reshape(-1)] + [
+                slab_keys(r[0], r[2] >= 0, spec, z0).reshape(-1)
+                for r in recv])
             rec_pos, rec_vel = (
-                torch.cat([a.reshape(3, -1), b.reshape(3, -1), c.reshape(3, -1)],
-                          dim=1)
-                for a, b, c in ((pos, recv_l[0], recv_r[0]),
-                                (carry.vel, recv_l[1], recv_r[1])))
-            pids = torch.cat([carry.pid.reshape(-1), recv_l[2].reshape(-1),
-                              recv_r[2].reshape(-1)])
+                torch.cat([own.reshape(3, -1)]
+                          + [r[i].reshape(3, -1) for r in recv], dim=1)
+                for i, own in ((0, pos), (1, carry.vel)))
+            pids = torch.cat([carry.pid.reshape(-1)]
+                             + [r[2].reshape(-1) for r in recv])
         new, _ = slab_sort_expand(keys, rec_pos, rec_vel, pids, spec)
 
         # conservation: every particle kept by exactly one rank
@@ -191,13 +208,13 @@ class DenseSlabSimulator:
         moved = ring.sum(torch.sum(emigrant))
         # the ghost SET (pids) changes only here; the positions are refreshed
         # by the step after the vote (left stale here on purpose)
-        gpid = ring.shift_minus(new.pid[:mc])
-        return carry._replace(
-            pos=new.pos, vel=new.vel, pid=new.pid, gpid=gpid,
-            ref_pos=new.pos.clone(),  # new.pos is drifted in place
-            n_rebuilds=carry.n_rebuilds + 1,
-            n_migrated=carry.n_migrated + moved.to(torch.int32),
-            overflow=carry.overflow | (kept != self.config.n))
+        carry.gpid.copy_(ring.shift_minus(new.pid[:mc]))
+        for dst, src in ((carry.pos, new.pos), (carry.vel, new.vel),
+                         (carry.pid, new.pid), (carry.ref_pos, new.pos)):
+            dst.copy_(src)
+        carry.n_rebuilds.add_(1)
+        carry.n_migrated.add_(moved.to(torch.int32))
+        carry.overflow.logical_or_(kept != self.config.n)
 
     def _ext(self, carry: SlabCarry):
         """The extended (owned + ghost) positions and validity."""
@@ -213,52 +230,63 @@ class DenseSlabSimulator:
         force[:, :self.spec.mc] += recv
         return force, pe
 
-    def step_fn(self, carry: SlabCarry) -> SlabCarry:
-        """One velocity-Verlet step. Updates ``carry``'s tensors in place."""
+    def _step(self, carry: SlabCarry, cond) -> None:
+        """One velocity-Verlet step, in place, the rebuild branching through
+        ``cond`` on the ring's vote."""
         cfg, spec, ring = self.config, self.spec, self.ring
         mc, nz = spec.mc, spec.nz
         dt = float(np.float32(cfg.dt))
         carry.vel.add_(carry.force, alpha=0.5 * dt)
         carry.pos.add_(carry.vel, alpha=dt)  # unwrapped between rebuilds
 
-        need = cfg.rebuild_every_step
-        if not need:
+        if cfg.rebuild_every_step:
+            self._rebuild(carry)
+        else:
             disp = carry.pos - carry.ref_pos  # exact: both unwrapped
             d2 = torch.sum(disp * disp, dim=0)
             d2max = ring.max(torch.max(torch.where(carry.pid >= 0, d2, 0.0)))
-            # the one host read of the step: the vote decides what to launch
-            need = bool(4.0 * d2max > cfg.skin * cfg.skin)
-        if need:
-            carry = self._rebuild(carry)
+            cond(4.0 * d2max > cfg.skin * cfg.skin,
+                 lambda: self._rebuild(carry))
 
         # ghost positions of the post-vote state: posted before the interior
         # pass, which does not read them, and waited on after it
         pending = ring.shift_minus(carry.pos[:, :mc], async_op=True)
         if nz >= 2:
+            cut = (nz - 1) * mc
             f_low, top_rxn = slab_forces_interior(carry.pos, spec, cfg.rc)
-            carry = carry._replace(gpos=self._seam_shift(pending.wait()))
+            self._set_ghosts(carry, pending.wait())
             f_last, seam = slab_forces_boundary(
-                carry.pos[:, (nz - 1) * mc:], carry.gpos, carry.gpid >= 0,
-                spec, cfg.rc)
+                carry.pos[:, cut:], carry.gpos, carry.gpid >= 0, spec, cfg.rc)
             recv = ring.shift_plus(seam)
-            force = torch.cat([f_low, f_last + top_rxn], dim=1)
-            force[:, :mc] += recv
+            carry.force[:, :cut].copy_(f_low)
+            torch.add(f_last, top_rxn, out=carry.force[:, cut:])
+            carry.force[:, :mc] += recv
         else:  # a single owned layer: no interior exists
-            carry = carry._replace(gpos=self._seam_shift(pending.wait()))
-            force, _ = self._forces(carry)
-        carry.vel.add_(force, alpha=0.5 * dt)
-        return carry._replace(force=force)
+            self._set_ghosts(carry, pending.wait())
+            carry.force.copy_(self._forces(carry)[0])
+        carry.vel.add_(carry.force, alpha=0.5 * dt)
+
+    def step_fn(self, carry: SlabCarry) -> SlabCarry:
+        """One velocity-Verlet step, eager (the vote read on the host).
+        Updates ``carry``'s tensors in place and returns it."""
+        self._step(carry, eager_cond)
+        return carry
 
     def _run_chunk(self, carry: SlabCarry, nsteps: int) -> SlabCarry:
-        for _ in range(nsteps):
-            carry = self.step_fn(carry)
+        """``nsteps`` steps in place: replays of one captured graph on the
+        card where the ring can be captured, else eager steps."""
+        self._runner.run(lambda cond: self._step(carry, cond), nsteps,
+                         list(carry), key=self.spec,
+                         capturable=self.ring.capturable)
         return carry
 
     def _initial_build(self, carry: SlabCarry) -> SlabCarry:
-        carry = self._rebuild(carry)
-        carry = self._refresh_ghosts(carry)  # the rebuild leaves gpos stale
-        force, _ = self._forces(carry)
-        return carry._replace(force=force)
+        """The first rebuild, ghosts and forces, into ``carry``'s tensors:
+        the carry whose storage the steps keep."""
+        self._rebuild(carry)
+        self._refresh_ghosts(carry)  # the rebuild leaves gpos stale
+        carry.force.copy_(self._forces(carry)[0])
+        return carry
 
     # ----------------------------------------------------------------- host
     def _slab_of(self, pos: torch.Tensor) -> torch.Tensor:

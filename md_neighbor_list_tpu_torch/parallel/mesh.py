@@ -13,6 +13,13 @@ With no group (P = 1) a shift is the identity and a reduction returns its
 input: the self-``ppermute`` of the JAX P = 1 mode. A group of one process
 keeps the identity shifts and still sends its reductions through the group.
 
+``capturable`` says whether a ring's exchanges may be captured into a CUDA
+graph (``utils/graphs.py``), so that an engine can run a chunk of steps as one
+device program: true with no group and on an NCCL group of one process (its
+``all_reduce`` is captured; NCCL asks only that the communicator exist before
+the capture), false on gloo and on a ``LocalRing``, whose exchanges are host
+barriers. It is a stated property of the ring, not something tried.
+
 ``LocalRing`` has ``Ring``'s surface for P ranks that are P threads of one
 process, on one device or several: the counterpart of the virtual-device mesh
 on which the JAX package runs its slab engine on one host. NCCL takes one
@@ -90,9 +97,15 @@ class Ring:
         self.group = group
         if group is None:
             self.rank, self.size = 0, 1
+            self.capturable = True
         else:
             self.rank = dist.get_rank(group)
             self.size = dist.get_world_size(group)
+            # one process: its all_reduce calls replay in a graph. A step
+            # captured with the shifts of four processes hung on four H100s
+            # (PERF.md), so larger groups step eagerly
+            self.capturable = (dist.get_backend(group) == "nccl"
+                               and self.size == 1)
 
     def _peer(self, r: int) -> int:
         return dist.get_global_rank(self.group, r % self.size)
@@ -164,6 +177,8 @@ class LocalRing:
     every rank gets the same bits. A rank that does not arrive within
     ``timeout`` seconds, or an ``abort``, breaks the barrier: every rank
     waiting in an exchange then raises ``threading.BrokenBarrierError``."""
+
+    capturable = False  # every exchange is a host barrier
 
     def __init__(self, hub: _Hub, rank: int):
         self._hub = hub

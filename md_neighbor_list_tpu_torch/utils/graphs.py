@@ -10,15 +10,23 @@ that outlive it. A body calls no ``cond``: a branch that depends on another
 is a second ``cond`` on a flag that the first body sets and the step clears
 before it.
 
-``ChunkRunner.run(step, nsteps, carry, key)`` runs the step ``nsteps`` times:
+``ChunkRunner.run(step, nsteps, carry, key, capturable)`` runs the step
+``nsteps`` times:
 
-- on the CPU, eagerly, each ``cond`` reading ``pred`` on the host
-  (``eager_cond``, which is also how one eager step runs on the card);
-- on a CUDA device, as ``nsteps`` replays of one ``StepGraph`` with no host
-  read between them, then one read of the branch counters. The graph is
-  captured for the carry's tensors (their addresses, shapes and types) and
-  the caller's ``key``, and captured again when any of them changes, as the
-  JAX engine compiles again after its capacity grows.
+- on the CPU, or where the engine says its step cannot be captured (a slab
+  engine on a ring whose exchanges are host barriers), eagerly, each ``cond``
+  reading ``pred`` on the host (``eager_cond``, which is also how one eager
+  step runs on the card);
+- else on the CUDA device, as ``nsteps`` replays of one ``StepGraph`` with no
+  host read between them, then one read of the branch counters (none where
+  the step has no branch). The graph is captured for the carry's tensors
+  (their addresses, shapes and types) and the caller's ``key``, and captured
+  again when any of them changes, as the JAX engine compiles again after its
+  capacity grows.
+
+A step may also make tensors of its own and hand them to its caller (the list
+build's counts and masks): made during the capture, they are the graph's
+outputs, which every replay writes again.
 
 ``StepGraph`` captures one step: first every body is run once, eagerly, on a
 side stream, with the carry saved before and restored after (this builds the
@@ -138,10 +146,11 @@ class StepGraph:
             self.graph.replay()
 
     def settle(self, nsteps: int) -> None:
-        """After ``replay(nsteps)``: one read of the branch counters, and the
-        launches of the replays added to ``_cuda.LAUNCHES``."""
-        accrue(_cuda.LAUNCHES, self.per_step, self.per_body,
-               self.hits.tolist(), nsteps)
+        """After ``replay(nsteps)``: one read of the branch counters (none
+        for a step without branches), and the launches of the replays added
+        to ``_cuda.LAUNCHES``."""
+        taken = self.hits.tolist() if self.per_body else []
+        accrue(_cuda.LAUNCHES, self.per_step, self.per_body, taken, nsteps)
 
 
 class ChunkRunner:
@@ -154,8 +163,11 @@ class ChunkRunner:
         self.capture_s = 0.0  # host seconds of the last capture, warm-up in
 
     def run(self, step: Step, nsteps: int, carry: Sequence[torch.Tensor],
-            key=None) -> None:
-        if not carry[0].is_cuda:
+            key=None, capturable: bool = True) -> None:
+        """``capturable``: the engine's word that the step may be captured
+        (false for a slab engine on a ring of host barriers); the step then
+        runs eagerly on the card too."""
+        if not (carry[0].is_cuda and capturable):
             for _ in range(nsteps):
                 step(eager_cond)
             return

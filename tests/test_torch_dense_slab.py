@@ -9,6 +9,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from md_neighbor_list_tpu.core.config import MDConfig as JConfig
 from md_neighbor_list_tpu.core.system import init_lattice as j_init_lattice
@@ -18,9 +19,9 @@ from md_neighbor_list_tpu_torch import DenseSimulator, MDConfig
 from md_neighbor_list_tpu_torch.core.box import Box
 from md_neighbor_list_tpu_torch.ops import dense_force, oracle
 from md_neighbor_list_tpu_torch.parallel.dense_slab import DenseSlabSimulator
-from md_neighbor_list_tpu_torch.parallel.mesh import Ring
+from md_neighbor_list_tpu_torch.parallel.mesh import LocalRing, Ring, run_ranks
 from md_neighbor_list_tpu_torch.utils import convert
-from torch_slab_ranks import spawn_ranks
+from torch_slab_ranks import dense_slab_run, spawn_ranks
 
 # tests/test_dense_slab.py's configuration: L = 16, mc = 9; at P = 2
 # mc_z = 8, nz = 4 (anisotropic cells)
@@ -152,10 +153,9 @@ def test_p2_gloo_matches_jax_p2(tmp_path):
     assert int(out["mc"]) == 9 and int(out["nz"]) == 4
 
 
-def test_p2_gloo_migration_conserves_every_particle(tmp_path):
+def _migration_job(tmp_path) -> dict:
     """Hot, with the lattice moved up in z so that a layer sits 0.05 below
-    each slab face: particles cross the faces within a few rebuilds. Nothing
-    is lost or duplicated, both ranks rebuild in lockstep, energy holds."""
+    each slab face: particles cross the faces within a few rebuilds."""
     n = CFG["n"]
     L = Box.from_density(n, 1.0).L
     m = round(n ** (1 / 3))
@@ -166,9 +166,16 @@ def test_p2_gloo_migration_conserves_every_particle(tmp_path):
     vel -= vel.mean(axis=0)
     np.savez(tmp_path / "system.npz", pos=pos.astype(np.float32),
              vel=vel.astype(np.float32))
-    job = dict(config=dict(CFG, temperature=1.5, dt=0.002), cap=16,
-               steps=60, chunk=20, system=str(tmp_path / "system.npz"))
-    ranks = spawn_ranks(tmp_path, 2, job)
+    return dict(config=dict(CFG, temperature=1.5, dt=0.002), cap=16,
+                steps=60, chunk=20, system=str(tmp_path / "system.npz"))
+
+
+def test_p2_gloo_migration_conserves_every_particle(tmp_path):
+    """A run with migration (``_migration_job``): nothing is lost or
+    duplicated, both ranks rebuild in lockstep, energy holds."""
+    n = CFG["n"]
+    L = Box.from_density(n, 1.0).L
+    ranks = spawn_ranks(tmp_path, 2, _migration_job(tmp_path))
     for out in ranks:
         assert np.array_equal(np.sort(out["pids"]), np.arange(n))
         assert int(out["n_migrated"]) > 0, "no migration exercised"
@@ -180,6 +187,44 @@ def test_p2_gloo_migration_conserves_every_particle(tmp_path):
         assert int(out["pairs1"]) == want
     assert int(ranks[0]["n_rebuilds"]) == int(ranks[1]["n_rebuilds"]) >= 2
     assert int(ranks[0]["n_migrated"]) == int(ranks[1]["n_migrated"])
+
+
+def test_p2_local_ring_equals_gloo_bitwise(tmp_path):
+    """The engine's ranks as two threads of a ``LocalRing`` (where its step
+    runs eagerly, as on the card) and as two gloo processes, through the
+    migration run: every output bit for bit, on both ranks."""
+    job = _migration_job(tmp_path)
+    gloo = spawn_ranks(tmp_path, 2, job)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as each gloo rank: the same reduction order
+    try:
+        local = run_ranks(2, lambda ring: dense_slab_run(ring, job))
+    finally:
+        torch.set_num_threads(threads)
+    assert int(local[0]["n_migrated"]) > 0
+    for r in range(2):
+        assert set(local[r]) == set(gloo[r])
+        for name, want in gloo[r].items():
+            np.testing.assert_array_equal(np.asarray(local[r][name]), want,
+                                          err_msg=f"rank {r}: {name}")
+
+
+def test_rings_say_whether_a_step_can_be_captured():
+    """No group: capturable; a gloo group, even of one process, and a
+    ``LocalRing``: not (host exchanges), so the engine steps eagerly."""
+    assert Ring().capturable
+    assert not any(r.capturable for r in LocalRing.ring_of(2))
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        ring = Ring(dist.group.WORLD)
+        assert (ring.size, ring.capturable) == (1, False)
+        sim = DenseSlabSimulator(MDConfig(**CFG), cap=16, device="cpu",
+                                 ring=ring)
+        carry = sim.run(sim.init(_gen(7)), 5, chunk=5)
+        assert sim._runner.captures == 0 and not bool(carry.overflow)
+    finally:
+        dist.destroy_process_group()
 
 
 # ------------------------------------------------------------ conversion

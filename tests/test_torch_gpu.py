@@ -363,7 +363,8 @@ def test_slab_forms_match_plain_versions(card, p, cap):
 def test_dense_slab_p1_on_the_card_matches_the_cube_engine(card):
     """The P = 1 self-halo engine on the card (no process group) against
     the cube engine on the card: 20 steps, same rebuilds, positions within
-    2e-4; the slab forms launched on its path."""
+    2e-4; the slab forms launched on its path (its chunk a captured graph,
+    whose warm-up takes the rebuild branch once)."""
     from md_neighbor_list_tpu_torch import DenseSimulator, MDConfig
     from md_neighbor_list_tpu_torch.parallel.dense_slab import \
         DenseSlabSimulator
@@ -379,7 +380,9 @@ def test_dense_slab_p1_on_the_card_matches_the_cube_engine(card):
     d = np.abs(dd.gather(sd).pos.cpu().numpy() - pos)
     assert np.minimum(d, dd.box.L - d).max() < 2e-4
     assert int(sd.n_rebuilds) == int(cc.n_rebuilds)
-    assert launches["expand_slab"] == int(sd.n_rebuilds)
+    warm = sum(b.get("expand_slab", 0) for b in dd._runner.graph.per_body)
+    assert warm == 1
+    assert launches["expand_slab"] == int(sd.n_rebuilds) + warm
     assert launches["forces_half_slab"] >= 2 * 20 + 1
     assert launches["expand"] == launches["forces_half"] == 0
 
@@ -697,3 +700,130 @@ def test_graph_recaptured_after_the_capacity_grows(card):
     ref = np.empty((n, 3), np.float32)
     ref[want.system.pid.cpu().numpy()] = want.system.pos.cpu().numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize("ring_kind", ["none", "nccl_one_rank", "local"])
+def test_dense_slab_graph_matches_eager_steps(card, ring_kind, monkeypatch):
+    """The slab engine at P = 1 (nz = 4): ``run`` against a loop of the eager
+    ``step_fn`` from one carry. With no group and on a one-rank NCCL group
+    (its ``all_reduce`` calls captured, in the rebuild's conditional body and
+    out of it) one graph is captured and replayed with no host read; on a
+    ``LocalRing`` the step runs eagerly and nothing is captured. The same
+    rebuilds, positions within 5e-4, and under replay the launches of the
+    eager loop plus the capture's warm-up."""
+    import torch.distributed as dist
+
+    from md_neighbor_list_tpu_torch import MDConfig
+    from md_neighbor_list_tpu_torch.parallel import dense_slab, mesh
+    from md_neighbor_list_tpu_torch.utils import convert
+
+    n, steps = 1728, 40
+    pos, vel, pid = numpy_system(n, seed=5)
+    system = convert.system_from_numpy(pos, 1.4 * vel, np.zeros_like(pos),
+                                       pid, device=card)
+
+    def run(ring):
+        sim = dense_slab.DenseSlabSimulator(MDConfig(n=n, **HOT), cap=48,
+                                            device=card, ring=ring)
+        carry = sim.build(system)
+        eager, graph = dense_slab._clone(carry), dense_slab._clone(carry)
+        _cuda.reset_launches()
+        for _ in range(steps):
+            eager = sim.step_fn(eager)
+        torch.cuda.synchronize()
+        eager_launches = dict(_cuda.LAUNCHES)
+        _cuda.reset_launches()
+        graph = sim.run(graph, steps, chunk=steps)
+        torch.cuda.synchronize()
+        graph_launches = dict(_cuda.LAUNCHES)
+        d = np.abs(sim.gather(graph).pos.cpu().numpy()
+                   - sim.gather(eager).pos.cpu().numpy())
+        gap = float(np.minimum(d, sim.box.L - d).max())
+        return sim, carry, eager, graph, eager_launches, graph_launches, gap
+
+    _strict_replays(monkeypatch)
+    if ring_kind == "local":
+        sim, carry, eager, graph, eager_l, graph_l, gap = mesh.run_ranks(
+            1, run, device=card)[0]
+    elif ring_kind == "none":
+        sim, carry, eager, graph, eager_l, graph_l, gap = run(None)
+    else:
+        ring = mesh.init_ring(card, world_size=1, rank=0,
+                              store=dist.HashStore())
+        try:
+            assert ring.capturable
+            sim, carry, eager, graph, eager_l, graph_l, gap = run(ring)
+        finally:
+            dist.destroy_process_group()
+    assert sim.spec.nz == 4 and not bool(graph.overflow)
+    assert int(graph.n_rebuilds) == int(eager.n_rebuilds) > \
+        int(carry.n_rebuilds) + 1
+    assert gap < 5e-4
+    if ring_kind == "local":
+        assert sim._runner.captures == 0 and graph_l == eager_l
+        return
+    assert sim._runner.captures == 1
+    captured = sim._runner.graph
+    for name, count in graph_l.items():
+        warm = captured.per_step.get(name, 0) + sum(
+            b.get(name, 0) for b in captured.per_body)
+        assert count == eager_l[name] + warm, name
+    assert graph_l["forces_half_slab"] == 2 * (steps + 1)
+
+
+@pytest.mark.parametrize("incremental", [False, True])
+def test_captured_build_equals_the_eager_twin(card, incremental,
+                                              monkeypatch):
+    """``_rebuild_and_lists`` on the card (the caller's state copied in, one
+    replay of the captured build) against its eager twin, from a state whose
+    mover stream trips the window predicate and from a drifted one that does
+    not: state, counts, masks and total bitwise, the same branch counts; one
+    capture for both calls, whose outputs the second call overwrites."""
+    from md_neighbor_list_tpu_torch import DenseSimulator, MDConfig
+
+    n, cap = 13824, 32
+    sim = DenseSimulator(MDConfig(n=n), cap=cap, device=card,
+                         incremental=incremental)
+    pos, vel, pid = numpy_system(n, seed=21)
+    seed = dense_cells.from_packed(torch.from_numpy(pos).to(card),
+                                   torch.from_numpy(1.4 * vel).to(card),
+                                   torch.from_numpy(pid).to(card), sim.spec)
+    new = sim._rebuild_and_lists_eager(seed)[0]
+    g = torch.Generator(card).manual_seed(1)
+    dr = 0.08 * torch.randn(new.pos.shape, generator=g, device=card)
+    drifted = new._replace(pos=new.pos + torch.where(new.valid()[None], dr,
+                                                     0.0))
+    _strict_replays(monkeypatch)
+    outputs = []
+    start = sim._taken.clone()
+    for state in (seed, drifted):
+        taken = sim._taken.clone()
+        want = sim._rebuild_and_lists_eager(state)
+        by_eager = sim._taken - taken
+        got = sim._rebuild_and_lists(state)
+        assert torch.equal(sim._taken - taken, 2 * by_eager)
+        for a, b in zip((*got[0], *got[1:]), (*want[0], *want[1:])):
+            assert torch.equal(a, b)
+        outputs.append([t.data_ptr() for t in (*got[0], *got[1:])])
+    assert sim._build_runner.captures == 1
+    assert outputs[0] == outputs[1]
+    if incremental:  # the seed falls back, the drift is merged: each twice
+        assert (sim._taken - start).tolist() == [2, 2]
+
+
+def test_refused_capture_raises_and_runs_nothing_eagerly(card):
+    """A step that reads the device from the host: the warm-up runs it (and
+    puts the carry back), the capture is refused by CUDA, and the runner
+    raises instead of stepping eagerly."""
+    x = torch.zeros((), device=card)
+
+    def step(cond):
+        x.add_(1.0)
+        float(x)  # a host read: not permitted while the stream captures
+
+    runner = graphs.ChunkRunner()
+    with pytest.raises(RuntimeError):
+        runner.run(step, 5, [x])
+    torch.cuda.synchronize()
+    assert float(x) == 0.0
+    assert runner.graph is None and runner.captures == 0

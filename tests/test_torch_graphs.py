@@ -14,6 +14,7 @@ from md_neighbor_list_tpu.ops import incremental as jinc
 from md_neighbor_list_tpu_torch import DenseSimulator, MDConfig, Simulator
 from md_neighbor_list_tpu_torch.models.dense_lj import DenseCarry
 from md_neighbor_list_tpu_torch.ops import dense_cells as tdc
+from md_neighbor_list_tpu_torch.parallel.dense_slab import DenseSlabSimulator
 from md_neighbor_list_tpu_torch.utils import convert, graphs
 from torch_port_util import assert_state_equal, jax_state, numpy_system
 
@@ -37,7 +38,8 @@ def test_accrue_counts_steps_and_branches_taken(steps, taken, want):
     assert counts == want
 
 
-def test_runner_on_the_cpu_takes_each_branch_on_the_host():
+@pytest.mark.parametrize("capturable", [True, False])
+def test_runner_on_the_cpu_takes_each_branch_on_the_host(capturable):
     x = torch.zeros((), dtype=torch.int64)
     hits = torch.zeros(2, dtype=torch.int64)
 
@@ -47,7 +49,7 @@ def test_runner_on_the_cpu_takes_each_branch_on_the_host():
         cond(x % 4 == 0, lambda: hits[1].add_(1))
 
     runner = graphs.ChunkRunner()
-    runner.run(step, 12, [x, hits])
+    runner.run(step, 12, [x, hits], capturable=capturable)
     assert int(x) == 12 and hits.tolist() == [4, 3]
     assert runner.captures == 0 and runner.graph is None
 
@@ -72,7 +74,8 @@ def _dense_carry_from_seed(sim, n=13824, seed=21):
                       overflow=torch.zeros((), dtype=torch.bool))
 
 
-@pytest.mark.parametrize("engine", ["dense", "incremental", "xla"])
+@pytest.mark.parametrize("engine",
+                         ["dense", "incremental", "xla", "dense_slab"])
 def test_run_keeps_every_carry_tensor_in_its_storage(engine):
     """A chunk with two rebuilds or more (for the incremental engine one of
     them the full fallback) writes into the tensors it was given: the same
@@ -83,6 +86,12 @@ def test_run_keeps_every_carry_tensor_in_its_storage(engine):
         carry = sim.build(_system(1728))
         tensors = lambda c: [*c.system, *c.nbr]  # noqa: E731
         rebuilds = lambda c: int(c.nbr.n_rebuilds)  # noqa: E731
+    elif engine == "dense_slab":  # P = 1, no group
+        sim = DenseSlabSimulator(MDConfig(n=1728, **HOT), cap=32,
+                                 device="cpu")
+        carry = sim.build(_system(1728))
+        tensors = list
+        rebuilds = lambda c: int(c.n_rebuilds)  # noqa: E731
     elif engine == "dense":
         sim = DenseSimulator(MDConfig(n=1728, **HOT), cap=32, device="cpu")
         carry = sim.build(_system(1728))
@@ -90,7 +99,7 @@ def test_run_keeps_every_carry_tensor_in_its_storage(engine):
         sim = DenseSimulator(MDConfig(n=13824, **HOT), cap=32, device="cpu",
                              incremental=True)
         carry = _dense_carry_from_seed(sim)
-    if engine != "xla":
+    if engine in ("dense", "incremental"):
         tensors = lambda c: [*c.state, c.force, c.ref_pos,  # noqa: E731
                              c.n_rebuilds, c.overflow]
         rebuilds = lambda c: int(c.n_rebuilds)  # noqa: E731
@@ -104,7 +113,7 @@ def test_run_keeps_every_carry_tensor_in_its_storage(engine):
     if engine == "incremental":
         assert (sim.full_fallbacks, sim.incremental_rebuilds) == (1, 1)
         assert int(out.state.valid().sum()) == 13824
-    overflow = out.overflow if engine != "xla" else out.nbr.overflow
+    overflow = out.nbr.overflow if engine == "xla" else out.overflow
     assert not bool(overflow)
 
 
@@ -140,9 +149,39 @@ def test_incremental_branch_counts_follow_the_jax_engine():
         jnew = jdc.rebuild_dense(js, jspec, True)[0] if bool(inc_of) else inc
         want_taken[int(bool(inc_of))] += 1
 
-        new = sim._rebuilt(carry.state)  # the path of _rebuild_and_lists
+        new = sim._rebuilt(carry.state)  # the path of the eager build
         assert_state_equal(new, jnew, parked_pos=False)
         sim._rebuild(carry, None, graphs.eager_cond)  # the step's path
         assert_state_equal(carry.state, jnew, parked_pos=False)
         assert sim._taken.tolist() == [2 * t for t in want_taken]
     assert want_taken == [2, 1]  # the seed trips the predicate, drift not
+
+
+@pytest.mark.parametrize("incremental", [False, True])
+def test_build_step_equals_the_eager_build(incremental):
+    """The list build as the card captures it (the caller's state copied into
+    the engine's buffers, rebuilt there in place, the incremental engine's
+    branches through ``cond``), run here by the chunk runner's eager path:
+    state, counts, masks and total bitwise those of the eager twin, from a
+    state whose mover stream trips the window predicate and from a drifted
+    one that does not, with the same branch counts."""
+    n, cap = 13824, 32
+    sim = DenseSimulator(MDConfig(n=n), cap=cap, device="cpu",
+                         incremental=incremental)
+    seed = _dense_carry_from_seed(sim).state
+    drifted = _drifted(sim._rebuild_and_lists_eager(seed)[0], 0.08, 1)
+    start = sim._taken.clone()
+    for state in (seed, drifted):
+        taken = sim._taken.clone()
+        want = sim._rebuild_and_lists_eager(state)
+        by_eager = sim._taken - taken
+        got = sim._captured_build(state)
+        assert torch.equal(sim._taken - taken, 2 * by_eager)
+        for a, b in zip(got[0], want[0]):
+            assert torch.equal(a, b)
+        for a, b in zip(got[1:], want[1:]):
+            assert torch.equal(a, b)
+    if incremental:
+        # the seed falls back, the drift is merged: each twice
+        assert (sim._taken - start).tolist() == [2, 2]
+    assert sim._build_runner.captures == 0

@@ -193,3 +193,16 @@ def scatter_slots(state, spec, seed: int):
     pos = tdc.park_positions(take(state.pos), valid, spec)
     vel = torch.where(valid[None], take(state.vel), 0.0)
     return tdc.DenseState(pos=pos, vel=vel, pid=pid)
+
+
+def check_dryrun(out: dict, p: int, printed: str) -> None:
+    """The numbers ``dryrun_multichip(p)`` returns and the two lines it
+    prints (the gates themselves raise inside it)."""
+    assert out["p"] == p
+    assert out["rebuilds"] >= 2 and out["migrated"] >= 1
+    assert out["pairs"] == out["oracle_pairs"] > 0
+    assert out["drift"] < 1e-4 and out["overlap_drift"] < 1e-4
+    assert out["overlap_nz"] >= 2 and out["overlap_rebuilds"] >= 1
+    lines = printed.splitlines()
+    assert lines[0].startswith(f"dryrun_multichip OK: P={p}, ")
+    assert lines[1].startswith("dryrun_multichip overlap phase OK: P=2, nz=")

@@ -9,20 +9,21 @@ PyTorch.
 ``engine`` (optional) and the job's fields. The rank writes its outputs to
 ``OUT_NPZ``. Engines:
 
-- ``dense_slab`` (the default): ``DenseSlabSimulator`` with the ``MDConfig``
-  fields (``config``), ``cap``, ``steps``, ``chunk`` and optionally
-  ``system`` (an ``.npz`` with the packed ``pos`` and ``vel`` every rank
-  starts from; else ``init()`` makes the lattice start). Outputs: the
-  gathered initial and final states, the global pair count and energies, and
-  the rank's own counters.
+- ``dense_slab`` (the default, ``dense_slab_run``): ``DenseSlabSimulator``
+  with the ``MDConfig`` fields (``config``), ``cap``, ``steps``, ``chunk``
+  and optionally ``system`` (an ``.npz`` with the packed ``pos`` and ``vel``
+  every rank starts from; else ``init()`` makes the lattice start).
+  Outputs: the gathered initial and final states, the global pair count and
+  energies, and the rank's own counters.
 - ``slab``: ``SlabSimulator`` with ``config``, ``steps`` and ``system``.
   Outputs: the rank's ``DDState`` after the build and after ``steps`` steps
   (``slab_states``).
 - ``ring``: the ring's shifts and reductions on tensors made from a seed
   (``ring_ops``).
 
-``slab_states`` and ``ring_ops`` take any ring, so a test runs them on a
-``LocalRing`` too and compares. ``spawn_ranks`` starts the processes of a run.
+``dense_slab_run``, ``slab_states`` and ``ring_ops`` take any ring, so a test
+runs them on a ``LocalRing`` too and compares. ``spawn_ranks`` starts the
+processes of a run.
 """
 
 from __future__ import annotations
@@ -108,39 +109,44 @@ def slab_states(ring, job: dict) -> dict:
     return out
 
 
+def dense_slab_run(ring, job: dict) -> dict:
+    """``DenseSlabSimulator`` on this rank: the gathered states, pair counts
+    and energies before and after ``job["steps"]`` steps, and the counters,
+    as numpy values."""
+    cfg = MDConfig(**job["config"], mesh_devices=ring.size)
+    sim = DenseSlabSimulator(cfg, cap=job["cap"], device="cpu", ring=ring)
+    if job.get("system"):
+        carry = sim.build(load_system(job["system"]))
+    else:
+        carry = sim.init()
+    first = sim.gather(carry)
+    _, pairs0 = sim.lists(carry)
+    ke0, pe0 = sim.energies(carry)
+    carry = sim.run(carry, job["steps"], chunk=job["chunk"])
+    last = sim.gather(carry)
+    _, pairs1 = sim.lists(carry)
+    ke1, pe1 = sim.energies(carry)
+    held = ring.gather(carry.pid).reshape(-1)  # every rank's slots
+    return dict(
+        pos0=first.pos.numpy(), force0=first.force.numpy(),
+        pos1=last.pos.numpy(), pairs0=pairs0, pairs1=pairs1,
+        e0=float(ke0 + pe0), e1=float(ke1 + pe1),
+        n_rebuilds=int(carry.n_rebuilds), n_migrated=int(carry.n_migrated),
+        overflow=bool(carry.overflow), pids=held[held >= 0].numpy(),
+        cap=sim.cap, mc=sim.spec.mc, nz=sim.spec.nz)
+
+
 def main(rank: int, world: int, store: str, job: dict, out: str) -> None:
     torch.set_num_threads(1)
     ring = init_ring("cpu", f"file://{store}", world, rank)
     try:
         engine = job.get("engine", "dense_slab")
-        if engine != "dense_slab":
-            fn = ring_ops if engine == "ring" else (
-                lambda r: slab_states(r, job))
-            np.savez(out, **{k: v.numpy() for k, v in fn(ring).items()})
+        if engine == "dense_slab":
+            np.savez(out, **dense_slab_run(ring, job))
             return
-        cfg = MDConfig(**job["config"], mesh_devices=world)
-        sim = DenseSlabSimulator(cfg, cap=job["cap"], device="cpu", ring=ring)
-        if job.get("system"):
-            carry = sim.build(load_system(job["system"]))
-        else:
-            carry = sim.init()
-        first = sim.gather(carry)
-        _, pairs0 = sim.lists(carry)
-        ke0, pe0 = sim.energies(carry)
-        carry = sim.run(carry, job["steps"], chunk=job["chunk"])
-        last = sim.gather(carry)
-        _, pairs1 = sim.lists(carry)
-        ke1, pe1 = sim.energies(carry)
-        held = ring.gather(carry.pid).reshape(-1)  # every rank's slots
-        np.savez(
-            out, pos0=first.pos.numpy(), force0=first.force.numpy(),
-            pos1=last.pos.numpy(), pairs0=pairs0, pairs1=pairs1,
-            e0=float(ke0 + pe0), e1=float(ke1 + pe1),
-            n_rebuilds=int(carry.n_rebuilds),
-            n_migrated=int(carry.n_migrated),
-            overflow=bool(carry.overflow),
-            pids=held[held >= 0].numpy(),
-            cap=sim.cap, mc=sim.spec.mc, nz=sim.spec.nz)
+        fn = ring_ops if engine == "ring" else (
+            lambda r: slab_states(r, job))
+        np.savez(out, **{k: v.numpy() for k, v in fn(ring).items()})
     finally:
         dist.destroy_process_group()
 
