@@ -73,6 +73,12 @@ and must launch none of the kernels (their counters are read around each):
                     slab, against ``Simulator(half_list=False)``;
   xla_slab_c5       the same engine on ``c5_dd`` (N = 8,000,000, P = 8): the
                     pairs, then 20 steps;
+  ring_graph        with two or more cards, both slab engines (their chunk a
+                    captured step whose exchanges are NCCL's) on a ring of
+                    P = min(4, cards) processes through
+                    ``parallel/ring_check.py``: graph against eager; on one
+                    card the line says ``"ran": false`` (NCCL takes one card
+                    a rank), which is no pass;
   cli               ``python -m md_neighbor_list_tpu_torch`` in subprocesses:
                     ``c3_verlet`` with the oracle parity check and a
                     checkpoint, the xla engine resuming it, the slab engine at
@@ -147,6 +153,7 @@ from md_neighbor_list_tpu_torch.ops import (_cuda, decode, dense_cells,
                                             dense_force, dense_ref,
                                             incremental, oracle, slab_kernels)
 from md_neighbor_list_tpu_torch.parallel import dense_slab, mesh
+from md_neighbor_list_tpu_torch.parallel import slab as slab_engine
 from md_neighbor_list_tpu_torch.parallel.dense_slab import (
     DenseSlabSimulator, make_slab_spec)
 from md_neighbor_list_tpu_torch.parallel.slab import (DDCapacity,
@@ -2071,9 +2078,8 @@ def slab_c5_geometry(device, cfg=PRESETS["c5_dd"]) -> dict:
 
 def slab_build(sim: DenseSlabSimulator, carry):
     """One list build of the slab engine, into ``carry``'s tensors: its
-    rebuild, the ghost refresh and the slab list pass."""
+    rebuild (with the ghost layer) and the slab list pass."""
     sim._rebuild(carry)
-    sim._refresh_ghosts(carry)
     slab_kernels.slab_lists_half(*sim._ext(carry), sim.spec, sim.config.rs)
     return carry
 
@@ -2489,11 +2495,14 @@ def slab_rank(ring, cfg: MDConfig, system: System | None, steps: int,
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     ke1, pe1 = (float(x) for x in sim.energies(st))
+    work = slab_engine._clone(st)  # the rebuilds work in place
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(rebuild_reps):
-        sim._rebuild(st)
+        sim._rebuild(work)
     torch.cuda.synchronize()
     rebuild_ms = (time.perf_counter() - t0) / rebuild_reps * 1e3
+    del work
     gathered = sim.gather(st)
     return {"entries": entries, "e0": ke0 + pe0, "e1": ke1 + pe1,
             "init_s": init_s, "run_s": run_s, "rebuild_ms": rebuild_ms,
@@ -2656,6 +2665,49 @@ def xla_slab_c5(device, steps: int = 20) -> dict:
          ranks_seconds=more["seconds"],
          phase_seconds=time.perf_counter() - t_start)
     return launches
+
+
+RING_GRAPH_TIMEOUT_S = 300
+
+
+def ring_graph() -> None:
+    """Both slab engines' captured steps on an NCCL ring of P = min(4, cards)
+    processes, one card each: ``parallel/ring_check.py`` under
+    ``torch.distributed.run`` (100 steps by ``run``, replays under
+    ``set_sync_debug_mode("error")``, against 100 by ``step_fn``: equal
+    rebuilds, positions within 5e-4, |dE/E| <= 1e-4), each in a process
+    group of its own, killed with it after ``RING_GRAPH_TIMEOUT_S``. NCCL
+    takes one card a rank, so on one card nothing runs: the line says
+    ``"ran": false``."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit("ring_graph", ran=False, cards=cards)
+        return
+    p = min(4, cards)
+    root = os.path.dirname(os.path.abspath(__file__))
+    for engine in ("dense_slab", "slab"):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc-per-node={p}", "-m",
+               "md_neighbor_list_tpu_torch.parallel.ring_check", "--engine",
+               engine, "--preset", "c4_sorted", "--steps", "100"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=RING_GRAPH_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)  # torchrun and its ranks
+            proc.communicate()
+            fail(f"ring_graph {engine}: no end within "
+                 f"{RING_GRAPH_TIMEOUT_S} s")
+        check(proc.returncode == 0,
+              f"ring_graph {engine}: exit {proc.returncode}: {err[-3000:]}")
+        result = json.loads(out.strip().splitlines()[-1])
+        check(result["ok"] and result["captures"] == 1,
+              f"ring_graph {engine}: {result}")
+        emit("ring_graph", ran=True, cards=cards,
+             seconds=time.perf_counter() - t0, **result)
 
 
 def cli_phase() -> None:
@@ -3050,6 +3102,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     xla_launches["xla_slab_c5"] = xla_slab_c5(device)
     torch.cuda.empty_cache()
+    ring_graph()
     cli_phase()
     by_path = {"main_path": launches, "list_delivery": delivery,
                "incremental": inc, "dense_slab": slab,

@@ -137,11 +137,12 @@ def main(argv=None) -> int:
     ring = None
     if engine in SLAB_ENGINES and cfg.mesh_devices > 1:
         ring = _ring(engine, cfg.mesh_devices, device)
-    try:
-        return _run(args, cfg, engine, ring, device)
-    finally:
-        if ring is not None:
-            torch.distributed.destroy_process_group()
+    rc = _run(args, cfg, engine, ring, device)
+    # not on an error: after a failed capture, tearing the NCCL group down
+    # can wait forever, where the rank's exit ends it (PERF.md)
+    if ring is not None:
+        torch.distributed.destroy_process_group()
+    return rc
 
 
 def _run(args, cfg, engine, ring, device) -> int:

@@ -8,18 +8,21 @@ contiguous dense layer block:
   decomposition  slabs along z: nz contiguous z-layers of cell rows per rank
                  (z leads the dense layout's rows, so a layer is one
                  contiguous (3, mc, mc, cap) block: no send lists, no gathers)
-  per step       1 shift: my first owned layer -> the left neighbour's
-                 right-ghost block (positions only; the ghost SET stays valid
+  per step       the vote, 1 scalar max, a 0-d device tensor on which the
+                 rebuild's local work branches; the BOUNDARY LAYERS both
+                 ways, each one packed (7, mc*mc*cap) shift of wrapped
+                 pos, vel and pid (emigrants can only live there, having
+                 moved <= 1 cell), read only when the rebuild runs; 1 shift
+                 of my first owned layer (positions and pids) -> the left
+                 neighbour's right-ghost block (the ghost SET stays valid
                  between rebuilds by the skin argument), posted before the
-                 interior force pass and waited on after it; 1 shift returning
-                 the Newton-3 seam reactions; 1 scalar max for the rebuild
-                 vote, a 0-d device tensor on which the rebuild branches
-  per rebuild    wrap; exchange the BOUNDARY LAYERS both ways (pos, vel, pid:
-                 emigrants can only live there, having moved <= 1 cell); key
-                 own + received records relative to my slab (emigrants and
-                 foreigners sort outside the owned key range and drop out);
-                 one stable sort + the expand kernel re-bins everything; the
-                 ghost pids are refreshed from the new binning
+                 interior force pass and waited on after it; 1 shift
+                 returning the Newton-3 seam reactions; 1 sum of the
+                 rebuild's (kept, emigrated) counts, zero without a rebuild
+  per rebuild    wrap; key own + received records relative to my slab
+                 (emigrants and foreigners sort outside the owned key range
+                 and drop out); one stable sort + the expand kernel re-bins
+                 everything
   forces         half-sweep kernels with dz >= 0 in their slab forms: pairs
                  across my LOWER face are evaluated by the left neighbour,
                  which shifts back one contiguous reaction layer (seam)
@@ -38,16 +41,18 @@ single-card runs ``DenseSimulator`` is the engine (no ghost layer).
 
 As in ``models/dense_lj.py`` a chunk of steps runs as one device program on
 the card, as the JAX ``jit(shard_map(lax.scan(step)))`` does: ``run`` replays
-a CUDA graph of one step (``utils/graphs.py``) in which the rebuild, with its
-collectives, is a conditional node on the reduced vote, and the ring's
-``all_reduce`` calls are captured with the rest. The step updates the carry IN
-PLACE (every rebuilt tensor, the ghosts and the force are copied into the
-carry's own storage); ``run`` clones the carry at the start of each chunk for
-the rollback. That needs a ring whose exchanges can be captured
-(``ring.capturable``: no group, or an NCCL group of one process). On a
-``LocalRing``, whose exchanges are host barriers, and on the CPU the same step
-runs eagerly and reads the vote on the host, by design; ``step_fn`` is that
-eager step on any ring.
+a CUDA graph of one step (``utils/graphs.py``) in which the rebuild's local
+work is a conditional node on the reduced vote, and the ring's shifts and
+``all_reduce`` calls are captured with the rest of the step, outside the
+branch: every rank makes every exchange every step, and a conditional body
+holds none (a body that holds NCCL's work of a group of more than one
+process is refused by ``cudaGraphInstantiate``, PERF.md). The step updates the carry IN PLACE (every rebuilt
+tensor, the ghosts and the force are copied into the carry's own storage);
+``run`` clones the carry at the start of each chunk for the rollback. That
+needs a ring whose exchanges can be captured (``ring.capturable``: no group,
+or an NCCL group of any size). On a ``LocalRing``, whose exchanges are host
+barriers, and on the CPU the same step runs eagerly and reads the vote on the
+host, by design; ``step_fn`` is that eager step on any ring.
 """
 
 from __future__ import annotations
@@ -141,80 +146,113 @@ class DenseSlabSimulator:
         self.spec = make_slab_spec(self.box, self.config.rs, self.p, self.cap)
 
     # ------------------------------------------------------------ internals
-    def _set_ghosts(self, carry: SlabCarry, layer_pos: torch.Tensor) -> None:
-        """Copy a received right-ghost layer into ``carry.gpos``, with the
-        ring seam's +L on its z channel on rank P-1 (whose right neighbour is
-        rank 0), added by the RECEIVER with one rounded f32 add: the ghost
-        images then equal the cube's in-kernel ``z + L`` bit for bit."""
-        carry.gpos.copy_(layer_pos)  # at P = 1 the "received" layer is my own
-        if self.ring.rank == self.p - 1:
-            carry.gpos[2] += float(np.float32(self.spec.L))
-
-    def _refresh_ghosts(self, carry: SlabCarry) -> None:
-        """Shift my first owned layer's positions to the left neighbour (the
-        ghost SET is frozen between rebuilds)."""
-        mc = self.spec.mc
-        self._set_ghosts(carry, self.ring.shift_minus(carry.pos[:, :mc]))
-
-    def _rebuild(self, carry: SlabCarry) -> None:
-        """Rebuild ``carry`` in place: the rebuilt slots, the ghost pids, the
-        reference positions and the counters are copied into its tensors.
-        Every rank calls it at the same step (the vote is global), so its
-        collectives pair up."""
+    def _exchange_boundary(self, carry: SlabCarry) -> list[torch.Tensor]:
+        """The migration transport of a rebuild, made every step before the
+        vote's branch (a step's exchanges stay outside its branches): my
+        boundary layers' records, wrapped positions, velocities and pids
+        (bit-cast to f32), packed into one (7, mc*mc*cap) tensor a
+        direction. Returns [the left neighbour's top layer, the right
+        neighbour's bottom layer]; at P = 2 with one layer a rank the first
+        only (both neighbours are one rank, and a second copy of its one
+        layer would be kept twice); at P = 1 none (the self-halo mode)."""
         spec, ring = self.spec, self.ring
         mc, nz = spec.mc, spec.nz
+        if self.p == 1:
+            return []
+
+        def pack(rows: slice) -> torch.Tensor:
+            return torch.cat([
+                torch.remainder(carry.pos[:, rows], spec.L).reshape(3, -1),
+                carry.vel[:, rows].reshape(3, -1),
+                carry.pid[rows].reshape(1, -1).view(torch.float32)])
+
+        recv = [ring.shift_plus(pack(slice((nz - 1) * mc, nz * mc)))]
+        if not (self.p == 2 and nz == 1):
+            recv.append(ring.shift_minus(pack(slice(0, mc))))
+        return recv
+
+    def _rebuild_local(self, carry: SlabCarry,
+                       recv: list[torch.Tensor]) -> torch.Tensor:
+        """The rebuild's local work, in place: own and received records
+        keyed relative to my slab (emigrants and foreigners key themselves
+        out), one stable sort and the expand kernel; the rebuilt slots and
+        the reference positions copied into ``carry``. Returns this rank's
+        (kept, emigrated) counts for the ring's sums (``_settle``)."""
+        spec = self.spec
+        mc, nz = spec.mc, spec.nz
         pos = torch.remainder(carry.pos, spec.L)
-        z0 = ring.rank * nz
+        z0 = self.ring.rank * nz
         valid = carry.pid >= 0
         if self.p == 1:
-            # self-halo mode: every particle is resident, and a
-            # self-exchange would enter each boundary particle twice; the
-            # unwrapped keys own all mc_z layers
+            # self-halo mode: every particle is resident; the unwrapped
+            # keys own all mc_z layers
             k_own = slab_keys(pos, valid, spec, z0, wrap=False)
             keys = k_own.reshape(-1)
             rec_pos, rec_vel = pos.reshape(3, -1), carry.vel.reshape(3, -1)
             pids = carry.pid.reshape(-1)
         else:
             # emigrants live only in the boundary layers (they moved <= 1
-            # cell since the last rebuild), so exchanging those layers IS
-            # the migration transport; non-residents key themselves out. No
-            # seam shift: records enter the sort in the wrapped global frame
-            first = slice(0, mc)
-            last = slice((nz - 1) * mc, nz * mc)
-            recv = [[ring.shift_plus(t) for t in (  # left nbr's top layer
-                pos[:, last], carry.vel[:, last], carry.pid[last])]]
-            if not (self.p == 2 and nz == 1):
-                # the right nbr's bottom layer; at P = 2 with one layer a
-                # rank it is the layer just received (both neighbours are
-                # one rank), and a second copy would be kept twice
-                recv.append([ring.shift_minus(t) for t in (
-                    pos[:, first], carry.vel[:, first], carry.pid[first])])
+            # cell since the last rebuild), so the exchanged layers ARE the
+            # migration; records enter the sort in the wrapped global frame
+            rpid = [r[6].view(torch.int32) for r in recv]
             k_own = slab_keys(pos, valid, spec, z0)
             keys = torch.cat([k_own.reshape(-1)] + [
-                slab_keys(r[0], r[2] >= 0, spec, z0).reshape(-1)
-                for r in recv])
-            rec_pos, rec_vel = (
-                torch.cat([own.reshape(3, -1)]
-                          + [r[i].reshape(3, -1) for r in recv], dim=1)
-                for i, own in ((0, pos), (1, carry.vel)))
-            pids = torch.cat([carry.pid.reshape(-1)]
-                             + [r[2].reshape(-1) for r in recv])
+                slab_keys(r[:3], q >= 0, spec, z0) for r, q in zip(recv, rpid)])
+            rec_pos = torch.cat([pos.reshape(3, -1)] + [r[:3] for r in recv],
+                                dim=1)
+            rec_vel = torch.cat([carry.vel.reshape(3, -1)]
+                                + [r[3:6] for r in recv], dim=1)
+            pids = torch.cat([carry.pid.reshape(-1)] + rpid)
         new, _ = slab_sort_expand(keys, rec_pos, rec_vel, pids, spec)
-
-        # conservation: every particle kept by exactly one rank
-        kept = ring.sum(torch.sum(new.pid >= 0))
         # migration diagnostic: own records that keyed out of my slab
         emigrant = valid & ((k_own < mc * mc) | (k_own >= mc * mc * (nz + 1)))
-        moved = ring.sum(torch.sum(emigrant))
-        # the ghost SET (pids) changes only here; the positions are refreshed
-        # by the step after the vote (left stale here on purpose)
-        carry.gpid.copy_(ring.shift_minus(new.pid[:mc]))
         for dst, src in ((carry.pos, new.pos), (carry.vel, new.vel),
                          (carry.pid, new.pid), (carry.ref_pos, new.pos)):
             dst.copy_(src)
         carry.n_rebuilds.add_(1)
-        carry.n_migrated.add_(moved.to(torch.int32))
-        carry.overflow.logical_or_(kept != self.config.n)
+        return torch.stack([torch.sum(new.pid >= 0), torch.sum(emigrant)])
+
+    def _settle(self, carry: SlabCarry, counts: torch.Tensor,
+                pred: torch.Tensor) -> None:
+        """After the branch, every step: one ring sum of the (kept,
+        emigrated) counts, zero where no rank rebuilt. Conservation (every
+        particle kept by exactly one rank) raises the sticky overflow only
+        where the rebuild ran (``pred``)."""
+        total = self.ring.sum(counts)
+        carry.n_migrated.add_(total[1].to(torch.int32))
+        carry.overflow.logical_or_(pred & (total[0] != self.config.n))
+
+    def _post_ghosts(self, carry: SlabCarry):
+        """Post my first owned layer, positions and pids (bit-cast), to the
+        left neighbour: its right ghosts. The pids change only at a
+        rebuild, so between rebuilds they arrive as they were. Returns the
+        pending shift (``_set_ghosts`` takes what it brings)."""
+        mc = self.spec.mc
+        pack = torch.cat([carry.pos[:, :mc].reshape(3, -1),
+                          carry.pid[:mc].reshape(1, -1).view(torch.float32)])
+        return self.ring.shift_minus(pack, async_op=True)
+
+    def _set_ghosts(self, carry: SlabCarry, recv: torch.Tensor) -> None:
+        """Copy a received right-ghost layer into ``carry.gpos`` and
+        ``carry.gpid``, with the ring seam's +L on its z channel on rank P-1
+        (whose right neighbour is rank 0), added by the RECEIVER with one
+        rounded f32 add: the ghost images then equal the cube's in-kernel
+        ``z + L`` bit for bit."""
+        spec = self.spec
+        shape = (spec.mc, spec.mc, spec.cap)
+        carry.gpos.copy_(recv[:3].reshape((3,) + shape))
+        carry.gpid.copy_(recv[3].view(torch.int32).reshape(shape))
+        if self.ring.rank == self.p - 1:
+            carry.gpos[2] += float(np.float32(spec.L))
+
+    def _rebuild(self, carry: SlabCarry) -> None:
+        """A whole rebuild of ``carry`` in place, outside a step (the
+        initial build, a timed list build): the boundary exchange, the
+        local rebuild, the ring's sums and the ghost layer."""
+        counts = self._rebuild_local(carry, self._exchange_boundary(carry))
+        self._settle(carry, counts, torch.ones(
+            (), dtype=torch.bool, device=carry.pos.device))
+        self._set_ghosts(carry, self._post_ghosts(carry).wait())
 
     def _ext(self, carry: SlabCarry):
         """The extended (owned + ghost) positions and validity."""
@@ -231,39 +269,49 @@ class DenseSlabSimulator:
         return force, pe
 
     def _step(self, carry: SlabCarry, cond) -> None:
-        """One velocity-Verlet step, in place, the rebuild branching through
-        ``cond`` on the ring's vote."""
+        """One velocity-Verlet step, in place, the rebuild's local work
+        branching through ``cond`` on the ring's vote. Every exchange is
+        made every step, outside the branch: the vote, the boundary layers,
+        the ghost layer (with its pids), the seam and the rebuild's sums."""
         cfg, spec, ring = self.config, self.spec, self.ring
         mc, nz = spec.mc, spec.nz
         dt = float(np.float32(cfg.dt))
         carry.vel.add_(carry.force, alpha=0.5 * dt)
         carry.pos.add_(carry.vel, alpha=dt)  # unwrapped between rebuilds
 
+        recv = self._exchange_boundary(carry)
+        counts = torch.zeros(2, dtype=torch.int64, device=carry.pos.device)
+
+        def rebuild() -> None:
+            counts.copy_(self._rebuild_local(carry, recv))
+
         if cfg.rebuild_every_step:
-            self._rebuild(carry)
+            pred = torch.ones((), dtype=torch.bool, device=carry.pos.device)
+            rebuild()
         else:
             disp = carry.pos - carry.ref_pos  # exact: both unwrapped
             d2 = torch.sum(disp * disp, dim=0)
             d2max = ring.max(torch.max(torch.where(carry.pid >= 0, d2, 0.0)))
-            cond(4.0 * d2max > cfg.skin * cfg.skin,
-                 lambda: self._rebuild(carry))
+            pred = 4.0 * d2max > cfg.skin * cfg.skin
+            cond(pred, rebuild)
 
-        # ghost positions of the post-vote state: posted before the interior
-        # pass, which does not read them, and waited on after it
-        pending = ring.shift_minus(carry.pos[:, :mc], async_op=True)
+        # ghosts of the post-vote state: posted before the interior pass,
+        # which does not read them, and waited on after it
+        pending = self._post_ghosts(carry)
         if nz >= 2:
             cut = (nz - 1) * mc
             f_low, top_rxn = slab_forces_interior(carry.pos, spec, cfg.rc)
             self._set_ghosts(carry, pending.wait())
             f_last, seam = slab_forces_boundary(
                 carry.pos[:, cut:], carry.gpos, carry.gpid >= 0, spec, cfg.rc)
-            recv = ring.shift_plus(seam)
+            recv_seam = ring.shift_plus(seam)
             carry.force[:, :cut].copy_(f_low)
             torch.add(f_last, top_rxn, out=carry.force[:, cut:])
-            carry.force[:, :mc] += recv
+            carry.force[:, :mc] += recv_seam
         else:  # a single owned layer: no interior exists
             self._set_ghosts(carry, pending.wait())
             carry.force.copy_(self._forces(carry)[0])
+        self._settle(carry, counts, pred)
         carry.vel.add_(carry.force, alpha=0.5 * dt)
 
     def step_fn(self, carry: SlabCarry) -> SlabCarry:
@@ -284,7 +332,6 @@ class DenseSlabSimulator:
         """The first rebuild, ghosts and forces, into ``carry``'s tensors:
         the carry whose storage the steps keep."""
         self._rebuild(carry)
-        self._refresh_ghosts(carry)  # the rebuild leaves gpos stale
         carry.force.copy_(self._forces(carry)[0])
         return carry
 

@@ -15,10 +15,14 @@ keeps the identity shifts and still sends its reductions through the group.
 
 ``capturable`` says whether a ring's exchanges may be captured into a CUDA
 graph (``utils/graphs.py``), so that an engine can run a chunk of steps as one
-device program: true with no group and on an NCCL group of one process (its
-``all_reduce`` is captured; NCCL asks only that the communicator exist before
-the capture), false on gloo and on a ``LocalRing``, whose exchanges are host
-barriers. It is a stated property of the ring, not something tried.
+device program: true with no group and on an NCCL group of any size (its
+shifts and ``all_reduce`` calls are captured and replay as NCCL kernels; NCCL
+asks only that the communicator exist before the capture, which an engine's
+eager build makes sure of), false on gloo and on a ``LocalRing``, whose
+exchanges are host barriers. It is a stated property of the ring, not
+something tried. A captured step makes its exchanges outside its branches:
+every rank makes them every step, and no conditional body holds one (the
+rings raise when asked inside a body, ``graphs.refuse_in_body``).
 
 ``LocalRing`` has ``Ring``'s surface for P ranks that are P threads of one
 process, on one device or several: the counterpart of the virtual-device mesh
@@ -34,6 +38,8 @@ import threading
 
 import torch
 import torch.distributed as dist
+
+from md_neighbor_list_tpu_torch.utils.graphs import refuse_in_body
 
 
 def backend_for(device) -> str:
@@ -101,16 +107,13 @@ class Ring:
         else:
             self.rank = dist.get_rank(group)
             self.size = dist.get_world_size(group)
-            # one process: its all_reduce calls replay in a graph. A step
-            # captured with the shifts of four processes hung on four H100s
-            # (PERF.md), so larger groups step eagerly
-            self.capturable = (dist.get_backend(group) == "nccl"
-                               and self.size == 1)
+            self.capturable = dist.get_backend(group) == "nccl"
 
     def _peer(self, r: int) -> int:
         return dist.get_global_rank(self.group, r % self.size)
 
     def _shift(self, t: torch.Tensor, to: int, frm: int, async_op: bool):
+        refuse_in_body("a ring shift")
         if self.size == 1:
             return _Pending([], t) if async_op else t
         t = t.contiguous()
@@ -133,6 +136,7 @@ class Ring:
         return self._shift(t, self.rank - 1, self.rank + 1, async_op)
 
     def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        refuse_in_body("a ring reduction")
         if self.group is None:
             return t
         t = t.clone()
@@ -150,6 +154,7 @@ class Ring:
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """(P, *t.shape): every rank's ``t`` in rank order, on every rank
         (host-side gathers of a whole state; not on the step path)."""
+        refuse_in_body("a ring gather")
         if self.group is None:
             return t[None]
         parts = [torch.empty_like(t) for _ in range(self.size)]
@@ -199,6 +204,7 @@ class LocalRing:
         """Post a copy of ``t``; returns every rank's posted tensor, in rank
         order. A set of slots is posted into again only two exchanges later,
         after a barrier that every rank passes once it has read this one."""
+        refuse_in_body("a ring exchange")
         slots = self._hub.slots[self._turn]
         self._turn ^= 1
         slots[self.rank] = t.clone()

@@ -11,19 +11,25 @@ in fixed-capacity slot arrays:
     [cap, cap+gcap)     ghosts from the LEFT  neighbour (x just below my lo)
     [cap+gcap, M)       ghosts from the RIGHT neighbour (x just above my hi)
 
-Protocol per step (neighbour shifts and one scalar ``max`` vote: the JAX
-package's ``ppermute`` and ``pmax``):
+Protocol per step (neighbour shifts, one scalar ``max`` vote: the JAX
+package's ``ppermute`` and ``pmax``). The JAX step puts the rebuild under one
+``lax.cond`` with its ``ppermute`` calls inside; here the rebuild is three
+branches on the one vote, and every exchange is made every step, between
+them, so that no branch holds a collective:
 
-  kick; drift; global rebuild vote = max(4*max_disp^2 > skin^2), read on the
-  host once a step (the JAX step branches on the device, ``lax.cond``)
-  if rebuild: migrate emigrants to the +-1 neighbours -> recompact the owned
-              slots; select the face bands (within rs of each face), record
-              the send index lists, exchange the ghosts (pos + pid); bin +
-              sweep the combined set (stable slot order, inactive slots
-              masked)
-  else:       re-gather positions at the recorded send lists, shift, and
-              overwrite the ghost positions (the ghost *set* stays valid
-              between rebuilds by the skin argument)
+  kick; drift; vote = max over the ring of (4*max_disp^2 > skin^2), a 0-d
+  device tensor
+  branch 1    migrate out: the emigrants to the +-1 neighbours packed, one
+              (mig, 7) f32 tensor a direction (pos, vel, pid bit-cast)
+  shift       the two packs (unread without a rebuild)
+  branch 2    merge in: stable recompaction of stayers + immigrants into the
+              owned slots; the face bands (within rs of each face) recorded
+              as the send index lists
+  shift       the ghosts both ways: positions and pids gathered at the send
+              lists (between rebuilds the same sets, fresh positions: the
+              ghost *set* stays valid by the skin argument)
+  branch 3    bin + sweep the combined set (stable slot order, inactive
+              slots masked)
   forces over the combined set with FULL lists -> owned forces complete
   locally (no reverse force exchange); kick.
 
@@ -33,10 +39,16 @@ the same rank's ghost blocks). There is no P = 1 mode: ``Simulator`` is the
 one-rank engine.
 
 Plain PyTorch on the rank's device, no kernel: the JAX engine reaches no
-Pallas call. The step is functional (it returns new tensors), so a chunk's
-rollback keeps the carry it started from. The sticky overflow flag is reduced
-over the ring before the host acts on it, so every rank grows and rebuilds
-together.
+Pallas call. As the JAX ``jit(shard_map(lax.scan(step)))`` does, a chunk runs
+as one device program on the card where the ring can be captured (an NCCL
+group): ``run`` replays a CUDA graph of one step (``utils/graphs.py``), each
+branch a conditional node on the vote, the exchanges captured between them.
+The step writes every result into the state's own storage; ``run`` clones
+the state at the start of each chunk for the rollback and reads the sticky
+overflow flag once a chunk, reduced over the ring so that every rank grows
+and rebuilds together. On a ``LocalRing`` (host barriers) and on the CPU the
+same step runs eagerly. ``step_fn`` is that eager step: it returns a new
+state and reads the vote on the host once.
 """
 
 from __future__ import annotations
@@ -59,6 +71,7 @@ from md_neighbor_list_tpu_torch.ops.integrate import (drift, half_kick,
 from md_neighbor_list_tpu_torch.ops.pairlist import \
     build_neighbor_lists_stable
 from md_neighbor_list_tpu_torch.parallel.mesh import Ring, rank_device
+from md_neighbor_list_tpu_torch.utils.graphs import ChunkRunner, eager_cond
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +149,10 @@ def check_geometry(config: MDConfig) -> tuple[Box, CellGrid, float]:
     return box, grid, w
 
 
+def _clone(st: DDState) -> DDState:
+    return DDState(*(t.clone() for t in st))
+
+
 def _gather_rows(arr: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
     """Gather rows with one sentinel row appended (idx == len(arr) -> fill)."""
     ext = torch.cat([arr, torch.full((1,) + arr.shape[1:], fill,
@@ -175,6 +192,7 @@ class SlabSimulator:
         lo = np.float32(self.ring.rank) * w32
         self._band_low = float(lo + np.float32(config.rs))
         self._band_high = float((lo + w32) - np.float32(config.rs))
+        self._runner = ChunkRunner()
 
     # ------------------------------------------------------------ per rank
     def _combined(self, st: DDState):
@@ -192,8 +210,24 @@ class SlabSimulator:
                                     half=False, energy_rows=owned)
         return f_all[:cl], u
 
-    def _migrate(self, st: DDState) -> DDState:
-        ring, p = self.ring, self.p
+    def _pack(self, st: DDState, idx: torch.Tensor, vel: bool
+              ) -> torch.Tensor:
+        """The records of the slots ``idx`` (sentinel ``cl``: position and
+        velocity 0, pid -1) as one f32 tensor, a row a record: position,
+        velocity if ``vel``, pid bit-cast to f32. One shift moves it."""
+        cols = [_gather_rows(st.pos, idx, 0.0)]
+        if vel:
+            cols.append(_gather_rows(st.vel, idx, 0.0))
+        cols.append(_gather_rows(st.pid, idx, -1).view(torch.float32)[:, None])
+        return torch.cat(cols, dim=1)
+
+    def _migrate_out(self, st: DDState, send: torch.Tensor,
+                     stay_pid: torch.Tensor) -> None:
+        """Branch 1 of a rebuild: the emigrants' records packed for the
+        right and left neighbours into ``send`` (2, mig, 7), the stayers'
+        pids (-1 elsewhere) into ``stay_pid``, the migration's overflow into
+        the sticky flag."""
+        p, ring = self.p, self.ring
         cl, mig = st.pid.shape[0], self.capacity.mig
         valid = st.pid >= 0
         t = torch.clamp(torch.floor(st.pos[:, 0] * self._inv_w).to(
@@ -209,104 +243,130 @@ class SlabSimulator:
         slots = torch.arange(cl, dtype=torch.int32, device=self.device)
         idx_r, cnt_r = compact_rows(slots, go_r, mig, fill=cl)
         idx_l, cnt_l = compact_rows(slots, go_l, mig, fill=cl)
+        send[0].copy_(self._pack(st, idx_r, vel=True))
+        send[1].copy_(self._pack(st, idx_l, vel=True))
+        stay_pid.copy_(torch.where(stay, st.pid, -1))
+        st.overflow.logical_or_((cnt_r > mig) | (cnt_l > mig)
+                                | torch.any(lost))
 
-        def pack(idx):
-            return (_gather_rows(st.pos, idx, 0.0),
-                    _gather_rows(st.vel, idx, 0.0),
-                    _gather_rows(st.pid, idx, -1))
-
-        from_left = [ring.shift_plus(a) for a in pack(idx_r)]
-        from_right = [ring.shift_minus(a) for a in pack(idx_l)]
-        all_pos = torch.cat([st.pos, from_left[0], from_right[0]])
-        all_vel = torch.cat([st.vel, from_left[1], from_right[1]])
-        all_pid = torch.cat([torch.where(stay, st.pid, -1), from_left[2],
-                             from_right[2]])
+    def _merge_in(self, st: DDState, from_left: torch.Tensor,
+                  from_right: torch.Tensor, stay_pid: torch.Tensor) -> None:
+        """Branch 2: the stayers and the immigrants compacted stably into
+        the owned slots; then the face bands (within rs of each face) and
+        their send lists into ``send_idx``. Overflows into the flag."""
+        cl, gcap = st.pid.shape[0], self.capacity.ghost
+        all_pos = torch.cat([st.pos, from_left[:, :3], from_right[:, :3]])
+        all_vel = torch.cat([st.vel, from_left[:, 3:6], from_right[:, 3:6]])
+        all_pid = torch.cat([stay_pid, from_left[:, 6].view(torch.int32),
+                             from_right[:, 6].view(torch.int32)])
         valid_all = all_pid >= 0
         # the stable compaction of the JAX argsort(~valid)[:cl]: occupied
         # slots first, each group in slot order
         order = torch.argsort((~valid_all).to(torch.int32), stable=True)[:cl]
         new_pid = all_pid[order]
-        new_vel = torch.where((new_pid >= 0)[:, None], all_vel[order], 0.0)
-        count = torch.sum(valid_all)
-        over = (count > cl) | (cnt_r > mig) | (cnt_l > mig) | torch.any(lost)
-        return st._replace(pos=all_pos[order], vel=new_vel, pid=new_pid,
-                           overflow=st.overflow | over)
+        st.vel.copy_(torch.where((new_pid >= 0)[:, None], all_vel[order],
+                                 0.0))
+        st.pos.copy_(all_pos[order])
+        st.pid.copy_(new_pid)
 
-    def _halo_exchange(self, st: DDState) -> DDState:
-        ring = self.ring
-        cl, gcap = st.pid.shape[0], self.capacity.ghost
         valid = st.pid >= 0
         x = st.pos[:, 0]
         low = valid & (x < self._band_low)
         high = valid & (x >= self._band_high)
-
         slots = torch.arange(cl, dtype=torch.int32, device=self.device)
         idx_low, cnt_low = compact_rows(slots, low, gcap, fill=cl)
         idx_high, cnt_high = compact_rows(slots, high, gcap, fill=cl)
-        over = (cnt_low > gcap) | (cnt_high > gcap)
+        st.send_idx.copy_(torch.stack([idx_low, idx_high]))
+        st.overflow.logical_or_((torch.sum(valid_all) > cl)
+                                | (cnt_low > gcap) | (cnt_high > gcap))
 
-        # low-face set -> left neighbour (shift_minus): its from-right block;
-        # high-face set -> right neighbour (shift_plus): its from-left block
-        ghost_r_pos = ring.shift_minus(_gather_rows(st.pos, idx_low, 0.0))
-        ghost_r_pid = ring.shift_minus(_gather_rows(st.pid, idx_low, -1))
-        ghost_l_pos = ring.shift_plus(_gather_rows(st.pos, idx_high, 0.0))
-        ghost_l_pid = ring.shift_plus(_gather_rows(st.pid, idx_high, -1))
-        return st._replace(
-            ghost_pos=torch.stack([ghost_l_pos, ghost_r_pos]),
-            ghost_pid=torch.stack([ghost_l_pid, ghost_r_pid]),
-            send_idx=torch.stack([idx_low, idx_high]),
-            overflow=st.overflow | over)
+    def _exchange_ghosts(self, st: DDState) -> None:
+        """Every step: positions and pids at the recorded send lists, both
+        ways. The low-face set goes to the left neighbour (``shift_minus``:
+        its from-right block), the high-face set to the right one. Between
+        rebuilds the sets and their pids are as the last rebuild left them,
+        so only the positions are new."""
+        from_right = self.ring.shift_minus(
+            self._pack(st, st.send_idx[0], vel=False))
+        from_left = self.ring.shift_plus(
+            self._pack(st, st.send_idx[1], vel=False))
+        st.ghost_pos.copy_(torch.stack([from_left[:, :3], from_right[:, :3]]))
+        st.ghost_pid.copy_(torch.stack([from_left[:, 3].view(torch.int32),
+                                        from_right[:, 3].view(torch.int32)]))
 
-    def _refresh_ghosts(self, st: DDState) -> DDState:
-        """Non-rebuild steps: the same send sets, fresh positions."""
-        ghost_r_pos = self.ring.shift_minus(
-            _gather_rows(st.pos, st.send_idx[0], 0.0))
-        ghost_l_pos = self.ring.shift_plus(
-            _gather_rows(st.pos, st.send_idx[1], 0.0))
-        return st._replace(ghost_pos=torch.stack([ghost_l_pos, ghost_r_pos]))
-
-    def _sweep(self, st: DDState) -> DDState:
+    def _sweep(self, st: DDState) -> None:
+        """Branch 3: the full lists over the combined set."""
         cfg, cap = self.config, self.capacity
         xpos, xactive = self._combined(st)
         nl = build_neighbor_lists_stable(
             xpos, self.box, self.grid, cfg.rs, cap.neighbors, cap.cell,
             half=False, layout=cfg.layout, active=xactive)
-        return st._replace(idx=nl.idx, ref_pos=st.pos,
-                           n_rebuilds=st.n_rebuilds + 1,
-                           overflow=st.overflow | nl.overflow)
+        st.idx.copy_(nl.idx)
+        st.ref_pos.copy_(st.pos)
+        st.n_rebuilds.add_(1)
+        st.overflow.logical_or_(nl.overflow)
 
-    def _rebuild(self, st: DDState) -> DDState:
-        return self._sweep(self._halo_exchange(self._migrate(st)))
+    def _rebuild(self, st: DDState, branch=lambda body: body()) -> None:
+        """The rebuild of ``st`` in place, as three branches on the one vote
+        (``branch(body)``; by default each is taken) with the exchanges
+        between them made unconditionally: migrate out, shift the two
+        packs, merge in and select the face bands, exchange the ghosts,
+        sweep. On a step with no rebuild the packs are not read and the
+        ghost exchange refreshes the positions."""
+        send = torch.zeros((2, self.capacity.mig, 7), dtype=torch.float32,
+                           device=self.device)
+        stay_pid = torch.empty_like(st.pid)
+        branch(lambda: self._migrate_out(st, send, stay_pid))
+        from_left = self.ring.shift_plus(send[0])
+        from_right = self.ring.shift_minus(send[1])
+        branch(lambda: self._merge_in(st, from_left, from_right, stay_pid))
+        self._exchange_ghosts(st)
+        branch(lambda: self._sweep(st))
 
-    def step_fn(self, st: DDState) -> DDState:
-        """One velocity-Verlet step; returns a new state."""
+    def _step(self, st: DDState, cond) -> None:
+        """One velocity-Verlet step written into ``st``'s tensors, the
+        rebuild's three branches through ``cond`` on the ring's vote."""
         cfg, box = self.config, self.box
         vel = half_kick(st.vel, st.force, cfg.dt)
-        pos = drift(st.pos, vel, cfg.dt, box)
-        st = st._replace(pos=pos, vel=vel)
+        st.pos.copy_(drift(st.pos, vel, cfg.dt, box))
+        st.vel.copy_(vel)
 
-        need = cfg.rebuild_every_step
-        if not need:
-            disp = box.min_image(pos - st.ref_pos)
+        if cfg.rebuild_every_step:
+            self._rebuild(st)
+        else:
+            disp = box.min_image(st.pos - st.ref_pos)
             d2 = torch.max(torch.where(st.pid >= 0,
                                        torch.sum(disp * disp, dim=-1), 0.0))
             d2 = self.ring.max(d2)
-            # the one host read of the step: the same vote on every rank
-            need = bool(4.0 * d2 > float(np.float32(cfg.skin * cfg.skin)))
-        st = self._rebuild(st) if need else self._refresh_ghosts(st)
+            pred = 4.0 * d2 > float(np.float32(cfg.skin * cfg.skin))
+            if cond is eager_cond:  # one host read for the three branches
+                need = bool(pred)
+                self._rebuild(st, lambda body: body() if need else None)
+            else:
+                self._rebuild(st, lambda body: cond(pred, body))
 
         force, _ = self._forces(st)
-        return st._replace(vel=half_kick(st.vel, force, cfg.dt), force=force)
+        st.vel.copy_(half_kick(st.vel, force, cfg.dt))
+        st.force.copy_(force)
+
+    def step_fn(self, st: DDState) -> DDState:
+        """One velocity-Verlet step, eager (the vote read on the host once);
+        returns a new state."""
+        out = _clone(st)
+        self._step(out, eager_cond)
+        return out
 
     def _run_chunk(self, st: DDState, nsteps: int) -> DDState:
-        for _ in range(nsteps):
-            st = self.step_fn(st)
+        """``nsteps`` steps in place: replays of one captured graph on the
+        card where the ring can be captured, else eager steps."""
+        self._runner.run(lambda cond: self._step(st, cond), nsteps, list(st),
+                         key=self.capacity, capturable=self.ring.capturable)
         return st
 
     def _initial_build(self, st: DDState) -> DDState:
-        st = self._rebuild(st)
-        force, _ = self._forces(st)
-        return st._replace(force=force)
+        self._rebuild(st)
+        st.force.copy_(self._forces(st)[0])
+        return st
 
     def _overflowed(self, st: DDState) -> bool:
         """The sticky flag of any rank (a collective: every rank calls it)."""
@@ -343,10 +403,7 @@ class SlabSimulator:
             ghost_pid=torch.full((2, gcap), -1, dtype=torch.int32,
                                  device=dev),
             send_idx=torch.full((2, gcap), cl, dtype=torch.int32, device=dev),
-            # all sentinels, replaced by the build's sweep before any read:
-            # a broadcast view, no (M, K) buffer
-            idx=torch.full((1, 1), M, dtype=torch.int32,
-                           device=dev).expand(M, K),
+            idx=torch.full((M, K), M, dtype=torch.int32, device=dev),
             ref_pos=pos.clone(),
             n_rebuilds=torch.zeros((), dtype=torch.int32, device=dev),
             overflow=torch.zeros((), dtype=torch.bool, device=dev))
@@ -391,21 +448,27 @@ class SlabSimulator:
             self.capacity = self.capacity.grown()
 
     def run(self, st: DDState, nsteps: int, chunk: int = 100) -> DDState:
-        """Advance ``nsteps`` steps in chunks. A chunk in which any rank
-        overflowed is undone on every rank: the state at its start is
-        gathered, every capacity grows, and it is rebuilt and redone."""
-        done = 0
+        """Advance ``nsteps`` steps in chunks; returns a new state and leaves
+        ``st`` as it was (as the JAX ``run`` does). The steps work in place
+        on one clone of ``st``, whose storage the captured step keeps for
+        the whole call. A chunk in which any rank overflowed is undone on
+        every rank: the state at its start is gathered, every capacity
+        grows, and it is rebuilt and redone. The sticky flag is read once a
+        chunk."""
+        snapshot, work, done = st, _clone(st), 0
         while done < nsteps:
             this = min(chunk, nsteps - done)
-            snapshot = st  # step_fn leaves it untouched
-            st = self._run_chunk(st, this)
-            if self._overflowed(st):
+            self._run_chunk(work, this)
+            if self._overflowed(work):
                 system = self.gather(snapshot)
                 self.capacity = self.capacity.grown()
-                st = self.build(system)
+                snapshot = self.build(system)
+                work = _clone(snapshot)
                 continue
             done += this
-        return st
+            if done < nsteps:
+                snapshot = _clone(work)
+        return work
 
     def energies(self, st: DDState):
         """(KE, PE) summed over the ring, as 0-d tensors on every rank."""

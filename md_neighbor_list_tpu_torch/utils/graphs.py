@@ -36,6 +36,13 @@ conditional node (``ops/_cuda.graph_if``, ``csrc/graph_cond.cu``); then each
 body is captured as a graph of its own and placed into its node. A capture
 that fails raises: there is no host-branch loop on the card to fall back to.
 
+A body does local work only: ``cudaGraphInstantiate`` refuses a conditional
+body that holds NCCL's work of a group of more than one process (PERF.md), so
+a step's collectives (``parallel/mesh.py``) run in the step itself, every
+step, on every rank. While a body is captured ``capturing_body()`` is true in
+the capturing thread; the rings check it and raise, as a ``cond`` inside a
+body does.
+
 Launches: ``ops/_cuda.launch`` counts a kernel when it is called, so a
 captured kernel is counted once at capture and never at replay. The capture
 notes the launches of the step outside its bodies and of each body, puts the
@@ -46,6 +53,8 @@ the steps and each body's launches times the times it ran on the device
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from typing import Callable, Sequence
 
@@ -55,6 +64,33 @@ from md_neighbor_list_tpu_torch.ops import _cuda
 
 Cond = Callable[[torch.Tensor, Callable[[], None]], None]
 Step = Callable[[Cond], None]
+
+
+_capture = threading.local()
+
+
+def capturing_body() -> bool:
+    """True while this thread captures the body of a conditional node."""
+    return getattr(_capture, "body", False)
+
+
+@contextlib.contextmanager
+def body_capture():
+    """Mark this thread as capturing a conditional body for the block: a
+    ``cond`` inside it, and a ring exchange, raise."""
+    _capture.body = True
+    try:
+        yield
+    finally:
+        _capture.body = False
+
+
+def refuse_in_body(what: str) -> None:
+    """Raise if this thread is capturing a conditional body: ``what`` (a
+    ring exchange) belongs to the step, outside every branch."""
+    if capturing_body():
+        raise RuntimeError(f"{what} inside a conditional body: a step's "
+                           "collectives run outside its branches")
 
 
 def eager_cond(pred: torch.Tensor, body: Callable[[], None]) -> None:
@@ -117,11 +153,10 @@ class StepGraph:
                 with torch.cuda.stream(side):
                     graph.capture_begin(pool=pool)
                     try:
-                        self._capturing_body = True
-                        body()
+                        with body_capture():
+                            body()
                         self.hits[i].add_(1)
                     finally:
-                        self._capturing_body = False
                         graph.capture_end()
                 self.per_body.append(_launched_since(mark))
                 _cuda.graph_body(node, graph.raw_cuda_graph())
@@ -131,10 +166,8 @@ class StepGraph:
             _cuda.LAUNCHES.update(counts)  # nothing captured has run
         self._nodes.clear()  # the bodies' closures are no longer needed
 
-    _capturing_body = False
-
     def _node(self, pred: torch.Tensor, body: Callable[[], None]) -> None:
-        if self._capturing_body:
+        if capturing_body():
             raise RuntimeError("a branch inside a branch: conditional nodes "
                                "do not nest in a body graph")
         self._nodes.append((_cuda.graph_if(pred), body))

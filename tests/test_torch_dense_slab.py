@@ -209,9 +209,12 @@ def test_p2_local_ring_equals_gloo_bitwise(tmp_path):
                                           err_msg=f"rank {r}: {name}")
 
 
-def test_rings_say_whether_a_step_can_be_captured():
-    """No group: capturable; a gloo group, even of one process, and a
-    ``LocalRing``: not (host exchanges), so the engine steps eagerly."""
+def test_rings_say_whether_a_step_can_be_captured(monkeypatch):
+    """No group: capturable; an NCCL group of any size: capturable (its
+    shifts and reductions replay as NCCL's kernels; the ring is told the
+    backend and size here, as no NCCL group runs on the CPU); a gloo group,
+    even of one process, and a ``LocalRing``: not (host exchanges), so the
+    engine steps eagerly."""
     assert Ring().capturable
     assert not any(r.capturable for r in LocalRing.ring_of(2))
     dist.init_process_group("gloo", store=dist.HashStore(), world_size=1,
@@ -223,6 +226,11 @@ def test_rings_say_whether_a_step_can_be_captured():
                                  ring=ring)
         carry = sim.run(sim.init(_gen(7)), 5, chunk=5)
         assert sim._runner.captures == 0 and not bool(carry.overflow)
+        monkeypatch.setattr(dist, "get_backend", lambda group: "nccl")
+        for size in (1, 2, 4, 8):
+            monkeypatch.setattr(dist, "get_world_size", lambda group: size)
+            ring = Ring(dist.group.WORLD)
+            assert (ring.size, ring.capturable) == (size, True)
     finally:
         dist.destroy_process_group()
 

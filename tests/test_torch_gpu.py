@@ -706,8 +706,8 @@ def test_graph_recaptured_after_the_capacity_grows(card):
 def test_dense_slab_graph_matches_eager_steps(card, ring_kind, monkeypatch):
     """The slab engine at P = 1 (nz = 4): ``run`` against a loop of the eager
     ``step_fn`` from one carry. With no group and on a one-rank NCCL group
-    (its ``all_reduce`` calls captured, in the rebuild's conditional body and
-    out of it) one graph is captured and replayed with no host read; on a
+    (its ``all_reduce`` calls captured in the step, outside the rebuild's
+    conditional body) one graph is captured and replayed with no host read; on a
     ``LocalRing`` the step runs eagerly and nothing is captured. The same
     rebuilds, positions within 5e-4, and under replay the launches of the
     eager loop plus the capture's warm-up."""
@@ -769,6 +769,108 @@ def test_dense_slab_graph_matches_eager_steps(card, ring_kind, monkeypatch):
             b.get(name, 0) for b in captured.per_body)
         assert count == eager_l[name] + warm, name
     assert graph_l["forces_half_slab"] == 2 * (steps + 1)
+
+
+def test_dense_slab_p1_graph_over_chunks_matches_its_eager_twin(card,
+                                                                monkeypatch):
+    """The slab step with every exchange outside its branch, at P = 1 on a
+    one-rank NCCL group: 40 steps by ``run`` in four chunks (one capture,
+    replayed by every chunk) against 40 eager steps from one carry. The
+    same rebuilds, none of the particles migrated, each kept once,
+    positions within 5e-4."""
+    import torch.distributed as dist
+
+    from md_neighbor_list_tpu_torch import MDConfig
+    from md_neighbor_list_tpu_torch.parallel import dense_slab, mesh
+    from md_neighbor_list_tpu_torch.utils import convert
+
+    n, steps = 1728, 40
+    pos, vel, pid = numpy_system(n, seed=6)
+    system = convert.system_from_numpy(pos, 1.4 * vel, np.zeros_like(pos),
+                                       pid, device=card)
+    _strict_replays(monkeypatch)
+    ring = mesh.init_ring(card, world_size=1, rank=0, store=dist.HashStore())
+    try:
+        sim = dense_slab.DenseSlabSimulator(MDConfig(n=n, **HOT), cap=48,
+                                            device=card, ring=ring)
+        carry = sim.build(system)
+        eager, graph = dense_slab._clone(carry), dense_slab._clone(carry)
+        for _ in range(steps):
+            eager = sim.step_fn(eager)
+        graph = sim.run(graph, steps, chunk=10)
+        torch.cuda.synchronize()
+        d = np.abs(sim.gather(graph).pos.cpu().numpy()
+                   - sim.gather(eager).pos.cpu().numpy())
+        gap = float(np.minimum(d, sim.box.L - d).max())
+    finally:
+        dist.destroy_process_group()
+    assert sim._runner.captures == 1
+    assert int(graph.n_rebuilds) == int(eager.n_rebuilds) > \
+        int(carry.n_rebuilds) + 1
+    assert int(graph.n_migrated) == int(eager.n_migrated) == 0
+    assert int((graph.pid >= 0).sum()) == n and not bool(graph.overflow)
+    assert gap < 5e-4
+
+
+def test_ring_exchange_in_a_body_is_refused_on_the_card(card):
+    """A step whose branch body makes a ring reduction, on a one-rank NCCL
+    group: the body's capture raises (a step's collectives run outside its
+    branches), and nothing steps eagerly instead."""
+    import torch.distributed as dist
+
+    from md_neighbor_list_tpu_torch.parallel import mesh
+
+    ring = mesh.init_ring(card, world_size=1, rank=0, store=dist.HashStore())
+    try:
+        x = torch.zeros((), device=card)
+
+        def step(cond):
+            x.add_(1.0)
+            cond(x > 0.0, lambda: x.copy_(ring.sum(x)))
+
+        runner = graphs.ChunkRunner()
+        with pytest.raises(RuntimeError, match="inside a conditional body"):
+            runner.run(step, 5, [x], capturable=ring.capturable)
+        torch.cuda.synchronize()
+        assert float(x) == 0.0 and runner.captures == 0
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("engine", ["dense_slab", "slab"])
+def test_ring_check_on_two_cards_or_more(card, engine):
+    """Both slab engines' captured steps on an NCCL ring of P = min(4, cards)
+    processes (``parallel/ring_check.py`` under ``torch.distributed.run``,
+    100 steps each way at ``c4_sorted``): exit 0, one capture, the checks
+    held. NCCL takes one card a rank, so one card cannot run it."""
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f"needs two CUDA devices or more, {cards} here: an NCCL "
+                    "rank takes a card of its own")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={min(4, cards)}", "-m",
+         "md_neighbor_list_tpu_torch.parallel.ring_check", "--engine",
+         engine, "--preset", "c4_sorted", "--steps", "100"],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        pytest.fail(f"ring_check {engine}: no end within 300 s")
+    assert proc.returncode == 0, err[-3000:]
+    result = json.loads(out.strip().splitlines()[-1])
+    assert result["ok"] and result["captures"] == 1, result
+    assert result["rebuilds_graph"] == result["rebuilds_eager"] >= 1
 
 
 @pytest.mark.parametrize("incremental", [False, True])

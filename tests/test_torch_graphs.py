@@ -15,6 +15,8 @@ from md_neighbor_list_tpu_torch import DenseSimulator, MDConfig, Simulator
 from md_neighbor_list_tpu_torch.models.dense_lj import DenseCarry
 from md_neighbor_list_tpu_torch.ops import dense_cells as tdc
 from md_neighbor_list_tpu_torch.parallel.dense_slab import DenseSlabSimulator
+from md_neighbor_list_tpu_torch.parallel.mesh import LocalRing, Ring, run_ranks
+from md_neighbor_list_tpu_torch.parallel.slab import SlabSimulator
 from md_neighbor_list_tpu_torch.utils import convert, graphs
 from torch_port_util import assert_state_equal, jax_state, numpy_system
 
@@ -74,13 +76,53 @@ def _dense_carry_from_seed(sim, n=13824, seed=21):
                       overflow=torch.zeros((), dtype=torch.bool))
 
 
-@pytest.mark.parametrize("engine",
-                         ["dense", "incremental", "xla", "dense_slab"])
+def _slab_run_keeps_its_storage(p: int) -> None:
+    """The XLA slab engine on a ``LocalRing`` of P CPU ranks: ``run`` (20
+    steps in chunks of 5) works in place on one clone of the state it is
+    given, so every chunk writes into the same tensors, and those are the
+    state it returns; the given state stays as it was (as the JAX ``run``
+    leaves its input); the result is ``step_fn`` applied 20 times, bitwise."""
+    cfg = MDConfig(n=4096, **HOT, mesh_devices=p, half_list=False)
+
+    def rank(ring):
+        sim = SlabSimulator(cfg, device="cpu", ring=ring)
+        start = sim.build(_system(4096))
+        given = [t.clone() for t in start]
+        seen = []
+        chunk = sim._run_chunk
+
+        def spy(st, nsteps):
+            seen.append([t.data_ptr() for t in st])
+            return chunk(st, nsteps)
+
+        sim._run_chunk = spy
+        out = sim.run(start, 20, chunk=5)
+        eager = start
+        for _ in range(20):
+            eager = sim.step_fn(eager)
+        return given, start, seen, out, eager
+
+    for given, start, seen, out, eager in run_ranks(p, rank):
+        assert all(torch.equal(a, b) for a, b in zip(given, start))
+        assert seen == [[t.data_ptr() for t in out]] * 4
+        for name, a, b in zip(out._fields, out, eager):
+            assert torch.equal(a, b), name
+        assert int(out.n_rebuilds) - int(start.n_rebuilds) >= 2
+        assert not bool(out.overflow)
+
+
+@pytest.mark.parametrize("engine", ["dense", "incremental", "xla",
+                                    "dense_slab", "slab_p2", "slab_p4"])
 def test_run_keeps_every_carry_tensor_in_its_storage(engine):
     """A chunk with two rebuilds or more (for the incremental engine one of
     them the full fallback) writes into the tensors it was given: the same
     ``data_ptr`` for every one, and the carry ``run`` returns is those
-    tensors. A captured graph needs exactly this."""
+    tensors. A captured graph needs exactly this. The XLA slab engine's
+    ``run`` does so on a clone of the state it is given
+    (``_slab_run_keeps_its_storage``)."""
+    if engine.startswith("slab"):
+        _slab_run_keeps_its_storage(int(engine[-1]))
+        return
     if engine == "xla":
         sim = Simulator(MDConfig(n=1728, **HOT), device="cpu")
         carry = sim.build(_system(1728))
@@ -185,3 +227,40 @@ def test_build_step_equals_the_eager_build(incremental):
         # the seed falls back, the drift is merged: each twice
         assert (sim._taken - start).tolist() == [2, 2]
     assert sim._build_runner.captures == 0
+
+
+# ------------------------------------------- the ring's exchanges and bodies
+RING_CALLS = {
+    "sum": lambda ring, t: ring.sum(t),
+    "max": lambda ring, t: ring.max(t),
+    "shift_plus": lambda ring, t: ring.shift_plus(t),
+    "shift_minus": lambda ring, t: ring.shift_minus(t, async_op=True),
+    "gather": lambda ring, t: ring.gather(t),
+}
+
+
+@pytest.mark.parametrize("kind", ["Ring", "LocalRing"])
+@pytest.mark.parametrize("call", list(RING_CALLS))
+def test_a_ring_exchange_inside_a_body_raises(kind, call):
+    """While a conditional body is captured (the flag ``StepGraph`` sets
+    around each body's capture) every ring exchange raises, on both kinds
+    of ring: a step's collectives run outside its branches. Outside the
+    flag the same call goes through."""
+    ring = Ring() if kind == "Ring" else LocalRing.ring_of(1)[0]
+    t = torch.ones(3)
+    assert not graphs.capturing_body()
+    with graphs.body_capture():
+        assert graphs.capturing_body()
+        with pytest.raises(RuntimeError, match="inside a conditional body"):
+            RING_CALLS[call](ring, t)
+    assert not graphs.capturing_body()
+    RING_CALLS[call](ring, t)
+
+
+def test_a_branch_inside_a_body_raises():
+    """The same flag refuses a ``cond`` inside a body (conditional nodes do
+    not nest in a child graph), before anything touches a card."""
+    with graphs.body_capture():
+        with pytest.raises(RuntimeError, match="branch inside a branch"):
+            graphs.StepGraph._node(None, torch.ones((), dtype=torch.bool),
+                                   lambda: None)

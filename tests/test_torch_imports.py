@@ -45,7 +45,8 @@ def test_expected_modules_and_sources_exist():
                  "ops/binning.py", "ops/pairlist.py", "ops/lj.py",
                  "ops/integrate.py", "models/lj_nve.py",
                  "utils/checkpoint.py", "utils/jsonlog.py", "cli.py",
-                 "__main__.py", "api.py", "__init__.py", "entry.py"):
+                 "__main__.py", "api.py", "__init__.py", "entry.py",
+                 "parallel/ring_check.py"):
         assert want in names
     for src in ("geom.cuh", "half_sweep.cuh", "expand.cu", "lists_half.cu",
                 "force_half.cu", "pe_virial_half.cu", "force_full.cu",

@@ -3,6 +3,7 @@ as threads of one process) against ``Ring`` over two gloo processes
 (``tests/torch_slab_ranks.py``), a failing rank, capacity growth with its
 rollback, and the ``DDState`` carried across from the JAX package."""
 
+import dataclasses
 import functools
 import sys
 import threading
@@ -198,6 +199,43 @@ def test_too_small_capacity_grows_on_every_rank(field):
     for (pids, _, pos), (want, _, want_pos) in zip(grown, default):
         assert pids == want
         np.testing.assert_allclose(pos.numpy(), want_pos.numpy(), atol=5e-4)
+
+
+@pytest.mark.parametrize("field", ["local", "mig"])
+def test_rollback_of_a_later_chunk_grows_on_every_rank(field):
+    """The same run in chunks of 10 steps with one capacity too small for a
+    rebuild's immigrants: a chunk that overflows is rolled back to the clone
+    taken before it and redone with every rank's capacity grown alike; every
+    particle is held by one rank, the gathered positions end where the
+    default one-chunk run's do (the rebuild at the rollback moves the later
+    rebuilds, and with them which rank holds a particle near a face), and
+    the state ``run`` was given stays as it was."""
+    default = _default_run()
+    cap0 = default[0][1]
+    small = dataclasses.replace(cap0, **{field: SMALL[field]})
+    pos, vel = _start(2)
+    cfg = MDConfig(**CFG, mesh_devices=P_GROW, half_list=False)
+
+    def fn(ring):
+        sim = SlabSimulator(cfg, capacity=small, device="cpu", ring=ring)
+        start = sim.build(_system(pos, vel))
+        built = sim.capacity
+        given = [t.clone() for t in start]
+        st = sim.run(start, STEPS_GROW, chunk=10)
+        assert all(torch.equal(a, b) for a, b in zip(given, start))
+        pid = st.pid.numpy()
+        return (set(pid[pid >= 0].tolist()), built, sim.capacity,
+                sim.gather(st).pos)
+
+    out = run_ranks(P_GROW, fn)
+    caps = {c for _, _, c, _ in out}
+    assert len(caps) == 1
+    cap = caps.pop()
+    assert getattr(cap, field) > getattr(out[0][1], field)  # grown in the run
+    held = [pid for pids, _, _, _ in out for pid in pids]
+    assert sorted(held) == list(range(CFG["n"]))
+    for (_, _, _, pos1), (_, _, want_pos) in zip(out, default):
+        np.testing.assert_allclose(pos1.numpy(), want_pos.numpy(), atol=5e-4)
 
 
 # ------------------------------------------------- state across the packages
