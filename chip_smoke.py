@@ -1016,7 +1016,7 @@ def graph_chunk(sim, carry, path: str) -> None:
     1e-4; steps/s of both and the capture's seconds. The engine is the cube
     or incremental ``DenseSimulator``, the xla ``Simulator`` or the slab
     engine (its positions gathered by pid over the ring). With
-    ``--profile``, the device's busy share of 50 eager steps beside
+    ``--profile``, the device time of 50 eager steps beside
     ``profile``'s 50 graph steps."""
     xla = isinstance(sim, Simulator)
     slab = isinstance(sim, DenseSlabSimulator)
@@ -2564,7 +2564,7 @@ def profile_xla_slab(cfg: MDConfig, out: list, device,
     wall_ms, rows = traced(lambda: advance(steps))
     busy_ms = sum(r[1] for r in rows)
     emit("profile", path="xla_slab", steps=steps, wall_ms=wall_ms,
-         device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+         device_busy_ms=busy_ms,
          kernels=[{"name": k[:70], "ms": ms, "calls": c}
                   for k, ms, c in rows[:14]])
 
@@ -2936,10 +2936,9 @@ def traced(fn) -> tuple[float, list]:
 
 def profile_steps(sim: DenseSimulator, carry, path: str,
                   steps: int = 50, eager: bool = False) -> None:
-    """Device time of ``steps`` NVE steps by kernel, with the device's busy
-    share of the traced window (tracing slows the host side down, so the
-    share in an untraced run is higher: compare ``device_busy_ms / steps``
-    with the path's time per step). The steps are a chunk (for the engines
+    """Device time of ``steps`` NVE steps by kernel and in all (compare
+    ``device_busy_ms / steps`` with the path's untraced time per step:
+    tracing slows the host side down). The steps are a chunk (for the engines
     with a chunk runner, replays of the captured step), or with ``eager``
     a loop of ``step_fn``."""
     at = [carry]  # the steps update the carry's tensors in place
@@ -2960,7 +2959,7 @@ def profile_steps(sim: DenseSimulator, carry, path: str,
     busy_ms = sum(r[1] for r in rows)
     emit("profile", path=path, steps=steps, wall_ms=wall_ms,
          graph=not eager and hasattr(sim, "_runner"),
-         device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+         device_busy_ms=busy_ms,
          rebuilds=rebuilds() - before,
          kernels=[{"name": k[:70], "ms": ms, "calls": c}
                   for k, ms, c in rows[:14]])
@@ -2968,26 +2967,26 @@ def profile_steps(sim: DenseSimulator, carry, path: str,
 
 def profile_neighbor_list(sim: DenseSimulator) -> None:
     """Device time by kernel of one ``neighbor_list`` call at full width,
-    with the device's busy share of the call."""
+    and in all."""
     cfg = sim.config
     pos, box = caller_positions(sim)
     wall_ms, rows = traced(lambda: neighbor_list(
         pos, box.L, cfg.rs, half=True, backend="dense"))
     busy_ms = sum(r[1] for r in rows)
     emit("profile_neighbor_list", n=cfg.n, half=True, wall_ms=wall_ms,
-         device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+         device_busy_ms=busy_ms,
          kernels=[{"name": k[:70], "ms": ms, "calls": c}
                   for k, ms, c in rows[:8]])
 
 
 def profile_xla(sim: Simulator, carry) -> None:
     """The xla engine under the profiler: 50 steps, and one list build
-    (``rebuild_only``) with its device busy share."""
+    (``rebuild_only``) with its device time."""
     profile_steps(sim, carry, "xla_engine")
     wall_ms, rows = traced(lambda: sim.rebuild_only(carry.system))
     busy_ms = sum(r[1] for r in rows)
     emit("profile_rebuild", path="xla_engine", wall_ms=wall_ms,
-         device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+         device_busy_ms=busy_ms,
          device_ops=sum(r[2] for r in rows),
          kernels=[{"name": k[:70], "ms": ms, "calls": c}
                   for k, ms, c in rows[:10]])
@@ -2995,7 +2994,7 @@ def profile_xla(sim: Simulator, carry) -> None:
 
 def profile_rebuilds(sim: DenseSimulator, state, reps: int = 10) -> None:
     """Device time by kernel of ``reps`` incremental and ``reps`` full
-    rebuilds of one skin/2-drifted state, with the device's busy share and
+    rebuilds of one skin/2-drifted state, with the device time in all and
     the device operations per rebuild: what bounds a rebuild."""
     runs = (("incremental",
              lambda: incremental.rebuild_dense_incremental(state, sim.spec)),
@@ -3005,7 +3004,7 @@ def profile_rebuilds(sim: DenseSimulator, state, reps: int = 10) -> None:
         wall_ms, rows = traced(lambda: [fn() for _ in range(reps)])
         busy_ms = sum(r[1] for r in rows)
         emit("profile_rebuild", path=path, reps=reps, wall_ms=wall_ms,
-             device_busy_ms=busy_ms, device_busy_share=busy_ms / wall_ms,
+             device_busy_ms=busy_ms,
              device_ops_per_rebuild=sum(r[2] for r in rows) / reps,
              kernels=[{"name": k[:70], "ms": ms, "calls": c}
                       for k, ms, c in rows[:8]])

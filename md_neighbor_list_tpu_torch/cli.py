@@ -46,6 +46,7 @@ from md_neighbor_list_tpu_torch.parallel.mesh import init_ring
 from md_neighbor_list_tpu_torch.parallel.slab import (SlabSimulator,
                                                       check_geometry)
 from md_neighbor_list_tpu_torch.utils.checkpoint import load, save
+from md_neighbor_list_tpu_torch.utils import trace
 from md_neighbor_list_tpu_torch.utils.jsonlog import JsonLogger
 
 TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
@@ -194,7 +195,8 @@ def _run(args, cfg, engine, ring, device) -> int:
     drift = abs(e1 - e0) / max(abs(e0), 1e-9)
     logger.log("run_done", steps=cfg.steps, seconds=round(elapsed, 3),
                steps_per_s=round(cfg.steps / max(elapsed, 1e-9), 2),
-               rebuilds=rebuilds, energy_drift=drift, pressure=pressure)
+               rebuilds=rebuilds, energy_drift=drift, pressure=pressure,
+               counters=trace.counters())
     if not rank0:
         return 0
 

@@ -24,6 +24,16 @@ overflow can roll back to it. On the CPU the same step runs eagerly and reads
 the vote on the host; ``step_fn`` is that eager step on either device, as the
 JAX ``step_fn`` is one step outside the scan.
 
+Tracing (``utils/trace.py``): ``run`` marks each chunk as the host span
+``chunk`` tiled by ``chunk.snapshot`` (the clone), ``chunk.launch`` (up to the
+last replay: the capture key, any capture, the replays), ``chunk.settle``
+(the branch counters' read, then the overflow flag's) and, when taken,
+``chunk.redo`` (the rollback), and counts ``steps`` and ``redos``. The step's
+displacement-triggered rebuild is the branch ``rebuilds`` and, on the card,
+the device span ``rebuild`` inside it (in the incremental engine the
+incremental branch; the full fallback and the merged state's take are
+branches of their own). The initial build and the list build carry neither.
+
 The timed list build, ``_rebuild_and_lists``, is one device program on the
 card too, as the JAX ``jit`` of the rebuild and the list kernel is: the
 caller's state is copied into the engine's own buffers and one captured graph
@@ -66,6 +76,7 @@ from md_neighbor_list_tpu_torch.ops.dense_cells import (DenseState,
                                                         to_packed)
 from md_neighbor_list_tpu_torch.ops.incremental import \
     rebuild_dense_incremental
+from md_neighbor_list_tpu_torch.utils import trace
 from md_neighbor_list_tpu_torch.utils.graphs import ChunkRunner, eager_cond
 
 
@@ -163,8 +174,10 @@ class DenseSimulator:
         through ``cond``, and hand the rebuilt state to ``take``: the full
         rebuild, or with ``incremental`` the incremental one unless its window
         predicate holds. Taking the full path is the reference's own
-        algorithm, never a response to a kernel's failure."""
+        algorithm, never a response to a kernel's failure. The branch on
+        ``need`` is ``rebuilds``, its body the device span ``rebuild``."""
         spec = self.spec
+        device = state.pos.device
 
         def full() -> None:
             take(rebuild_dense(state, spec)[0])
@@ -172,8 +185,13 @@ class DenseSimulator:
         def when(body) -> None:
             if need is None:
                 body()
-            else:
-                cond(need, body)
+                return
+
+            def marked() -> None:
+                with trace.device_span("rebuild", device):
+                    body()
+
+            cond(need, marked, "rebuilds")
 
         if not self.incremental:
             when(full)
@@ -226,11 +244,16 @@ class DenseSimulator:
     def _run_chunk(self, carry: DenseCarry, nsteps: int) -> DenseCarry:
         """``nsteps`` steps in place: replays of one captured graph on the
         card, eager steps on the CPU."""
-        self._runner.run(lambda cond: self._step(carry, cond), nsteps,
-                         [*carry.state, carry.force, carry.ref_pos,
-                          carry.n_rebuilds, carry.overflow, self._taken,
-                          self._window], key=self.spec)
+        self._launch_chunk(carry, nsteps)
+        self._runner.settle()
         return carry
+
+    def _launch_chunk(self, carry: DenseCarry, nsteps: int) -> None:
+        """``_run_chunk`` up to its last replay (the host reads nothing)."""
+        self._runner.launch(lambda cond: self._step(carry, cond), nsteps,
+                            [*carry.state, carry.force, carry.ref_pos,
+                             carry.n_rebuilds, carry.overflow, self._taken,
+                             self._window], key=self.spec)
 
     def _initial_build(self, state: DenseState) -> DenseCarry:
         """The first rebuild and forces, into ``state``'s tensors and new
@@ -347,25 +370,39 @@ class DenseSimulator:
         done = 0
         while done < nsteps:
             this = min(chunk, nsteps - done)
-            snapshot = _clone(carry)
-            carry = self._run_chunk(carry, this)
-            if bool(carry.overflow):
-                pos, vel = to_packed(snapshot.state, self.config.n,
-                                     self.spec.L)
-                n = self.config.n
-                system = System(
-                    pos=torch.from_numpy(pos).to(self.device),
-                    vel=torch.from_numpy(vel).to(self.device),
-                    force=torch.zeros((n, 3), dtype=torch.float32,
-                                      device=self.device),
-                    pid=torch.arange(n, dtype=torch.int32,
-                                     device=self.device),
-                )
-                self._grow()
-                carry = self.build(system)
-                continue
-            done += this
+            with trace.span("chunk"):
+                with trace.span("chunk.snapshot"):
+                    snapshot = _clone(carry)
+                with trace.span("chunk.launch"):
+                    self._launch_chunk(carry, this)
+                with trace.span("chunk.settle"):
+                    self._runner.settle()
+                    overflow = bool(carry.overflow)
+                if self.config.rebuild_every_step:
+                    trace.add("rebuilds", this)
+                if overflow:
+                    with trace.span("chunk.redo"):
+                        carry = self._redo(snapshot)
+                    trace.add("redos")
+                else:
+                    done += this
+                    trace.add("steps", this)
         return carry
+
+    def _redo(self, snapshot: DenseCarry) -> DenseCarry:
+        """The carry a chunk started from (``snapshot``), rebuilt with a
+        larger ``cap`` (``n_rebuilds`` restarts there)."""
+        pos, vel = to_packed(snapshot.state, self.config.n, self.spec.L)
+        n = self.config.n
+        system = System(
+            pos=torch.from_numpy(pos).to(self.device),
+            vel=torch.from_numpy(vel).to(self.device),
+            force=torch.zeros((n, 3), dtype=torch.float32,
+                              device=self.device),
+            pid=torch.arange(n, dtype=torch.int32, device=self.device),
+        )
+        self._grow()
+        return self.build(system)
 
     def energies(self, carry: DenseCarry):
         """(KE, PE) as 0-d tensors; PE is the shifted LJ potential."""

@@ -40,6 +40,7 @@ from md_neighbor_list_tpu_torch.ops.binning import CellGrid, make_grid
 from md_neighbor_list_tpu_torch.ops.integrate import (drift, half_kick,
                                                       kinetic_energy)
 from md_neighbor_list_tpu_torch.ops.pairlist import build_neighbor_lists
+from md_neighbor_list_tpu_torch.utils import trace
 from md_neighbor_list_tpu_torch.utils.graphs import ChunkRunner, eager_cond
 
 
@@ -144,7 +145,7 @@ class Simulator:
             disp = box.min_image(system.pos - nbr.ref_pos)
             d2max = torch.max(torch.sum(disp * disp, dim=-1))
             cond(4.0 * d2max > float(np.float32(cfg.skin * cfg.skin)),
-                 rebuild)
+                 rebuild, "rebuilds")
 
         force, _ = self._forces(carry)
         system.vel.copy_(half_kick(system.vel, force, cfg.dt))
@@ -210,17 +211,22 @@ class Simulator:
         chunks the host reads the sticky overflow flag and, on overflow,
         rebuilds the carry the chunk started from with grown capacities and
         redoes the chunk. Returns the carry (the one given, unless a chunk
-        was undone)."""
+        was undone). Counts ``steps``, ``rebuilds`` and ``redos`` in
+        ``utils/trace.COUNTS``."""
         done = 0
         while done < nsteps:
             this = min(chunk, nsteps - done)
             snapshot = _clone(carry)
             carry = self._run_chunk(carry, this)
+            if self.config.rebuild_every_step:
+                trace.add("rebuilds", this)
             if bool(carry.nbr.overflow):
                 self._grow()
                 carry = self.build(snapshot.system)
+                trace.add("redos")
                 continue
             done += this
+            trace.add("steps", this)
         return carry
 
     def energies(self, carry: Carry):

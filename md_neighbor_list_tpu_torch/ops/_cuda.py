@@ -9,7 +9,9 @@ module is imported; the first kernel launch builds.
 
 ``launch(name, ...)`` is the only place a kernel is launched: it calls the C
 entry ``mdnl_<name>`` on PyTorch's current stream, raises when the entry
-returns a CUDA error, and adds one to ``LAUNCHES[name]``. There is no
+returns a CUDA error, and adds one to ``LAUNCHES[name]`` (the port's counter
+registry ``utils/trace.COUNTS`` holds this dict as its ``launches``; a span's
+marker kernels, ``_SPANS``, go uncounted). There is no
 fallback: a failed build or launch is an error. ``graph_if`` and
 ``graph_body`` place the conditional nodes of a captured graph
 (``csrc/graph_cond.cu``, for ``utils/graphs.py``); they launch no kernel of
@@ -69,6 +71,9 @@ _ENTRIES = {
     # cap, park_step
     "merge": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F],
 }
+
+# the empty marker kernels of the device spans (csrc/span.cu): the stream only
+_SPANS = ("span_begin_rebuild", "span_end_rebuild")
 
 # kernel launches so far, by kernel; reset_launches() zeroes them
 LAUNCHES = {name: 0 for name in _ENTRIES}
@@ -154,6 +159,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, "mdnl_" + name)
             fn.argtypes = argtypes + [_P]  # every pointer, and the stream
             fn.restype = _I
+        for name in _SPANS:
+            fn = getattr(lib, "mdnl_" + name)
+            fn.argtypes = [_P]
+            fn.restype = _I
         lib.mdnl_graph_if.argtypes = [_P, ctypes.POINTER(_P), _P]
         lib.mdnl_graph_body.argtypes = [_P, _P]
         for fn in (lib.mdnl_graph_if, lib.mdnl_graph_body):
@@ -162,18 +171,20 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Launch kernel ``name`` on the current stream. Tensors pass as device
-    pointers; they must be contiguous CUDA tensors (the callers check)."""
+def launch(name: str, *args, device=None) -> None:
+    """Launch kernel ``name`` on the current stream of ``device`` (default:
+    the first argument's). Tensors pass as device pointers; they must be
+    contiguous CUDA tensors (the callers check)."""
     fn = getattr(library(), "mdnl_" + name)
     raw = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(args[0].device):  # the tensors' card, its stream
+    with torch.cuda.device(args[0].device if device is None else device):
         err = fn(*raw, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name!r} failed to launch "
                            f"(cudaError {err})")
-    with _counting:
-        LAUNCHES[name] += 1
+    if name in LAUNCHES:  # a span's markers are not counted
+        with _counting:
+            LAUNCHES[name] += 1
 
 
 def graph_if(pred: torch.Tensor) -> int:

@@ -4,14 +4,15 @@ of the JAX engines' ``jit(lax.scan(step))`` with the rebuild under
 
 An engine writes its step once, as ``step(cond)``. The step updates tensors
 that keep their storage (every new result is copied into them) and branches
-only through ``cond(pred, body)``: ``pred`` a 0-d bool tensor on the step's
-device, ``body`` a function of no arguments that writes only into tensors
-that outlive it. A body calls no ``cond``: a branch that depends on another
-is a second ``cond`` on a flag that the first body sets and the step clears
-before it.
+only through ``cond(pred, body, name=None)``: ``pred`` a 0-d bool tensor on
+the step's device, ``body`` a function of no arguments that writes only into
+tensors that outlive it. A body calls no ``cond``: a branch that depends on
+another is a second ``cond`` on a flag that the first body sets and the step
+clears before it. A ``name`` names a counter of ``utils/trace.COUNTS`` that
+counts the times the body runs.
 
 ``ChunkRunner.run(step, nsteps, carry, key, capturable)`` runs the step
-``nsteps`` times:
+``nsteps`` times (``launch``, then ``settle``):
 
 - on the CPU, or where the engine says its step cannot be captured (a slab
   engine on a ring whose exchanges are host barriers), eagerly, each ``cond``
@@ -22,7 +23,8 @@ before it.
   the step has no branch). The graph is captured for the carry's tensors
   (their addresses, shapes and types) and the caller's ``key``, and captured
   again when any of them changes, as the JAX engine compiles again after its
-  capacity grows.
+  capacity grows. A capture is the host span ``graph.capture`` and counts in
+  ``COUNTS["captures"]``.
 
 A step may also make tensors of its own and hand them to its caller (the list
 build's counts and masks): made during the capture, they are the graph's
@@ -48,7 +50,8 @@ captured kernel is counted once at capture and never at replay. The capture
 notes the launches of the step outside its bodies and of each body, puts the
 counters back as they were, and each chunk adds the step's launches times
 the steps and each body's launches times the times it ran on the device
-(``accrue``).
+(``accrue``), and each named body's runs to its counter. The branch counters
+are read once a chunk, with or without names.
 """
 
 from __future__ import annotations
@@ -61,8 +64,9 @@ from typing import Callable, Sequence
 import torch
 
 from md_neighbor_list_tpu_torch.ops import _cuda
+from md_neighbor_list_tpu_torch.utils import trace
 
-Cond = Callable[[torch.Tensor, Callable[[], None]], None]
+Cond = Callable[..., None]  # cond(pred, body, name=None)
 Step = Callable[[Cond], None]
 
 
@@ -93,22 +97,33 @@ def refuse_in_body(what: str) -> None:
                            "collectives run outside its branches")
 
 
-def eager_cond(pred: torch.Tensor, body: Callable[[], None]) -> None:
-    """The branch taken on the host: one read of ``pred``."""
+def eager_cond(pred: torch.Tensor, body: Callable[[], None],
+               name: str | None = None) -> None:
+    """The branch taken on the host: one read of ``pred``; a named branch
+    taken adds one to its counter."""
     if bool(pred):
+        if name is not None:
+            trace.add(name)
         body()
 
 
 def accrue(counts: dict, per_step: dict, per_body: Sequence[dict],
-           taken: Sequence[int], steps: int) -> None:
+           taken: Sequence[int], steps: int,
+           names: Sequence[str | None] = (), named: dict | None = None
+           ) -> None:
     """Add to the launch counters ``counts`` what ``steps`` replays did: the
     step's own launches each step, and each body's each time it ran
-    (``taken``, in the order of ``per_body``)."""
+    (``taken``, in the order of ``per_body``); and to ``named[name]`` the
+    runs of each body that ``names`` names (in the same order, None for a
+    body without a name)."""
     for name, n in per_step.items():
         counts[name] += steps * n
     for body, times in zip(per_body, taken):
         for name, n in body.items():
             counts[name] += times * n
+    for name, times in zip(names, taken):
+        if name is not None:
+            named[name] += times
 
 
 def _launched_since(before: dict) -> dict:
@@ -127,7 +142,7 @@ class StepGraph:
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             saved = [t.clone() for t in carry]
-            step(lambda pred, body: body())  # every branch, once
+            step(lambda pred, body, name=None: body())  # every branch, once
             for t, s in zip(carry, saved):
                 t.copy_(s)
         torch.cuda.current_stream(device).wait_stream(side)
@@ -135,6 +150,7 @@ class StepGraph:
 
         counts = dict(_cuda.LAUNCHES)
         self._nodes: list[tuple[int, Callable[[], None]]] = []
+        self.names: list[str | None] = []  # each body's counter, if named
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
             with torch.cuda.graph(self.graph):
@@ -166,11 +182,13 @@ class StepGraph:
             _cuda.LAUNCHES.update(counts)  # nothing captured has run
         self._nodes.clear()  # the bodies' closures are no longer needed
 
-    def _node(self, pred: torch.Tensor, body: Callable[[], None]) -> None:
+    def _node(self, pred: torch.Tensor, body: Callable[[], None],
+              name: str | None = None) -> None:
         if capturing_body():
             raise RuntimeError("a branch inside a branch: conditional nodes "
                                "do not nest in a body graph")
         self._nodes.append((_cuda.graph_if(pred), body))
+        self.names.append(name)
 
     def replay(self, nsteps: int) -> None:
         """``nsteps`` steps on the device; the host reads nothing."""
@@ -180,10 +198,11 @@ class StepGraph:
 
     def settle(self, nsteps: int) -> None:
         """After ``replay(nsteps)``: one read of the branch counters (none
-        for a step without branches), and the launches of the replays added
-        to ``_cuda.LAUNCHES``."""
+        for a step without branches), the launches of the replays added to
+        ``_cuda.LAUNCHES`` and the named branches' runs to their counters."""
         taken = self.hits.tolist() if self.per_body else []
-        accrue(_cuda.LAUNCHES, self.per_step, self.per_body, taken, nsteps)
+        accrue(_cuda.LAUNCHES, self.per_step, self.per_body, taken, nsteps,
+               self.names, trace.COUNTS)
 
 
 class ChunkRunner:
@@ -192,6 +211,7 @@ class ChunkRunner:
     def __init__(self):
         self.graph: StepGraph | None = None
         self._key = None
+        self._replayed = 0  # steps replayed that ``settle`` has not read
         self.captures = 0  # graphs captured so far
         self.capture_s = 0.0  # host seconds of the last capture, warm-up in
 
@@ -200,6 +220,13 @@ class ChunkRunner:
         """``capturable``: the engine's word that the step may be captured
         (false for a slab engine on a ring of host barriers); the step then
         runs eagerly on the card too."""
+        self.launch(step, nsteps, carry, key, capturable)
+        self.settle()
+
+    def launch(self, step: Step, nsteps: int, carry: Sequence[torch.Tensor],
+               key=None, capturable: bool = True) -> None:
+        """``run`` up to its last replay: the steps eagerly, or the capture
+        where one is due and ``nsteps`` replays, with no host read."""
         if not (carry[0].is_cuda and capturable):
             for _ in range(nsteps):
                 step(eager_cond)
@@ -208,10 +235,19 @@ class ChunkRunner:
                                for t in carry))
         if self.graph is None or full_key != self._key:
             self.graph = None  # free the old graph's memory first
-            t0 = time.perf_counter()
-            self.graph = StepGraph(step, carry)
-            self.capture_s = time.perf_counter() - t0
+            with trace.span("graph.capture"):
+                t0 = time.perf_counter()
+                self.graph = StepGraph(step, carry)
+                self.capture_s = time.perf_counter() - t0
             self._key = full_key
             self.captures += 1
+            trace.add("captures")
         self.graph.replay(nsteps)
-        self.graph.settle(nsteps)
+        self._replayed = nsteps
+
+    def settle(self) -> None:
+        """The rest of ``run`` after ``launch``: the replays' one read of
+        the branch counters and their counts (nothing after eager steps)."""
+        if self._replayed:
+            self.graph.settle(self._replayed)
+            self._replayed = 0

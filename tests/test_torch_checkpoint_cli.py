@@ -146,6 +146,9 @@ def test_cli_check_parity_save_and_resume(tmp_path):
     assert events["parity"]["pair_count_oracle"] == events["parity"][
         "pair_count_engine"]
     assert events["run_done"]["rebuilds"] == 11  # c1: every step
+    # the counters of utils/trace.py: the rebuilds in steps (not the build)
+    assert events["run_done"]["counters"] == {"steps": 10, "rebuilds": 10,
+                                              "redos": 0, "captures": 0}
     assert pathlib.Path(ckpt).exists()
 
     out = _cli("--preset", "c1_brute", "--n", "1024", "--steps", "3",
@@ -154,6 +157,9 @@ def test_cli_check_parity_save_and_resume(tmp_path):
     assert "dense: N=1024" in out.stdout and "parity=OK" in out.stdout
     resumed = [e for e in _events(out.stderr) if e["event"] == "resumed"]
     assert resumed and resumed[0]["step"] == 10
+    done = [e for e in _events(out.stderr) if e["event"] == "run_done"][0]
+    assert done["counters"] == {"steps": 3, "rebuilds": 3, "redos": 0,
+                                "captures": 0}
 
 
 def test_cli_compare_mode():

@@ -667,6 +667,49 @@ def test_graph_chunk_matches_eager_steps(card, engine, cap, monkeypatch):
         assert graph_launches["forces_half"] == steps + 1
 
 
+def test_traced_chunk_marks_each_rebuild_on_the_device(card):
+    """A chunk replayed under ``torch.profiler``: one pair of the rebuild's
+    marker kernels (``csrc/span.cu``) for each rebuild the chunk counted,
+    K1 between the two of a pair, the chunk's host spans among the host
+    events, and no device event named like a host span (a span encloses no
+    launch, so the tracer gives it no device-side range)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from md_neighbor_list_tpu_torch import DenseSimulator, MDConfig
+    from md_neighbor_list_tpu_torch.utils import convert, trace
+
+    n = 1728
+    pos, vel, pid = numpy_system(n, seed=5)
+    sim = DenseSimulator(MDConfig(n=n, **HOT), cap=32, device=card)
+    carry = sim.build(convert.system_from_numpy(
+        pos, 1.4 * vel, np.zeros_like(pos), pid, device=card))
+    carry = sim.run(carry, 10, chunk=10)  # the capture
+    before = trace.counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        carry = sim.run(carry, 40, chunk=40)
+        torch.cuda.synchronize()
+    rebuilds = trace.counters()["rebuilds"] - before["rebuilds"]
+    assert rebuilds >= 2 and trace.counters()["captures"] == \
+        before["captures"]
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    begins = [(s, e) for s, e, name in dev if "span_begin_rebuild" in name]
+    ends = [(s, e) for s, e, name in dev if "span_end_rebuild" in name]
+    assert len(begins) == len(ends) == rebuilds
+    for (_, a), (b, _) in zip(begins, ends):
+        assert a <= b
+        assert any("expand_kernel" in name and a <= s and e <= b
+                   for s, e, name in dev)
+    assert not [name for _, _, name in dev if name.startswith(trace.PREFIX)]
+    host = [e.name for e in prof.events()
+            if e.device_type != DeviceType.CUDA]
+    for name in ("chunk", "chunk.snapshot", "chunk.launch", "chunk.settle"):
+        assert host.count(f"{trace.PREFIX}{name}.begin") == 1, name
+        assert host.count(f"{trace.PREFIX}{name}.end") == 1, name
+
+
 def test_graph_recaptured_after_the_capacity_grows(card):
     """Rows that fit the start exactly overflow inside a chunk (rs = 1.42
     next to the lattice's second shell, as in ``test_torch_simulator``): the

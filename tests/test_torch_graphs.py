@@ -23,19 +23,30 @@ from torch_port_util import assert_state_equal, jax_state, numpy_system
 HOT = dict(dt=0.005, temperature=2.0)  # a rebuild every few steps
 
 
-@pytest.mark.parametrize("steps, taken, want", [
-    (100, [3, 2], {"forces_half": 100, "expand": 5, "merge": 2, "lists_half": 0}),
-    (7, [0, 0], {"forces_half": 7, "expand": 0, "merge": 0, "lists_half": 0}),
-    (0, [0, 0], {"forces_half": 0, "expand": 0, "merge": 0, "lists_half": 0}),
-    (1, [1, 1], {"forces_half": 1, "expand": 2, "merge": 1, "lists_half": 0}),
+@pytest.mark.parametrize("steps, taken, want, names, named", [
+    (100, [3, 2], {"forces_half": 100, "expand": 5, "merge": 2, "lists_half": 0},
+     (), {}),
+    (7, [0, 0], {"forces_half": 7, "expand": 0, "merge": 0, "lists_half": 0},
+     (), {}),
+    (0, [0, 0], {"forces_half": 0, "expand": 0, "merge": 0, "lists_half": 0},
+     (), {}),
+    (1, [1, 1], {"forces_half": 1, "expand": 2, "merge": 1, "lists_half": 0},
+     (), {}),
+    (100, [3, 2], {"forces_half": 100, "expand": 5, "merge": 2, "lists_half": 0},
+     ("rebuilds", None), {"rebuilds": 3, "redos": 0}),
 ])
-def test_accrue_counts_steps_and_branches_taken(steps, taken, want):
+def test_accrue_counts_steps_and_branches_taken(steps, taken, want, names,
+                                                named):
     """Stubbed counts: the step's launches times the steps, each body's
-    times the runs the device counted; other counters untouched."""
+    times the runs the device counted; other counters untouched. A named
+    body's runs go to its counter too, an unnamed body's nowhere."""
     counts = {"forces_half": 0, "expand": 0, "merge": 0, "lists_half": 0}
+    counters = {"rebuilds": 0, "redos": 0}
     graphs.accrue(counts, {"forces_half": 1},
-                  [{"expand": 1}, {"expand": 1, "merge": 1}], taken, steps)
+                  [{"expand": 1}, {"expand": 1, "merge": 1}], taken, steps,
+                  names, counters)
     assert counts == want
+    assert counters == {"rebuilds": 0, "redos": 0, **named}
     graphs.accrue(counts, {}, [], [], steps)  # a step that launches nothing
     assert counts == want
 

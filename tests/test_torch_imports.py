@@ -50,7 +50,7 @@ def test_expected_modules_and_sources_exist():
         assert want in names
     for src in ("geom.cuh", "half_sweep.cuh", "expand.cu", "lists_half.cu",
                 "force_half.cu", "pe_virial_half.cu", "force_full.cu",
-                "merge.cu", "decode.cpp"):
+                "merge.cu", "span.cu", "decode.cpp"):
         assert (PORT / "csrc" / src).exists()
 
 
@@ -63,7 +63,7 @@ def test_every_kernel_has_an_entry_a_counter_and_a_source():
         "count_full", "merge", "expand_slab", "lists_half_slab",
         "forces_half_slab", "forces_half_slab_pe"}
     sources = "".join(p.read_text() for p in _cuda._sources()[0])
-    for name in _cuda._ENTRIES:
+    for name in (*_cuda._ENTRIES, *_cuda._SPANS):
         assert f"int mdnl_{name}(" in sources, name
     # the host decoder is no CUDA source: nvcc never sees it
     assert all(p.suffix == ".cu" for p in _cuda._sources()[0])
