@@ -797,6 +797,12 @@ SOURCES = {
                    "md_neighbor_list_tpu/ops/pallas_force.py:230"),
     "merge": ("md_neighbor_list_tpu_torch/csrc/merge.cu",
               "md_neighbor_list_tpu/ops/incremental.py:127"),
+    # the NVE step's K3 over the half list, and the list's count and pack
+    # (no TPU kernel: the JAX step sweeps the cells)
+    "forces_list": ("md_neighbor_list_tpu_torch/csrc/force_list.cu",
+                    "md_neighbor_list_tpu/ops/pallas_force.py:613"),
+    "list_count": ("md_neighbor_list_tpu_torch/csrc/force_list.cu", None),
+    "list_pack": ("md_neighbor_list_tpu_torch/csrc/force_list.cu", None),
     # K9: the slab forms of K1-K3, where ops/slab_kernels.py runs them
     "expand_slab": ("md_neighbor_list_tpu_torch/csrc/expand.cu",
                     "md_neighbor_list_tpu/ops/slab_kernels.py:333"),
@@ -820,7 +826,9 @@ ALSO_REPLACES = {"expand": ["md_neighbor_list_tpu/ops/dense_cells.py:358",
 def full_width(sim: DenseSimulator) -> list[dict]:
     """Every kernel against its plain version at N = 1M, cap = 40, with
     times: on a jittered state, on its scattered-slot twin and, for K2 and
-    the full sweep, on the main path's lattice start."""
+    the full sweep, on the main path's lattice start; the NVE step's list
+    kernels (K3 over the list, the list's count and pack) on the jittered
+    state's list, K3 also drifted by skin/2."""
     cfg, spec, dev = sim.config, sim.spec, sim.device
     system, _ = jittered_system(cfg.n, cfg.rho, seed=7, jitter=0.1, device=dev)
     state0 = dense_cells.from_packed(system.pos, system.vel, system.pid, spec)
@@ -862,6 +870,32 @@ def full_width(sim: DenseSimulator) -> list[dict]:
                   dense_cells.expand_plain(*drift_recs, spec), True)
     check(ok, "full_width/drifted: expand differs from its plain version")
     expand_seed_ms = device_ms(lambda: dense_cells.expand(*recs, spec), 10)
+    # the NVE step's list of this rebuilt state (K2 at rs, the count, the
+    # starts, the pack): count and pack bitwise their plain versions, the
+    # list-driven K3 against its plain version here and drifted by skin/2
+    lst = dense_force.half_list_buffers(spec, cfg.n, cfg.rs, dev)
+    check(not bool(dense_force.build_half_list(pos, spec, cfg.rs, lst)),
+          "full_width: the step's list overflowed its capacity")
+    counts_rs, masks_rs = dense_force.dense_lists_half(pos, spec, cfg.rs)
+    nsparse, lanes = torch.zeros_like(lst.nsparse), torch.zeros_like(lst.lanes)
+    dense_force.count_half_list_plain(masks_rs, counts_rs, nsparse, spec)
+    dense_force.pack_half_list_plain(masks_rs, counts_rs, lst.start, lanes,
+                                     spec)
+    check(torch.equal(nsparse, lst.nsparse),
+          "full_width: list_count differs from its plain version")
+    check(torch.equal(lanes, lst.lanes),
+          "full_width: list_pack differs from its plain version")
+    errs["list_count"] = errs["list_pack"] = errs["forces_list"] = 0.0
+    drifted = drifted_state(sim, state).pos
+    for p in (pos, drifted):
+        ok, err = force_close(
+            dense_force.dense_forces_list(p, lst, spec, cfg.rc),
+            dense_force.forces_list_plain(p, lst, spec, cfg.rc))
+        check(ok, f"full_width: forces_list off its plain version by {err}")
+        errs["forces_list"] = max(errs["forces_list"], err)
+    listed = int(lst.nsparse.sum())
+    dense_tests = int(dense_force.dense_pairs(drifted, spec)[0].numel())
+    force_out = torch.empty_like(drifted)
 
     runs = {
         "expand": (lambda: dense_cells.expand(*drift_recs, spec),
@@ -892,8 +926,34 @@ def full_width(sim: DenseSimulator) -> list[dict]:
         "count_full": (
             lambda: dense_force.dense_counts(pos, valid, spec, cfg.rs),
             lambda: dense_force.counts_full_plain(pos, valid, spec, cfg.rs)),
+        "forces_list": (
+            lambda: dense_force.dense_forces_list(drifted, lst, spec, cfg.rc,
+                                                  out=force_out),
+            lambda: dense_force.forces_list_plain(drifted, lst, spec,
+                                                  cfg.rc)),
+        "list_count": (
+            lambda: dense_force.count_half_list(masks_rs, counts_rs,
+                                                lst.nsparse, spec),
+            lambda: dense_force.count_half_list_plain(masks_rs, counts_rs,
+                                                      nsparse, spec)),
+        "list_pack": (
+            lambda: dense_force.pack_half_list(masks_rs, counts_rs, lst.start,
+                                               lst.lanes, spec),
+            lambda: dense_force.pack_half_list_plain(masks_rs, counts_rs,
+                                                     lst.start, lanes, spec)),
     }
     bound = bounds(spec, valid, drift_recs[5], hits)
+    # the list's kernels: K3 tests the dense cells' slot pairs and the
+    # listed ones and reads the list; the count reads the sparse cells'
+    # mask words, the pack those and writes the entries
+    S, words = spec.slots, dense_force.mask_words(spec.cap)
+    sparse_words = S * len(dense_force.SPARSE_CELLS) * words * 4
+    bound.update(bound_times({
+        "forces_list": (S * 32 + 2 * listed, (dense_tests + listed)
+                        * FLOPS_TEST + hits * FLOPS_HIT_FORCE),
+        "list_count": (sparse_words + S * 8, 0),
+        "list_pack": (sparse_words + S * 8 + 2 * listed, 0),
+    }))
     rows = []
     for name, (kernel, plain) in runs.items():
         rows.append({
@@ -908,8 +968,11 @@ def full_width(sim: DenseSimulator) -> list[dict]:
         })
         if name in ALSO_REPLACES:
             rows[-1]["also_replaces"] = ALSO_REPLACES[name]
+    del lst, counts_rs, masks_rs, nsparse, lanes, drifted, force_out
+    dense_force._window_slots.cache_clear()
     emit("kernels_full_width", n=cfg.n, mc=spec.mc, cap=spec.cap,
-         slots=spec.slots, hits_rc=hits, launches_so_far=dict(_cuda.LAUNCHES),
+         slots=spec.slots, hits_rc=hits, listed=listed,
+         dense_slot_pairs=dense_tests, launches_so_far=dict(_cuda.LAUNCHES),
          expand_from_packed_seed_ms=expand_seed_ms,
          scattered_slots_max_abs_err=scattered, bounds=bound, kernels=rows)
     return rows
@@ -986,9 +1049,10 @@ def main_path(sim: DenseSimulator) -> dict:
               "capture_s": capture_s, "build_ms": build_ms}
     emit("main_path", **result)
 
-    need = {"expand": rebuilds + 1, "lists_half": 1,
-            "forces_half": steps + 1, "forces_half_pe": 2,
-            "pe_virial_half": 1}
+    need = {"expand": rebuilds + 1, "lists_half": rebuilds + 1,
+            "list_count": rebuilds, "list_pack": rebuilds,
+            "forces_list": steps + 1,
+            "forces_half_pe": 2, "pe_virial_half": 1}
     for name, least in need.items():
         check(launches[name] >= least,
               f"launches: {name} launched {launches[name]} times on the main "
@@ -1180,7 +1244,7 @@ def entry_phase(device) -> dict:
     dry = entry_points.dryrun_multichip(4, device=device)
     dry_s = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
-    need = {"expand": 1, "forces_half": 2, "expand_slab": 1,
+    need = {"expand": 1, "forces_list": 2, "expand_slab": 1,
             "forces_half_slab": 1, "lists_half_slab": 1}
     for name, least in need.items():
         check(launches[name] >= least,
@@ -1547,7 +1611,7 @@ def incremental_path(sim: DenseSimulator):
          incremental_rebuilds=taken[0], full_fallbacks=taken[1],
          chained_builds_incremental=sim.incremental_rebuilds - taken[0])
     need = {"merge": rebuilds - 1, "expand": rebuilds + taken[1],
-            "forces_half": cfg.steps + 1}
+            "forces_list": cfg.steps + 1}
     for name, least in need.items():
         check(launches[name] >= least,
               f"launches: {name} launched {launches[name]} times on the "
@@ -2176,7 +2240,8 @@ def dense_slab_path(device, cfg=PRESETS["c4_sorted"]
         check(launches[name] >= least,
               f"launches: {name} launched {launches[name]} times on the "
               f"dense_slab path, expected at least {least}")
-    check(launches["expand"] == launches["forces_half"] == 0,
+    check(launches["expand"] == launches["forces_half"] ==
+          launches["forces_list"] == 0,
           "launches: the cube forms ran on the dense_slab path")
     emit("launches", path="dense_slab", launches=launches,
          expected_at_least=need)
@@ -2849,6 +2914,106 @@ def sweep_times(device, which: str, reps: int = 20) -> None:
          nvcc_flags=os.environ.get("MDNL_NVCC_FLAGS", ""), ms=ms)
 
 
+def list_force_times(device, reps: int = 20) -> None:
+    """``--list-force-times``: the NVE step's force over the half list
+    (``dense_forces_list``, K3's trace name) against the cell sweep
+    (``dense_forces_half``) at N = 1M, cap = 40, on the c4_sorted engine's
+    state after 200 NVE steps, rebuilt, then drifted by skin/2 (the last
+    state before the vote fires). First the list of the rebuilt state is
+    built (``build_half_list``: K2, the count, the starts, the pack), its
+    count and pack held bitwise against their plain versions, then the
+    list's force on the drifted state against the sweep's and the plain
+    version's, and the list's pairs within rc against the sweep's count.
+    Then each is timed by ``device_ms`` (``reps`` calls). Last, the
+    configurations that rebuild every step (``c2_cell`` as preset and
+    ``c4_sorted`` with ``rebuild_every_step``), each run by ``run`` with
+    the step's force forced to the sweep and to the list: steps/s over 300
+    steps after 100. One JSON line and no result line: the timing of kernel
+    variants, one tree at a time."""
+    cfg = PRESETS["c4_sorted"]
+    sim = DenseSimulator(cfg, cap=40, device=device)
+    spec, df = sim.spec, dense_force
+    carry = sim.run(sim.init(), 200)
+    new, _ = dense_cells.rebuild_dense(carry.state, spec)
+    del carry
+    lst = df.half_list_buffers(spec, cfg.n, cfg.rs, device)
+    check(not bool(df.build_half_list(new.pos, spec, cfg.rs, lst)),
+          "list_force_times: the list overflowed its capacity")
+    counts, masks = df.dense_lists_half(new.pos, spec, cfg.rs)
+    nsparse, lanes = torch.zeros_like(lst.nsparse), torch.zeros_like(lst.lanes)
+    df.count_half_list_plain(masks, counts, nsparse, spec)
+    df.pack_half_list_plain(masks, counts, lst.start, lanes, spec)
+    check(torch.equal(nsparse, lst.nsparse) and torch.equal(lanes, lst.lanes),
+          "list_force_times: the count or pack is off its plain version")
+    drifted = drifted_state(sim, new)
+    f_list = df.dense_forces_list(drifted.pos, lst, spec, cfg.rc)
+    for name, want in (
+            ("sweep", df.dense_forces_half(drifted.pos, spec, cfg.rc)[0]),
+            ("plain", df.forces_list_plain(drifted.pos, lst, spec, cfg.rc))):
+        ok, err = force_close(f_list, want)
+        check(ok, f"list_force_times: the list's force off the {name} by "
+                  f"{err}")
+    p = drifted.pos.reshape(3, -1)
+    pairs_rc = 0
+    for own, part, shift in (df.dense_pairs(drifted.pos, spec),
+                             df.list_pairs(lst, spec)):
+        d = p[:, own] - (p[:, part] + shift)
+        r2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+        pairs_rc += int((r2 < float(np.float32(cfg.rc * cfg.rc))).sum())
+    counts_rc = df.dense_counts_half(drifted.pos, spec, cfg.rc)
+    sweep_rc = int(counts_rc[drifted.valid()].sum())
+    check(pairs_rc == sweep_rc, f"list_force_times: {pairs_rc} listed pairs "
+                                f"within rc against the sweep's {sweep_rc}")
+    pairs_rs = int(counts[new.valid()].sum())
+    listed = int(nsparse.sum())
+    del own, part, shift, p, d, r2, lanes
+    df._window_slots.cache_clear()
+    out = torch.empty_like(drifted.pos)
+    ms = {
+        "forces_list": device_ms(lambda: df.dense_forces_list(
+            drifted.pos, lst, spec, cfg.rc, out=out), reps),
+        "forces_half_sweep": device_ms(lambda: df.dense_forces_half(
+            drifted.pos, spec, cfg.rc), reps),
+        "lists_half": device_ms(lambda: df.dense_lists_half(
+            new.pos, spec, cfg.rs), reps),
+        "list_count": device_ms(lambda: df.count_half_list(
+            masks, counts, nsparse, spec), reps),
+        "list_pack": device_ms(lambda: df.pack_half_list(
+            masks, counts, lst.start, lst.lanes, spec), reps),
+        "build_half_list": device_ms(lambda: df.build_half_list(
+            new.pos, spec, cfg.rs, lst), reps),
+    }
+    del sim, new, drifted, lst, counts, masks, nsparse, out, f_list
+    torch.cuda.empty_cache()
+    every_step = {}
+    for name, c in (("c2_cell", PRESETS["c2_cell"]),
+                    ("c4_sorted", dataclasses.replace(
+                        cfg, rebuild_every_step=True))):
+        every_step[name] = {}
+        for side in ("sweep", "list"):
+            sim = DenseSimulator(c, cap=40, device=device)
+            sim._reads_list = (lambda: True) if side == "list" \
+                else (lambda: False)
+            carry = sim.run(sim.init(), 100)  # the capture, warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry = sim.run(carry, 300)
+            torch.cuda.synchronize()
+            every_step[name][side] = 300 / (time.perf_counter() - t0)
+            check(not bool(carry.overflow) and sim.cap == 40,
+                  f"list_force_times: {name} ({side}) overflowed")
+            del sim, carry
+            torch.cuda.empty_cache()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    emit("list_force_times", n=cfg.n, cap=spec.cap, reps=reps, card=smi,
+         nvcc_flags=os.environ.get("MDNL_NVCC_FLAGS", ""),
+         pairs_rs=pairs_rs, listed=listed, capacity=df.list_capacity(
+             spec, cfg.n, cfg.rs), pairs_rc=pairs_rc, ms=ms,
+         every_step_steps_per_s=every_step)
+
+
 def rebuild_times(device, reps: int = 20) -> None:
     """``--rebuild-times``: K1 (cube), its slab form, K1 on the mover stream
     and K8, each first held bitwise against its plain version, and the
@@ -3039,6 +3204,9 @@ def main() -> int:
             return 0
     if "--rebuild-times" in sys.argv[1:]:
         rebuild_times(device)
+        return 0
+    if "--list-force-times" in sys.argv[1:]:
+        list_force_times(device)
         return 0
     if "--xla-slab" in sys.argv[1:]:
         xla_slab(device)

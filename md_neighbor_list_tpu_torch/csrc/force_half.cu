@@ -1,5 +1,12 @@
-// K3 half-force: Newton-3 half-sweep Lennard-Jones forces at the cutoff rc,
-// with the once-per-pair shifted potential when asked.
+// K3 half-force, the cell sweep: Newton-3 half-sweep Lennard-Jones forces at
+// the cutoff rc, with the once-per-pair shifted potential when asked.
+//
+// The NVE step's force between rebuilds reads the half list of the last
+// rebuild instead (force_list.cu, whose kernel keeps the trace name
+// force_half_kernel<0, true>); this sweep, force_sweep_kernel, serves every
+// caller that holds no fresh list: the forces with PE (energies), the slab
+// forms, the API's and the smoke's checks, and the step of a configuration
+// that rebuilds every step.
 //
 // Replaces md_neighbor_list_tpu/ops/pallas_force.py::_force_half_kernel (and
 // the _fold_rxn / partner-row output maps / caller-side sums around it).
@@ -46,7 +53,7 @@ namespace mdnl {
 
 template <int KIND, bool ZWRAP>
 __global__ void __launch_bounds__(32 * kHalfWarps)
-force_half_kernel(const float* __restrict__ pos, float* __restrict__ force,
+force_sweep_kernel(const float* __restrict__ pos, float* __restrict__ force,
                   float* __restrict__ pe, int mc, int cap, float L,
                   float r2cut, float ushift, int nz_arr, float occupied_below,
                   int pass_len) {
@@ -69,7 +76,7 @@ int launch_force_half(const void* pos, void* force, void* pe, int mc, int cap,
       !half_sweep_plan(cap, warps, pass_len))
     return (int)cudaErrorInvalidValue;
   const size_t smem = half_sweep_shared(cap, warps, pass_len);
-  const auto kernel = force_half_kernel<WANT_PE ? kForcePe : kForce, ZWRAP>;
+  const auto kernel = force_sweep_kernel<WANT_PE ? kForcePe : kForce, ZWRAP>;
   const cudaError_t err = fit_shared(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<nz_grid * mc * mc, 32 * warps, smem, (cudaStream_t)stream>>>(

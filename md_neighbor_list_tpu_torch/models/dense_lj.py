@@ -6,11 +6,21 @@ cap growth; the particle state lives in the dense cell-block layout
 (``ops/dense_cells.py``) and the hot ops are the half-sweep kernels
 (``ops/dense_force.py``):
 
-  step:   kick -> unwrapped drift -> rebuild vote -> (sort + expand) ->
-          half-sweep force kernel -> kick
-  Verlet reuse: between rebuilds the *binning* is reused — cell size >= rs
-  guarantees every rc-pair stays inside the stale neighbourhood while
-  2*max_disp <= skin.
+  step:   kick -> unwrapped drift -> rebuild vote -> (sort + expand +
+          half list at rs) -> force over the listed pairs -> kick
+  Verlet reuse: between rebuilds the binning and the half list at rs of the
+  last rebuild are reused — every rc-pair of the drifted state was within
+  rs at the rebuild while 2*max_disp <= skin, so it is in the list.
+
+The list (``ops/dense_force.py::build_half_list``: the list kernel K2 at rs,
+then its pack) is built where every rebuild ends, in ``take``, into buffers
+the engine owns, and read by the list-driven force kernel at every step
+(``dense_forces_list``); it is a function of the carry's ``ref_pos`` (the
+positions of its last rebuild), so a carry the list was not built for (a
+restored or another carry) has it built again from its ``ref_pos`` when it
+is stepped. A configuration that rebuilds every step would build a list for
+one step only: its step keeps the half sweep (``dense_forces_half``), as do
+the observables.
 
 A chunk of steps runs as one device program on the card, as the JAX
 ``run_chunk`` (``jit(lax.scan(step))``) does: ``run`` replays a CUDA graph of
@@ -59,6 +69,7 @@ port honours it on the CPU too, where it runs the plain versions.
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -123,6 +134,10 @@ class DenseSimulator:
         self._build_in: DenseState | None = None
         self._build_runner = ChunkRunner()
         self._lists = None
+        # the step's half list (made for a spec) and the ref_pos of the carry
+        # it was built for
+        self._list: dense_force.HalfList | None = None
+        self._list_of = None
 
     @property
     def incremental_rebuilds(self) -> int:
@@ -137,6 +152,76 @@ class DenseSimulator:
         self.spec = make_spec(self.box, self.config.rs, self.cap)
 
     # ------------------------------------------------------------ internals
+    def _reads_list(self) -> bool:
+        """Whether the step's force reads the half list of the last rebuild
+        (else the half sweep): unless the configuration rebuilds every step,
+        for any cap the list-driven kernel takes."""
+        return (not self.config.rebuild_every_step
+                and self.cap <= dense_force.LIST_MAX_CAP)
+
+    def _half_list(self) -> dense_force.HalfList:
+        """The step's list buffers, made for the current spec."""
+        spec = self.spec
+        if self._list is None or \
+                self._list.start.shape != (spec.rows, spec.mc, spec.cap):
+            self._list = None  # free the old buffers first
+            self._list = dense_force.half_list_buffers(
+                spec, self.config.n, self.config.rs, self.device)
+        return self._list
+
+    def _list_tensors(self) -> list:
+        """The list tensors a step reads and its rebuild writes."""
+        if not self._reads_list():
+            return []
+        return list(self._half_list())
+
+    def _build_list(self, carry: DenseCarry) -> torch.Tensor:
+        """The half list at rs of ``carry``'s last rebuild (its ``ref_pos``)
+        into the engine's buffers. Returns the 0-d bool: it overflowed the
+        list's capacity."""
+        overflow = dense_force.build_half_list(
+            carry.ref_pos, self.spec, self.config.rs, self._half_list())
+        self._list_of = weakref.ref(carry.ref_pos)
+        return overflow
+
+    def _own_list(self, carry: DenseCarry) -> None:
+        """Build the list for ``carry`` unless it holds it already (a carry
+        this engine did not rebuild last: a restored, converted or another
+        engine's carry). The list is read while no particle has moved
+        skin/2 from ``ref_pos``; an overflow of it raises the carry's flag
+        then, so ``run`` rolls the chunk back and grows the cells, and
+        ``step_fn``'s caller sees the flag. A carry already past that votes
+        for a rebuild at its first step, which builds its list anew (and
+        flags that one's overflow): the list of its ``ref_pos``, which need
+        not be a rebuilt state, is not read. Host reads, for such a carry
+        only."""
+        if not self._reads_list() or (self._list_of is not None
+                                      and self._list_of() is carry.ref_pos):
+            return
+        if bool(self._build_list(carry)) and not bool(self._vote(carry)):
+            carry.overflow.fill_(True)
+
+    def _vote(self, carry: DenseCarry) -> torch.Tensor:
+        """The displacement vote: 0-d bool, some particle has moved more
+        than skin/2 from ``ref_pos``."""
+        state = carry.state
+        # unwrapped coordinates make the displacement an exact difference
+        disp = state.pos - carry.ref_pos
+        d2 = torch.sum(disp * disp, dim=0)  # (R, mc, cap)
+        d2max = torch.max(torch.where(state.valid(), d2, 0.0))
+        return 4.0 * d2max > self.config.skin * self.config.skin
+
+    def _step_forces(self, carry: DenseCarry) -> None:
+        """The step's forces into ``carry.force``: over the half list, or
+        by the half sweep."""
+        if self._reads_list():
+            dense_force.dense_forces_list(carry.state.pos, self._list,
+                                          self.spec, self.config.rc,
+                                          out=carry.force)
+        else:
+            force, _ = self._forces(carry.state)
+            carry.force.copy_(force)
+
     def _forces(self, state: DenseState, want_pe: bool = False):
         """(force, pe_slots) with pe attributed once per pair."""
         return dense_force.dense_forces_half(state.pos, self.spec,
@@ -157,7 +242,8 @@ class DenseSimulator:
     def _rebuild(self, carry: DenseCarry, need, cond) -> None:
         """Rebuild ``carry`` in place where the 0-d bool ``need`` holds
         (``None``: always), branching through ``cond``: the rebuilt state is
-        copied into the carry's tensors."""
+        copied into the carry's tensors, and the step's half list is built
+        for it."""
         n = self.config.n
 
         def take(new: DenseState) -> None:
@@ -166,6 +252,8 @@ class DenseSimulator:
             carry.ref_pos.copy_(new.pos)  # state.pos is drifted in place
             carry.n_rebuilds.add_(1)
             carry.overflow.logical_or_(torch.sum(new.valid()) != n)
+            if self._reads_list():
+                carry.overflow.logical_or_(self._build_list(carry))
 
         self._rebuild_state(carry.state, need, cond, take)
 
@@ -222,22 +310,18 @@ class DenseSimulator:
         # the stale-bin image shifts stay exact across the periodic boundary
         state.pos.add_(state.vel, alpha=dt)
 
-        # unwrapped coordinates make the displacement an exact difference
-        need = None
-        if not cfg.rebuild_every_step:
-            disp = state.pos - carry.ref_pos
-            d2 = torch.sum(disp * disp, dim=0)  # (R, mc, cap)
-            d2max = torch.max(torch.where(state.valid(), d2, 0.0))
-            need = 4.0 * d2max > cfg.skin * cfg.skin
+        need = None if cfg.rebuild_every_step else self._vote(carry)
         self._rebuild(carry, need, cond)
 
-        force, _ = self._forces(state)
-        carry.force.copy_(force)
+        self._step_forces(carry)
+        if self._reads_list():
+            trace.add("list_forces")
         state.vel.add_(carry.force, alpha=0.5 * dt)
 
     def step_fn(self, carry: DenseCarry) -> DenseCarry:
         """One velocity-Verlet step, eager (the vote read on the host).
         Updates ``carry``'s tensors in place and returns it."""
+        self._own_list(carry)
         self._step(carry, eager_cond)
         return carry
 
@@ -253,7 +337,8 @@ class DenseSimulator:
         self._runner.launch(lambda cond: self._step(carry, cond), nsteps,
                             [*carry.state, carry.force, carry.ref_pos,
                              carry.n_rebuilds, carry.overflow, self._taken,
-                             self._window], key=self.spec)
+                             self._window, *self._list_tensors()],
+                            key=self.spec)
 
     def _initial_build(self, state: DenseState) -> DenseCarry:
         """The first rebuild and forces, into ``state``'s tensors and new
@@ -266,8 +351,7 @@ class DenseSimulator:
             overflow=torch.zeros((), dtype=torch.bool, device=self.device),
         )
         self._rebuild(carry, None, eager_cond)
-        force, _ = self._forces(carry.state)
-        carry.force.copy_(force)
+        self._step_forces(carry)
         return carry
 
     def _rebuild_and_lists(self, state: DenseState):
@@ -370,6 +454,7 @@ class DenseSimulator:
         done = 0
         while done < nsteps:
             this = min(chunk, nsteps - done)
+            self._own_list(carry)
             with trace.span("chunk"):
                 with trace.span("chunk.snapshot"):
                     snapshot = _clone(carry)

@@ -50,6 +50,13 @@ _ENTRIES = {
     "forces_half": [_P, _P, _I, _I, _F, _F, _F],
     # pos, force, pe, mc, cap, L, r2cut, ushift, occupied_below (want_pe)
     "forces_half_pe": [_P, _P, _P, _I, _I, _F, _F, _F, _F],
+    # K3 on the half list: pos, start, nsparse, lanes, force, mc, cap, L,
+    # r2cut, occupied_below, capacity
+    "forces_list": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I],
+    # the list's count and pack: masks, counts, nsparse, mc, cap; masks,
+    # counts, start, lanes, mc, cap, capacity
+    "list_count": [_P, _P, _P, _I, _I],
+    "list_pack": [_P, _P, _P, _P, _I, _I, _I],
     # the slab forms of K1-K3: the expand's arguments and key_base; the
     # sweeps' arguments and nz_grid, nz_arr (layers walked, layers read),
     # then occupied_below

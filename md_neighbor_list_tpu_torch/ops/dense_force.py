@@ -8,11 +8,14 @@ name changes because nothing here is Pallas): ``dense_lists_half``,
 ``dense_forces`` and ``dense_counts`` launch hand-written CUDA kernels
 (``csrc/lists_half.cu``, which also holds the half count, ``force_half.cu``,
 ``pe_virial_half.cu`` and ``force_full.cu``, which also holds the full count)
-on CUDA tensors.
+on CUDA tensors; ``count_half_list``, ``pack_half_list`` and
+``dense_forces_list``, the NVE step's force over the half list of its last
+rebuild, launch ``csrc/force_list.cu``.
 Beside each stands its plain PyTorch version (``lists_half_plain``,
 ``forces_half_plain``, ``pe_virial_half_plain``, ``counts_half_plain``,
-``forces_full_plain``, ``counts_full_plain``), taken only for tensors that lie
-on the CPU; it is what the CPU tests run and what the kernels are held against
+``forces_full_plain``, ``counts_full_plain``, ``count_half_list_plain``,
+``pack_half_list_plain``, ``forces_list_plain``), taken only for tensors that
+lie on the CPU; it is what the CPU tests run and what the kernels are held against
 on the card.
 
 Half sweep: every unordered pair is visited once. The own cell (z, y, x)
@@ -50,6 +53,10 @@ in-box position (``make_windows`` parks by ``valid``).
 """
 
 from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -403,6 +410,279 @@ def dense_forces_half_slab(pos: torch.Tensor, spec, rc: float,
     _cuda.launch("forces_half_slab_pe", pos, force, pe, *geom,
                  _f32(lj_shift(rc)), *layers, OCCUPIED_BELOW)
     return force, pe
+
+
+# ------------------------------------------------- K3 on the half list
+# The NVE step's force between rebuilds reads the half list at rs that the
+# last rebuild built (``build_half_list``): K2's bits in the ten sparse
+# cells counted (``count_half_list``) and packed into per-slot partner lanes
+# (``pack_half_list``), then the step's forces (``dense_forces_list``). The
+# window lanes are half_row_lane's numbering (csrc/half_sweep.cuh): partner cell pc = v // cap (0: the own cell, 1: its
+# x+1, then cells x-1, x, x+1 of rows 1-4), slot v % cap. The force sweeps
+# the four dense cells (the own cell and its face neighbours, where 71 % of
+# the pairs lie) and walks the list in the ten others (csrc/force_list.cu).
+
+# The largest cap the list-driven force takes: the block plans its shared
+# memory within this (csrc/force_list.cu), and a window lane fits an int16.
+LIST_MAX_CAP = 448
+DENSE_CELLS = (0, 1, 3, 9)  # window cells the force sweeps
+SPARSE_CELLS = (2, 4, 5, 6, 7, 8, 10, 11, 12, 13)  # and those it reads listed
+
+
+class HalfList(NamedTuple):
+    """The half list at rs of the state of one rebuild, as the step's force
+    reads it (flat slots of the (R, mc, cap) arrays): each slot's partners
+    in the ten sparse cells."""
+    start: torch.Tensor  # (R, mc, cap) i32: each slot's first entry
+    nsparse: torch.Tensor  # (R, mc, cap) i32: its partners listed
+    lanes: torch.Tensor  # (capacity,) i16: partner window lanes by slot
+
+
+def list_capacity(spec, n: int, rs: float) -> int:
+    """Entries the list of ``n`` particles holds: their partners in the
+    sparse cells at the largest density the cells hold on average (``cap``
+    a cell). A partner at offset d (in cells; rs <= the cell size) of a
+    particle anywhere in its cell lies in another cell along axis c with
+    chance |d_c|, so in an edge or corner cell (two or three axes; the half
+    window holds half of those) with, summed over the ball of radius
+    r = rs / cell, half of the integral of |x||y| + |x||z| + |y||z| -
+    2|x||y||z|: 4r^5/5 - r^6/6 cells. At N = 1M, cap 40 that is 24M entries
+    (48 MB) against 13.0M in the liquid; it grows with cap. A multiple of 8
+    (the force kernel reads a cell's entries 8 at a time)."""
+    r = rs / spec.cell_size
+    per = math.ceil((0.8 * r**5 - r**6 / 6.0) * spec.cap)
+    return min(-(-n * per // 8) * 8, 2**31 - 8)
+
+
+def half_list_buffers(spec, n: int, rs: float, device) -> HalfList:
+    """Empty list buffers for ``n`` particles in ``spec`` at ``rs``."""
+    shape = (spec.rows, spec.mc, spec.cap)
+    return HalfList(
+        start=torch.zeros(shape, dtype=torch.int32, device=device),
+        nsparse=torch.zeros(shape, dtype=torch.int32, device=device),
+        lanes=torch.zeros(list_capacity(spec, n, rs), dtype=torch.int16,
+                          device=device))
+
+
+def _window_lanes(cap: int, device):
+    """(k, l) of every window lane v in [0, 14cap): its offset row and its
+    lane within the row's 3cap."""
+    v = torch.arange(14 * cap, device=device)
+    k = torch.where(v < 2 * cap, 0, 1 + (v - 2 * cap) // (3 * cap))
+    l = torch.where(v < 2 * cap, cap + v, v - 2 * cap - (k - 1) * 3 * cap)
+    return k, l
+
+
+def _cell_lanes(cells, cap: int, device) -> torch.Tensor:
+    """The window lanes of ``cells``, cell by cell."""
+    return torch.cat([torch.arange(pc * cap, (pc + 1) * cap, device=device)
+                      for pc in cells])
+
+
+@functools.lru_cache(maxsize=4)
+def _window_slots(spec, device: str):
+    """(ncells, 14cap) flat slot of each own cell's window lanes, and
+    (3, ncells, 14cap) the image shift added to the partner's position."""
+    mc, cap = spec.mc, spec.cap
+    fL = _f32(spec.L)
+    k, l = _window_lanes(cap, device)
+    off = torch.tensor(HALF_OFFSETS5, device=device)[k]  # (14cap, 2)
+    cell = torch.arange(mc**3, device=device)[:, None]
+    x, y, z = cell % mc, (cell // mc) % mc, cell // (mc * mc)
+    coords, shifts = [], []
+    for c0, d in ((z, off[:, 0]), (y, off[:, 1]), (x, l // cap - 1)):
+        c = c0 + d
+        shifts.append(torch.where(c >= mc, fL, torch.where(c < 0, -fL, 0.0))
+                      .to(torch.float32))
+        coords.append(c % mc)
+    zz, yy, xx = coords
+    idx = ((zz * mc + yy) * mc + xx) * cap + l % cap
+    return idx, torch.stack(shifts[::-1])  # shifts in x, y, z
+
+
+def _sparse_bits(masks: torch.Tensor, spec):
+    """K2's bits in the sparse cells: (slots, 10cap) 0/1, own slot by list
+    column, and the window lane of each column (cell by cell of
+    ``SPARSE_CELLS``, slot by slot: the list order)."""
+    mc, cap = spec.mc, spec.cap
+    dev = masks.device
+    order = _cell_lanes(SPARSE_CELLS, cap, dev)
+    k, l = _window_lanes(cap, dev)
+    words = masks.reshape(5, -1, mc**3, 3 * cap)[k[order], :, :, l[order]]
+    i = torch.arange(cap, device=dev)
+    bits = (words[:, i // MASK_BITS, :] >> (i % MASK_BITS)[None, :, None]) & 1
+    return bits.permute(2, 1, 0).reshape(spec.slots, -1), order
+
+
+def count_half_list_plain(masks: torch.Tensor, counts: torch.Tensor,
+                          nsparse: torch.Tensor, spec) -> None:
+    """Plain PyTorch version of ``count_half_list``."""
+    bits, _ = _sparse_bits(masks, spec)
+    nsparse.reshape(-1).copy_(bits.sum(1))
+
+
+def count_half_list(masks: torch.Tensor, counts: torch.Tensor,
+                    nsparse: torch.Tensor, spec) -> None:
+    """Each slot's count of K2's bits (``masks``; ``counts`` says which
+    slots have any) in the ten sparse cells (``SPARSE_CELLS``) into
+    ``nsparse``: the length of its list.
+
+    Kernel: ``csrc/force_list.cu`` (``list_pack_kernel<false>``), bitwise
+    its plain version: the pack's transposes, a popcount for the writes.
+    CPU tensors take ``count_half_list_plain``."""
+    if not masks.is_cuda:
+        count_half_list_plain(masks, counts, nsparse, spec)
+        return
+    _cuda.check_cuda(masks, counts, nsparse)
+    _cuda.launch("list_count", masks, counts, nsparse, spec.mc, spec.cap)
+
+
+def pack_half_list_plain(masks: torch.Tensor, counts: torch.Tensor,
+                         start: torch.Tensor, lanes: torch.Tensor,
+                         spec) -> None:
+    """Plain PyTorch version of ``pack_half_list``: the set bits of the
+    masks in the sparse cells, each slot's at its start in list order, those
+    past ``lanes.numel()`` dropped."""
+    bits, order = _sparse_bits(masks, spec)
+    n = bits.sum(1)
+    slot, col = torch.nonzero(bits, as_tuple=True)
+    before = torch.cumsum(n, 0) - n
+    at = start.reshape(-1).long()[slot] + torch.arange(
+        slot.numel(), device=masks.device) - before[slot]
+    keep = at < lanes.numel()
+    lanes[at[keep]] = order[col[keep]].to(torch.int16)
+
+
+def pack_half_list(masks: torch.Tensor, counts: torch.Tensor,
+                   start: torch.Tensor, lanes: torch.Tensor, spec) -> None:
+    """K2's bits (``masks``; ``counts`` says which slots have any) in the
+    ten sparse cells (``SPARSE_CELLS``) into the list: slot s's partners
+    there at ``lanes[start[s]:start[s] + nsparse[s]]`` (``count_half_list``
+    counted them), in list order (cell by cell of ``SPARSE_CELLS``, slot by
+    slot), entries past the capacity dropped (the caller flags that). The
+    four dense cells' bits are not packed: the force sweeps those cells.
+
+    Kernel: ``csrc/force_list.cu`` (``list_pack_kernel<true>``), bitwise
+    its plain version: a warp per own cell, a lane per own slot, transposes
+    the mask bits of 32 window lanes at a time by shuffles and writes its
+    slot's lanes. CPU tensors take ``pack_half_list_plain``."""
+    if not masks.is_cuda:
+        pack_half_list_plain(masks, counts, start, lanes, spec)
+        return
+    _cuda.check_cuda(masks, counts, start, lanes)
+    _cuda.launch("list_pack", masks, counts, start, lanes, spec.mc,
+                 spec.cap, lanes.numel())
+
+
+def build_half_list(pos4: torch.Tensor, spec, rs: float,
+                    out: HalfList) -> torch.Tensor:
+    """The half list at ``rs`` of the rebuilt state ``pos4`` into ``out``:
+    K2 (``dense_lists_half``, unchanged; its counts and masks are scratch,
+    freed here), each slot's count of partners in the sparse cells, its
+    start (an exclusive prefix sum of those counts, clipped at the
+    capacity), then the pack. Returns a 0-d bool tensor: the list has more
+    entries than its capacity, so some are not stored (the caller raises the
+    carry's overflow flag). Nothing is read on the host."""
+    counts, masks = dense_lists_half(pos4, spec, rs)
+    count_half_list(masks, counts, out.nsparse, spec)
+    flat = out.nsparse.reshape(-1)
+    ends = torch.cumsum(flat, 0, dtype=torch.int64)
+    capacity = out.lanes.numel()
+    out.start.reshape(-1).copy_(torch.clamp(ends - flat, max=capacity))
+    pack_half_list(masks, counts, out.start, out.lanes, spec)
+    return ends[-1] > capacity
+
+
+def list_pairs(lst: HalfList, spec):
+    """The listed pairs (those in the sparse cells) that the list stores
+    (none past its capacity): (own slot, partner slot) flat indices and the
+    (3, pairs) image shift added to the partner's position."""
+    dev = lst.lanes.device
+    start = lst.start.reshape(-1).long()
+    n = torch.clamp(torch.minimum(lst.nsparse.reshape(-1).long(),
+                                  lst.lanes.numel() - start), min=0)
+    own = torch.repeat_interleave(torch.arange(spec.slots, device=dev), n)
+    before = torch.cumsum(n, 0) - n
+    entry = start[own] + torch.arange(own.numel(), device=dev) - before[own]
+    v = lst.lanes[entry].long()
+    idx, shift = _window_slots(spec, str(dev))
+    cell = own // spec.cap
+    return own, idx[cell, v], shift[:, cell, v]
+
+
+def dense_pairs(pos4: torch.Tensor, spec):
+    """The occupied slot pairs of the dense cells, the half sweep's within
+    them: (own slot, partner slot, (3, pairs) image shift). With
+    ``list_pairs`` these are the pairs the step's force evaluates."""
+    dev = pos4.device
+    cap = spec.cap
+    v = _cell_lanes(DENSE_CELLS, cap, dev)
+    idx, shift = _window_slots(spec, str(dev))
+    own = torch.arange(spec.slots, device=dev)[:, None]
+    cell = own // cap
+    part = idx[cell, v]  # (S, 4cap)
+    occupied = pos4[0].reshape(-1) < OCCUPIED_BELOW
+    keep = occupied[own] & occupied[part]
+    keep &= (v >= cap) | (v % cap > own % cap)  # own cell: slot j > i
+    o, j = torch.nonzero(keep, as_tuple=True)
+    return o, part[o, j], shift[:, cell[o, 0], v[j]]
+
+
+def forces_list_plain(pos4: torch.Tensor, lst: HalfList, spec,
+                      rc: float) -> torch.Tensor:
+    """Plain PyTorch version of ``dense_forces_list``: the pairs of the
+    dense cells as the half sweep takes them and the list's pairs in the
+    sparse cells, each pair's force added to the own slot and taken from
+    the partner."""
+    dev = pos4.device
+    S = spec.slots
+    p = pos4.reshape(3, S)
+    force = torch.zeros((3, S), dtype=torch.float32, device=dev)
+    for own, part, shift in (dense_pairs(pos4, spec),
+                             list_pairs(lst, spec)):
+        dxv, dyv, dzv = (p[c, own] - (p[c, part] + shift[c])
+                         for c in range(3))
+        r2 = dxv * dxv + dyv * dyv + dzv * dzv
+        hit = r2 < _f32(rc * rc)
+        s2, s6 = _lj_terms(r2, hit)
+        f = torch.where(hit, 24.0 * s6 * (2.0 * s6 - 1.0) * s2, 0.0)
+        for c, d in enumerate((dxv, dyv, dzv)):
+            force[c].index_add_(0, own, f * d)
+            force[c].index_add_(0, part, -(f * d))
+    return force.reshape(pos4.shape)
+
+
+def dense_forces_list(pos4: torch.Tensor, lst: HalfList, spec, rc: float,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+    """LJ forces (3, R, mc, cap) at ``rc`` over the pairs of the half list
+    ``lst`` (``build_half_list`` at rs on the state of the last rebuild,
+    whose slots and image shifts ``pos4`` still has): the NVE step's force
+    between rebuilds. The same pairs as ``dense_forces_half`` on ``pos4``
+    while no particle has moved more than skin/2 since that rebuild, each
+    pair's force computed as there; added in another order. ``out``: the
+    tensor to write (zeroed here), else a new one.
+
+    Kernel: ``csrc/force_list.cu`` (``force_half_kernel<0, true>``, K3's
+    trace name), replacing ``_force_half_kernel`` of
+    md_neighbor_list_tpu/ops/pallas_force.py as the JAX step runs it: a
+    block per own cell sweeps the own cell and its three face neighbours as
+    ``dense_forces_half`` does (71 % of the pairs, at a hit rate near 40 %)
+    and walks the list's entries in the ten edge and corner cells, four own
+    slots a warp, each pair's reaction by a global atomicAdd. CPU tensors
+    take ``forces_list_plain``."""
+    if spec.cap > LIST_MAX_CAP:
+        raise ValueError(f"the list-driven force takes cap <= {LIST_MAX_CAP},"
+                         f" got {spec.cap}")
+    _check_state(pos4, spec)
+    if not pos4.is_cuda:
+        force = forces_list_plain(pos4, lst, spec, rc)
+        return force if out is None else out.copy_(force)
+    force = torch.zeros_like(pos4) if out is None else out.zero_()
+    _cuda.check_cuda(pos4, lst.start, lst.nsparse, lst.lanes, force)
+    _cuda.launch("forces_list", pos4, lst.start, lst.nsparse, lst.lanes,
+                 force, spec.mc, spec.cap, _f32(spec.L), _f32(rc * rc),
+                 OCCUPIED_BELOW, lst.lanes.numel())
+    return force
 
 
 # ---------------------------------------------------------- K4: pe/virial

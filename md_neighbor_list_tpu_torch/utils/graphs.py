@@ -51,7 +51,10 @@ notes the launches of the step outside its bodies and of each body, puts the
 counters back as they were, and each chunk adds the step's launches times
 the steps and each body's launches times the times it ran on the device
 (``accrue``), and each named body's runs to its counter. The branch counters
-are read once a chunk, with or without names.
+are read once a chunk, with or without names. A counter of ``trace.COUNTS``
+that the step raises outside its bodies (``trace.add``) is handled as the
+launches are: the warm-up and the capture add nothing to it, and each chunk
+adds what one step added times the steps.
 """
 
 from __future__ import annotations
@@ -109,13 +112,14 @@ def eager_cond(pred: torch.Tensor, body: Callable[[], None],
 
 def accrue(counts: dict, per_step: dict, per_body: Sequence[dict],
            taken: Sequence[int], steps: int,
-           names: Sequence[str | None] = (), named: dict | None = None
-           ) -> None:
+           names: Sequence[str | None] = (), named: dict | None = None,
+           step_named: dict | None = None) -> None:
     """Add to the launch counters ``counts`` what ``steps`` replays did: the
     step's own launches each step, and each body's each time it ran
-    (``taken``, in the order of ``per_body``); and to ``named[name]`` the
+    (``taken``, in the order of ``per_body``); to ``named[name]`` the
     runs of each body that ``names`` names (in the same order, None for a
-    body without a name)."""
+    body without a name); and to ``named`` what ``step_named`` says one
+    step adds to its counters, each step."""
     for name, n in per_step.items():
         counts[name] += steps * n
     for body, times in zip(per_body, taken):
@@ -124,6 +128,8 @@ def accrue(counts: dict, per_step: dict, per_body: Sequence[dict],
     for name, times in zip(names, taken):
         if name is not None:
             named[name] += times
+    for name, n in (step_named or {}).items():
+        named[name] += steps * n
 
 
 def _launched_since(before: dict) -> dict:
@@ -138,6 +144,7 @@ class StepGraph:
 
     def __init__(self, step: Step, carry: Sequence[torch.Tensor]):
         device = carry[0].device
+        named = trace.counters()  # the warm-up and the capture are no steps
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
@@ -153,9 +160,14 @@ class StepGraph:
         self.names: list[str | None] = []  # each body's counter, if named
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         try:
+            trace.COUNTS.update(named)
             with torch.cuda.graph(self.graph):
                 step(self._node)
             self.per_step = _launched_since(counts)
+            # what one step adds to the counters outside its bodies
+            self.step_named = {k: v - named[k]
+                               for k, v in trace.counters().items()
+                               if v != named[k]}
             # each body's count of runs, raised inside the body
             self.hits = torch.zeros(len(self._nodes), dtype=torch.int64,
                                     device=device)
@@ -180,6 +192,7 @@ class StepGraph:
             self.graph.instantiate()
         finally:
             _cuda.LAUNCHES.update(counts)  # nothing captured has run
+            trace.COUNTS.update(named)
         self._nodes.clear()  # the bodies' closures are no longer needed
 
     def _node(self, pred: torch.Tensor, body: Callable[[], None],
@@ -202,7 +215,7 @@ class StepGraph:
         ``_cuda.LAUNCHES`` and the named branches' runs to their counters."""
         taken = self.hits.tolist() if self.per_body else []
         accrue(_cuda.LAUNCHES, self.per_step, self.per_body, taken, nsteps,
-               self.names, trace.COUNTS)
+               self.names, trace.COUNTS, self.step_named)
 
 
 class ChunkRunner:

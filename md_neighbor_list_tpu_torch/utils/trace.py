@@ -14,6 +14,12 @@ per-layer metrics and the CLI read of the program's own work.
             step where the configuration rebuilds every step
   redos     chunks of those engines undone by an overflow
   captures  graphs captured by any ``ChunkRunner``
+  list_forces  steps of ``DenseSimulator`` whose force read the half list of
+            the last rebuild (``dense_forces_list``): added by the step
+            itself when it runs eagerly, and per replay of a captured step
+            (``utils/graphs.accrue``); every step unless the configuration
+            rebuilds every step (the step then sweeps). Like ``rebuilds`` it
+            counts the steps of a chunk that is then undone.
 
 Host spans. ``with span("chunk.launch"):`` marks a stretch of host work.
 While a ``torch.profiler`` records, it emits an empty record function named
@@ -47,7 +53,7 @@ from md_neighbor_list_tpu_torch.ops import _cuda
 PREFIX = "mdnl."  # the host spans' event names in a trace
 
 COUNTS = {"launches": _cuda.LAUNCHES, "steps": 0, "rebuilds": 0, "redos": 0,
-          "captures": 0}
+          "captures": 0, "list_forces": 0}
 _adding = threading.Lock()
 
 _profiling = torch._C._autograd._profiler_enabled

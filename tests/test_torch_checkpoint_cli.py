@@ -146,9 +146,11 @@ def test_cli_check_parity_save_and_resume(tmp_path):
     assert events["parity"]["pair_count_oracle"] == events["parity"][
         "pair_count_engine"]
     assert events["run_done"]["rebuilds"] == 11  # c1: every step
-    # the counters of utils/trace.py: the rebuilds in steps (not the build)
+    # the counters of utils/trace.py: the rebuilds in steps (not the build);
+    # c1 rebuilds every step, so no step reads a list
     assert events["run_done"]["counters"] == {"steps": 10, "rebuilds": 10,
-                                              "redos": 0, "captures": 0}
+                                              "redos": 0, "captures": 0,
+                                              "list_forces": 0}
     assert pathlib.Path(ckpt).exists()
 
     out = _cli("--preset", "c1_brute", "--n", "1024", "--steps", "3",
@@ -159,7 +161,7 @@ def test_cli_check_parity_save_and_resume(tmp_path):
     assert resumed and resumed[0]["step"] == 10
     done = [e for e in _events(out.stderr) if e["event"] == "run_done"][0]
     assert done["counters"] == {"steps": 3, "rebuilds": 3, "redos": 0,
-                                "captures": 0}
+                                "captures": 0, "list_forces": 0}
 
 
 def test_cli_compare_mode():

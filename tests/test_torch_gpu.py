@@ -663,8 +663,9 @@ def test_graph_chunk_matches_eager_steps(card, engine, cap, monkeypatch):
         warm = captured.per_step.get(name, 0) + sum(
             b.get(name, 0) for b in captured.per_body)
         assert count == eager_launches[name] + warm, name
-    if engine != "xla":
-        assert graph_launches["forces_half"] == steps + 1
+    if engine != "xla":  # the step's force reads the list
+        assert graph_launches["forces_list"] == steps + 1
+        assert graph_launches["forces_half"] == 0
 
 
 def test_traced_chunk_marks_each_rebuild_on_the_device(card):
@@ -972,3 +973,88 @@ def test_refused_capture_raises_and_runs_nothing_eagerly(card):
     torch.cuda.synchronize()
     assert float(x) == 0.0
     assert runner.graph is None and runner.captures == 0
+
+
+def _list_on(state, spec, n, device):
+    lst = dense_force.half_list_buffers(spec, n, RS, device)
+    assert not bool(dense_force.build_half_list(state.pos, spec, RS, lst))
+    return lst
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + ["scattered_cap40",
+                                                  "scattered_cap384"])
+def test_list_kernels_match_plain_versions(card, case):
+    """The list's count and pack (bitwise) and the list-driven K3 against
+    their plain versions on the rebuilt state, and K3 also against the sweep, on the
+    rebuilt state and on it drifted to just under the vote's trigger (every
+    particle 0.999 skin/2 from where the list was built); parked slots get
+    exactly zero force. On scattered slots (no prefix of occupied slots),
+    up to cap 384, as the step's graph runs it there."""
+    if case.startswith("scattered"):
+        cap = int(case[len("scattered_cap"):])
+        state, spec = _scattered_on_card(card, cap)
+        n = int(state.valid().sum())
+    else:
+        n, cap = CASES[case]
+        pos, vel, pid = numpy_system(n, seed=11, jitter=0.2)
+        state, spec, _ = torch_state(pos, vel, pid, cap)
+        state, _ = dense_cells.rebuild_dense(
+            dense_cells.DenseState(*(t.to(card) for t in state)), spec)
+    before = dict(_cuda.LAUNCHES)
+    lst = _list_on(state, spec, n, card)
+    cpu = _list_on(dense_cells.DenseState(*(t.cpu() for t in state)), spec,
+                   n, "cpu")
+    for got, want in zip(lst, cpu):
+        assert torch.equal(got.cpu(), want)
+    skin = RS - RC
+    g = torch.Generator(device="cpu").manual_seed(3)
+    u = torch.randn(state.pos.shape, generator=g)
+    u = (u / torch.sqrt(torch.sum(u * u, dim=0, keepdim=True))).to(card)
+    valid = state.valid()
+    for frac in (0.0, 0.999):
+        pos = state.pos + torch.where(valid[None], frac * skin / 2 * u, 0.0)
+        f = dense_force.dense_forces_list(pos, lst, spec, RC)
+        f_p = dense_force.forces_list_plain(pos.cpu(), cpu, spec, RC)
+        f_s = dense_force.dense_forces_half(pos, spec, RC)[0]
+        scale = max(float(f_p.abs().max()), 1.0)
+        for want in (f_p, f_s.cpu()):
+            np.testing.assert_allclose(f.cpu(), want, rtol=1e-4,
+                                       atol=2e-5 * scale)
+        assert float(f[:, ~valid].abs().sum()) == 0.0
+    after = _cuda.LAUNCHES
+    assert after["list_count"] - before["list_count"] == 1
+    assert after["list_pack"] - before["list_pack"] == 1
+    assert after["forces_list"] - before["forces_list"] == 2
+
+
+@pytest.mark.parametrize("incremental", [False, True],
+                         ids=["dense", "incremental"])
+def test_list_steps_follow_the_sweep_steps_on_the_card(card, incremental):
+    """40 steps by ``run`` (the captured chunk) over several rebuilds, the
+    step's force over the list and, in a twin engine, over the cell sweep:
+    the same rebuilds, positions within 5e-4 (float atomics on both sides)
+    and forces within the force gate; every step counted in
+    ``list_forces``."""
+    from md_neighbor_list_tpu_torch import DenseSimulator, MDConfig
+    from md_neighbor_list_tpu_torch.utils import convert, trace
+
+    n = 1728
+    pos, vel, pid = numpy_system(n, seed=5)
+    carries = []
+    for sweep in (False, True):
+        sim = DenseSimulator(MDConfig(n=n, **HOT), cap=32, device=card,
+                             incremental=incremental)
+        if sweep:
+            sim._reads_list = lambda: False
+        carry = sim.build(convert.system_from_numpy(
+            pos, 1.4 * vel, np.zeros_like(pos), pid, device=card))
+        before = trace.counters()["list_forces"]
+        carries.append((sim, sim.run(carry, 40, chunk=20)))
+        assert trace.counters()["list_forces"] - before == (0 if sweep
+                                                            else 40)
+    (sl, cl), (ss, cs) = carries
+    assert int(cl.n_rebuilds) == int(cs.n_rebuilds) >= 3
+    (pl, _, fl), (ps, _, fs) = sl.to_system(cl), ss.to_system(cs)
+    d = np.abs(pl - ps)
+    assert np.minimum(d, sl.box.L - d).max() < 5e-4
+    np.testing.assert_allclose(fl, fs, atol=2e-4 * max(np.abs(fs).max(), 1.0))

@@ -51,6 +51,19 @@ def test_accrue_counts_steps_and_branches_taken(steps, taken, want, names,
     assert counts == want
 
 
+@pytest.mark.parametrize("steps", [0, 1, 100])
+def test_accrue_adds_what_each_step_adds_to_its_counters(steps):
+    """A counter the step raises outside its bodies (``list_forces``) rises
+    by what one captured step raised it by, times the steps; launches and
+    branch counters as without it."""
+    counts = {"forces_list": 0, "expand": 0}
+    counters = {"rebuilds": 0, "list_forces": 0}
+    graphs.accrue(counts, {"forces_list": 1}, [{"expand": 1}], [3], steps,
+                  ("rebuilds",), counters, {"list_forces": 1})
+    assert counts == {"forces_list": steps, "expand": 3}
+    assert counters == {"rebuilds": 3, "list_forces": steps}
+
+
 @pytest.mark.parametrize("capturable", [True, False])
 def test_runner_on_the_cpu_takes_each_branch_on_the_host(capturable):
     x = torch.zeros((), dtype=torch.int64)

@@ -50,7 +50,7 @@ def test_expected_modules_and_sources_exist():
         assert want in names
     for src in ("geom.cuh", "half_sweep.cuh", "expand.cu", "lists_half.cu",
                 "force_half.cu", "pe_virial_half.cu", "force_full.cu",
-                "merge.cu", "span.cu", "decode.cpp"):
+                "merge.cu", "span.cu", "decode.cpp", "force_list.cu"):
         assert (PORT / "csrc" / src).exists()
 
 
@@ -61,7 +61,8 @@ def test_every_kernel_has_an_entry_a_counter_and_a_source():
         "expand", "lists_half", "forces_half", "forces_half_pe",
         "pe_virial_half", "count_half", "force_full", "force_full_pe",
         "count_full", "merge", "expand_slab", "lists_half_slab",
-        "forces_half_slab", "forces_half_slab_pe"}
+        "forces_half_slab", "forces_half_slab_pe", "forces_list",
+        "list_count", "list_pack"}
     sources = "".join(p.read_text() for p in _cuda._sources()[0])
     for name in (*_cuda._ENTRIES, *_cuda._SPANS):
         assert f"int mdnl_{name}(" in sources, name

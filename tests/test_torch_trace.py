@@ -87,7 +87,8 @@ def test_steps_and_rebuilds_counted(engine):
     """Over a run with no redo: ``steps`` the steps run, ``rebuilds`` the
     rise in the carry's rebuild count (the step's branches, or every step
     where the configuration rebuilds every step), no redo, no capture on
-    the CPU."""
+    the CPU, ``list_forces`` every step of the dense engine that reads its
+    list (none where it rebuilds every step, none of the xla engine)."""
     if engine == "xla":
         pos, vel, pid = numpy_system(N, 5)
         sim = Simulator(MDConfig(n=N, **HOT), device="cpu")
@@ -102,7 +103,8 @@ def test_steps_and_rebuilds_counted(engine):
     carry = sim.run(carry, 25, chunk=10)
     assert _since(before) == {"steps": 25,
                               "rebuilds": rebuilds(carry) - start,
-                              "redos": 0, "captures": 0}
+                              "redos": 0, "captures": 0,
+                              "list_forces": 25 if engine == "dense" else 0}
     assert rebuilds(carry) - start >= 2
 
 
@@ -139,10 +141,11 @@ def test_launches_counter_is_the_kernel_counter():
     assert set(trace.COUNTS["launches"].values()) == {0}
     assert not set(_cuda._SPANS) & set(_cuda.LAUNCHES)
     before = trace.counters()
-    assert set(before) == {"steps", "rebuilds", "redos", "captures"}
+    assert set(before) == {"steps", "rebuilds", "redos", "captures",
+                           "list_forces"}
     trace.add("steps", 3)
     assert _since(before) == {"steps": 3, "rebuilds": 0, "redos": 0,
-                              "captures": 0}
+                              "captures": 0, "list_forces": 0}
 
 
 def test_span_is_inert_without_a_profiler_and_marks_under_one():
