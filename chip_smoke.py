@@ -2917,20 +2917,54 @@ def sweep_times(device, which: str, reps: int = 20) -> None:
 def list_force_times(device, reps: int = 20) -> None:
     """``--list-force-times``: the NVE step's force over the half list
     (``dense_forces_list``, K3's trace name) against the cell sweep
-    (``dense_forces_half``) at N = 1M, cap = 40, on the c4_sorted engine's
-    state after 200 NVE steps, rebuilt, then drifted by skin/2 (the last
-    state before the vote fires). First the list of the rebuilt state is
-    built (``build_half_list``: K2, the count, the starts, the pack), its
-    count and pack held bitwise against their plain versions, then the
-    list's force on the drifted state against the sweep's and the plain
-    version's, and the list's pairs within rc against the sweep's count.
-    Then each is timed by ``device_ms`` (``reps`` calls). Last, the
-    configurations that rebuild every step (``c2_cell`` as preset and
-    ``c4_sorted`` with ``rebuild_every_step``), each run by ``run`` with
-    the step's force forced to the sweep and to the list: steps/s over 300
-    steps after 100. One JSON line and no result line: the timing of kernel
-    variants, one tree at a time."""
-    cfg = PRESETS["c4_sorted"]
+    (``dense_forces_half``), cap = 40, at ``c4_sorted`` (N = 1M) and at
+    ``lammps_lj`` (LAMMPS ``bench/in.lj`` x 4, N = 2,048,000 from fcc), each
+    on the engine's state after 200 NVE steps, rebuilt, then drifted by
+    skin/2 (the last state before the vote fires); see ``_list_force_times``.
+    Then the NVE step run by ``run`` with its force forced to the sweep and
+    to the list: steps/s over 300 steps after 100, for the configurations
+    that rebuild every step (``c2_cell`` as preset and ``c4_sorted`` with
+    ``rebuild_every_step``) and for ``lammps_lj`` under its own displacement
+    trigger. One JSON line and no result line: the timing of kernel variants,
+    one tree at a time."""
+    by_preset = {name: _list_force_times(PRESETS[name], device, reps)
+                 for name in ("c4_sorted", "lammps_lj")}
+    every_step, nve = {}, {}
+    for out, name, c in (
+            (every_step, "c2_cell", PRESETS["c2_cell"]),
+            (every_step, "c4_sorted", dataclasses.replace(
+                PRESETS["c4_sorted"], rebuild_every_step=True)),
+            (nve, "lammps_lj", PRESETS["lammps_lj"])):
+        out[name] = {}
+        for side in ("sweep", "list"):
+            sim = DenseSimulator(c, cap=40, device=device)
+            sim._reads_list = (lambda: True) if side == "list" \
+                else (lambda: False)
+            carry = sim.run(sim.init(), 100)  # the capture, warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry = sim.run(carry, 300)
+            torch.cuda.synchronize()
+            out[name][side] = 300 / (time.perf_counter() - t0)
+            check(not bool(carry.overflow) and sim.cap == 40,
+                  f"list_force_times: {name} ({side}) overflowed")
+            del sim, carry
+            torch.cuda.empty_cache()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    emit("list_force_times", reps=reps, card=smi,
+         nvcc_flags=os.environ.get("MDNL_NVCC_FLAGS", ""), **by_preset,
+         every_step_steps_per_s=every_step, nve_steps_per_s=nve)
+
+
+def _list_force_times(cfg, device, reps: int) -> dict:
+    """One configuration of ``list_force_times``: first the list of the
+    rebuilt state is built (``build_half_list``: K2, the count, the starts,
+    the pack), its count and pack held bitwise against their plain versions,
+    then the list's force on the drifted state against the sweep's and the
+    plain version's, and the list's pairs within rc against the sweep's
+    count. Then each is timed by ``device_ms`` (``reps`` calls)."""
     sim = DenseSimulator(cfg, cap=40, device=device)
     spec, df = sim.spec, dense_force
     carry = sim.run(sim.init(), 200)
@@ -2983,35 +3017,14 @@ def list_force_times(device, reps: int = 20) -> None:
         "build_half_list": device_ms(lambda: df.build_half_list(
             new.pos, spec, cfg.rs, lst), reps),
     }
+    result = dict(n=cfg.n, cap=spec.cap, mc=spec.mc, pairs_rs=pairs_rs,
+                  listed=listed, capacity=df.list_capacity(spec, cfg.n,
+                                                           cfg.rs),
+                  pairs_rc=pairs_rc, ms=ms)
     del sim, new, drifted, lst, counts, masks, nsparse, out, f_list
+    df._window_slots.cache_clear()
     torch.cuda.empty_cache()
-    every_step = {}
-    for name, c in (("c2_cell", PRESETS["c2_cell"]),
-                    ("c4_sorted", dataclasses.replace(
-                        cfg, rebuild_every_step=True))):
-        every_step[name] = {}
-        for side in ("sweep", "list"):
-            sim = DenseSimulator(c, cap=40, device=device)
-            sim._reads_list = (lambda: True) if side == "list" \
-                else (lambda: False)
-            carry = sim.run(sim.init(), 100)  # the capture, warm
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            carry = sim.run(carry, 300)
-            torch.cuda.synchronize()
-            every_step[name][side] = 300 / (time.perf_counter() - t0)
-            check(not bool(carry.overflow) and sim.cap == 40,
-                  f"list_force_times: {name} ({side}) overflowed")
-            del sim, carry
-            torch.cuda.empty_cache()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    emit("list_force_times", n=cfg.n, cap=spec.cap, reps=reps, card=smi,
-         nvcc_flags=os.environ.get("MDNL_NVCC_FLAGS", ""),
-         pairs_rs=pairs_rs, listed=listed, capacity=df.list_capacity(
-             spec, cfg.n, cfg.rs), pairs_rc=pairs_rc, ms=ms,
-         every_step_steps_per_s=every_step)
+    return result
 
 
 def rebuild_times(device, reps: int = 20) -> None:

@@ -7,6 +7,7 @@ counts and forces:
   python -m md_neighbor_list_tpu_torch --preset c3_verlet --steps 500
   python -m md_neighbor_list_tpu_torch --preset c1_brute --check-parity
   python -m md_neighbor_list_tpu_torch --n 100000 --engine dense --save s.npz
+  python -m md_neighbor_list_tpu_torch --preset lammps_lj   # fcc, 2,048,000
   python -m md_neighbor_list_tpu_torch --device cpu --n 4096 --compare
 
 Engines: ``xla`` (padded-row ``Simulator``), ``dense`` (``DenseSimulator``),
@@ -34,7 +35,7 @@ import torch
 from md_neighbor_list_tpu_torch.core.box import Box
 from md_neighbor_list_tpu_torch.core.capacity import estimate
 from md_neighbor_list_tpu_torch.core.config import PRESETS
-from md_neighbor_list_tpu_torch.core.system import System, init_lattice
+from md_neighbor_list_tpu_torch.core.system import System, init_start
 from md_neighbor_list_tpu_torch.models.dense_lj import DenseSimulator
 from md_neighbor_list_tpu_torch.models.lj_nve import Simulator
 from md_neighbor_list_tpu_torch.ops import oracle
@@ -56,7 +57,8 @@ SLAB_ENGINES = ("slab", "dense_slab")
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="md_neighbor_list_tpu_torch")
     ap.add_argument("--preset", default="c3_verlet",
-                    help="c1_brute|c2_cell|c3_verlet|c4_sorted|c5_dd")
+                    help="c1_brute|c2_cell|c3_verlet|c4_sorted|c5_dd|"
+                    "lammps_lj")
     ap.add_argument("--n", type=int, default=None)
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--dt", type=float, default=None)
@@ -261,11 +263,10 @@ def compare(cfg, system0, device) -> dict:
 
 
 def _compare(cfg, generator, check_oracle: bool, logger, device) -> int:
-    """Compare mode: the two engines on one lattice start
+    """Compare mode: the two engines on one lattice start (the preset's)
     (``compare``), and with ``check_oracle`` the xla pair count against the
     O(N^2) oracle; a table on stdout."""
-    system0, _ = init_lattice(cfg.n, cfg.rho, generator, cfg.temperature,
-                              device)
+    system0, _ = init_start(cfg, generator, device)
     res = compare(cfg, system0, device)
     rows = res["rows"]
     ok = res["pairs_ok"] and res["force_ok"]

@@ -15,6 +15,10 @@ namespace mdnl {
 
 __global__ void span_begin_rebuild() {}
 __global__ void span_end_rebuild() {}
+// the step's half list inside a rebuild (K2, the list's count, starts and
+// pack); no span's name may contain another's `span_begin_<name>`
+__global__ void span_begin_halflist() {}
+__global__ void span_end_halflist() {}
 
 }  // namespace mdnl
 
@@ -25,5 +29,15 @@ extern "C" int mdnl_span_begin_rebuild(void* stream) {
 
 extern "C" int mdnl_span_end_rebuild(void* stream) {
   mdnl::span_end_rebuild<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
+}
+
+extern "C" int mdnl_span_begin_halflist(void* stream) {
+  mdnl::span_begin_halflist<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
+}
+
+extern "C" int mdnl_span_end_halflist(void* stream) {
+  mdnl::span_end_halflist<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
   return cudaGetLastError();
 }

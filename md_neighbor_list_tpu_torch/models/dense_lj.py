@@ -42,7 +42,11 @@ last replay: the capture key, any capture, the replays), ``chunk.settle``
 displacement-triggered rebuild is the branch ``rebuilds`` and, on the card,
 the device span ``rebuild`` inside it (in the incremental engine the
 incremental branch; the full fallback and the merged state's take are
-branches of their own). The initial build and the list build carry neither.
+branches of their own). The step's half list, built where a rebuild ends
+(``take``), is the device span ``halflist`` on the card: inside ``rebuild``
+in the step (in the incremental engine, inside the branch that takes the
+state), and also in the initial build, which carries no ``rebuild``.
+The timed list build (``_rebuild_and_lists``) carries neither.
 
 The timed list build, ``_rebuild_and_lists``, is one device program on the
 card too, as the JAX ``jit`` of the rebuild and the list kernel is: the
@@ -77,8 +81,8 @@ import torch
 
 from md_neighbor_list_tpu_torch.core.box import Box
 from md_neighbor_list_tpu_torch.core.config import MDConfig
-from md_neighbor_list_tpu_torch.core.system import (System, init_lattice,
-                                                    init_random)
+from md_neighbor_list_tpu_torch.core.system import (System, init_random,
+                                                    init_start)
 from md_neighbor_list_tpu_torch.ops import dense_force
 from md_neighbor_list_tpu_torch.ops.dense_cells import (DenseState,
                                                         from_packed, grow_cap,
@@ -253,7 +257,8 @@ class DenseSimulator:
             carry.n_rebuilds.add_(1)
             carry.overflow.logical_or_(torch.sum(new.valid()) != n)
             if self._reads_list():
-                carry.overflow.logical_or_(self._build_list(carry))
+                with trace.device_span("halflist", carry.ref_pos.device):
+                    carry.overflow.logical_or_(self._build_list(carry))
 
         self._rebuild_state(carry.state, need, cond, take)
 
@@ -423,10 +428,11 @@ class DenseSimulator:
     # ------------------------------------------------------------------ API
     def init(self, generator: torch.Generator | None = None,
              lattice: bool = True) -> DenseCarry:
+        """The carry of a start: the configuration's lattice
+        (``init_start``), or with ``lattice=False`` random positions."""
         cfg = self.config
         if lattice:
-            system, _ = init_lattice(cfg.n, cfg.rho, generator,
-                                     cfg.temperature, self.device)
+            system, _ = init_start(cfg, generator, self.device)
         else:
             system, _ = init_random(generator, cfg.n, cfg.rho,
                                     cfg.temperature, self.device)

@@ -33,8 +33,8 @@ import torch
 from md_neighbor_list_tpu_torch.core.box import Box
 from md_neighbor_list_tpu_torch.core.capacity import Capacity, estimate
 from md_neighbor_list_tpu_torch.core.config import MDConfig
-from md_neighbor_list_tpu_torch.core.system import (System, init_lattice,
-                                                    init_random)
+from md_neighbor_list_tpu_torch.core.system import (System, init_random,
+                                                    init_start)
 from md_neighbor_list_tpu_torch.ops import lj
 from md_neighbor_list_tpu_torch.ops.binning import CellGrid, make_grid
 from md_neighbor_list_tpu_torch.ops.integrate import (drift, half_kick,
@@ -176,12 +176,12 @@ class Simulator:
     # ---------------------------------------------------------------- API
     def init(self, generator: torch.Generator | None = None,
              lattice: bool = True) -> Carry:
-        """Create and neighbour-build an initial state; grows the capacities
-        until the initial build fits."""
+        """Create and neighbour-build an initial state (the configuration's
+        lattice, or with ``lattice=False`` random positions); grows the
+        capacities until the initial build fits."""
         cfg = self.config
         if lattice:
-            system, _ = init_lattice(cfg.n, cfg.rho, generator,
-                                     cfg.temperature, self.device)
+            system, _ = init_start(cfg, generator, self.device)
         else:
             if generator is None:
                 raise ValueError("a random start needs a generator")

@@ -80,7 +80,8 @@ _ENTRIES = {
 }
 
 # the empty marker kernels of the device spans (csrc/span.cu): the stream only
-_SPANS = ("span_begin_rebuild", "span_end_rebuild")
+_SPANS = ("span_begin_rebuild", "span_end_rebuild", "span_begin_halflist",
+          "span_end_halflist")
 
 # kernel launches so far, by kernel; reset_launches() zeroes them
 LAUNCHES = {name: 0 for name in _ENTRIES}

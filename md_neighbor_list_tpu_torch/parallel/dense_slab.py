@@ -64,7 +64,7 @@ import torch
 
 from md_neighbor_list_tpu_torch.core.box import Box
 from md_neighbor_list_tpu_torch.core.config import MDConfig
-from md_neighbor_list_tpu_torch.core.system import System, init_lattice
+from md_neighbor_list_tpu_torch.core.system import System, init_start
 from md_neighbor_list_tpu_torch.ops.dense_cells import grow_cap
 from md_neighbor_list_tpu_torch.ops.slab_kernels import (SlabSpec,
                                                          slab_forces_boundary,
@@ -391,12 +391,11 @@ class DenseSlabSimulator:
 
     # ------------------------------------------------------------------ API
     def init(self, generator: torch.Generator | None = None) -> SlabCarry:
-        """A lattice start: every rank makes the same System (same generator,
-        same seed) and takes its own slab of it. For another start pass a
-        System to ``build``."""
+        """A lattice start (the configuration's ``lattice``): every rank makes
+        the same System (same generator, same seed) and takes its own slab of
+        it. For another start pass a System to ``build``."""
         cfg = self.config
-        system, _ = init_lattice(cfg.n, cfg.rho, generator, cfg.temperature,
-                                 self.device)
+        system, _ = init_start(cfg, generator, self.device)
         return self.build(system)
 
     def build(self, system: System) -> SlabCarry:

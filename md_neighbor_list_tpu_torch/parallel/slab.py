@@ -62,7 +62,7 @@ import torch
 from md_neighbor_list_tpu_torch.core.box import Box
 from md_neighbor_list_tpu_torch.core.capacity import estimate, round_up
 from md_neighbor_list_tpu_torch.core.config import MDConfig
-from md_neighbor_list_tpu_torch.core.system import System, init_lattice
+from md_neighbor_list_tpu_torch.core.system import System, init_start
 from md_neighbor_list_tpu_torch.ops import lj
 from md_neighbor_list_tpu_torch.ops.binning import CellGrid, make_grid
 from md_neighbor_list_tpu_torch.ops.common import compact_rows
@@ -430,11 +430,11 @@ class SlabSimulator:
 
     # ------------------------------------------------------------------ API
     def init(self, generator: torch.Generator | None = None) -> DDState:
-        """A lattice start: every rank makes the same System (a generator of
-        its own with the same seed, or None) and takes its own slab of it."""
+        """A lattice start (the configuration's ``lattice``): every rank makes
+        the same System (a generator of its own with the same seed, or None)
+        and takes its own slab of it."""
         cfg = self.config
-        system, _ = init_lattice(cfg.n, cfg.rho, generator, cfg.temperature,
-                                 self.device)
+        system, _ = init_start(cfg, generator, self.device)
         return self.build(system)
 
     def build(self, system: System) -> DDState:

@@ -38,7 +38,10 @@ Device spans. ``with device_span("rebuild", device):`` around work launched
 on a card (in a captured graph too) launches the empty kernel
 ``mdnl::span_begin_<name>`` before it and ``mdnl::span_end_<name>`` after
 (``csrc/span.cu``), uncounted: the work between the two on the device's
-timeline is the span's. Nothing on the CPU. ``rebuild`` is the only one.
+timeline is the span's. Nothing on the CPU. Two: ``rebuild`` (the step's
+rebuild) and ``halflist`` (the step's half list, inside it). A reader finds a
+span's markers by the substring ``span_begin_<name>``, so no span's name
+contains another's (no ``rebuild_list``).
 """
 
 from __future__ import annotations

@@ -34,19 +34,31 @@ def test_box_matches(n, rho):
                                   np.asarray(jb.min_image(jnp.asarray(x))))
 
 
+def _shared_fields(config) -> dict:
+    """The fields of a port configuration that the JAX package's has: all
+    but the port's own ``lattice`` (the start's lattice; ``"sc"``, the JAX
+    package's simple-cubic start, by default)."""
+    fields = dataclasses.asdict(config)
+    fields.pop("lattice")
+    return fields
+
+
 @pytest.mark.parametrize("name", sorted(jconfig.PRESETS))
 def test_presets_equal_field_by_field(name):
     j, t = jconfig.PRESETS[name], tconfig.PRESETS[name]
-    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert dataclasses.asdict(j) == _shared_fields(t)
+    assert t.lattice == "sc"
     assert j.rs == t.rs
-    assert sorted(tconfig.PRESETS) == sorted(jconfig.PRESETS)
+    # the port's own preset: LAMMPS bench/in.lj (tests/test_torch_fcc.py)
+    assert sorted(tconfig.PRESETS) == sorted([*jconfig.PRESETS, "lammps_lj"])
 
 
 def test_config_defaults_and_validation():
     assert dataclasses.asdict(jconfig.MDConfig()) == \
-        dataclasses.asdict(tconfig.MDConfig())
+        _shared_fields(tconfig.MDConfig())
+    assert tconfig.MDConfig().lattice == "sc"
     for bad in (dict(layout="x"), dict(backend="cuda"), dict(n=0),
-                dict(skin=-0.1)):
+                dict(skin=-0.1), dict(lattice="hcp")):
         with pytest.raises(ValueError):
             tconfig.MDConfig(**bad)
 

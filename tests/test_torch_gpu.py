@@ -711,6 +711,56 @@ def test_traced_chunk_marks_each_rebuild_on_the_device(card):
         assert host.count(f"{trace.PREFIX}{name}.end") == 1, name
 
 
+def test_traced_chunk_marks_the_half_list_inside_each_rebuild(card):
+    """The ``lammps_lj`` preset at a small fcc shape (n = 4 * 12^3, 7 cells
+    a side): in a traced chunk each pair of ``rebuild`` markers holds one
+    pair of ``halflist`` markers (``csrc/span.cu``) around K2 and the list's
+    pack, and the captured list build that ``_rebuild_and_lists`` replays
+    launches no ``halflist`` marker."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from md_neighbor_list_tpu_torch import DenseSimulator, PRESETS
+    from md_neighbor_list_tpu_torch.utils import trace
+
+    def marks(prof, name):
+        dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+        return dev, ([(s, e) for s, e, m in dev if f"span_begin_{name}" in m],
+                     [(s, e) for s, e, m in dev if f"span_end_{name}" in m])
+
+    cfg = dataclasses.replace(PRESETS["lammps_lj"], n=4 * 12**3)
+    sim = DenseSimulator(cfg, device=card)
+    carry = sim.init(torch.Generator(card).manual_seed(7))
+    carry = sim.run(carry, 20, chunk=20)  # the capture, the melt's start
+    before = trace.counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        carry = sim.run(carry, 40, chunk=40)
+        torch.cuda.synchronize()
+    rebuilds = trace.counters()["rebuilds"] - before["rebuilds"]
+    assert rebuilds >= 2
+    dev, (rb, re) = marks(prof, "rebuild")
+    _, (hb, he) = marks(prof, "halflist")
+    assert len(rb) == len(re) == len(hb) == len(he) == rebuilds
+    for (_, a), (b, _), (h0, h1), (h2, h3) in zip(rb, re, hb, he):
+        assert a <= h0 and h1 <= h2 and h3 <= b  # halflist inside rebuild
+        for kernel in ("lists_half_kernel", "list_pack_kernel"):
+            assert any(kernel in m and h1 <= s and e <= h2
+                       for s, e, m in dev), kernel
+    # the timed list build carries no marker
+    sim._rebuild_and_lists(carry.state)  # its capture
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sim._rebuild_and_lists(carry.state)
+        torch.cuda.synchronize()
+    dev, (hb, he) = marks(prof, "halflist")
+    assert any("lists_half_kernel" in m for _, _, m in dev)
+    assert hb == he == []
+
+
 def test_graph_recaptured_after_the_capacity_grows(card):
     """Rows that fit the start exactly overflow inside a chunk (rs = 1.42
     next to the lattice's second shell, as in ``test_torch_simulator``): the

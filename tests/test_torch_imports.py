@@ -63,6 +63,10 @@ def test_every_kernel_has_an_entry_a_counter_and_a_source():
         "count_full", "merge", "expand_slab", "lists_half_slab",
         "forces_half_slab", "forces_half_slab_pe", "forces_list",
         "list_count", "list_pack"}
+    # the device spans' marker kernels (csrc/span.cu), uncounted
+    assert _cuda._SPANS == ("span_begin_rebuild", "span_end_rebuild",
+                            "span_begin_halflist", "span_end_halflist")
+    assert not set(_cuda._SPANS) & set(_cuda.LAUNCHES)
     sources = "".join(p.read_text() for p in _cuda._sources()[0])
     for name in (*_cuda._ENTRIES, *_cuda._SPANS):
         assert f"int mdnl_{name}(" in sources, name
