@@ -12,6 +12,10 @@ validity, then at the full N = 1,000,000 size;
 the list, half-count, half-force, pe/virial and full-sweep kernels also on
 each state with its slots scattered inside every cell, so that the occupied
 slots form no prefix),
+holds the NVE step's integrator (``csrc/integrate.cu``: the kicks, the drift
+and the displacement vote) bit for bit against its plain sequence and times
+both kernels at ``c4_sorted``'s shapes (phase ``integrator``; with
+``--profile`` also at ``lammps_lj``'s),
 and drives four paths through the entry points a user calls, each with the
 launch counters set to 0 just before and read just after:
 
@@ -151,7 +155,8 @@ from md_neighbor_list_tpu_torch.core.system import System, init_lattice
 from md_neighbor_list_tpu_torch.models import dense_lj, lj_nve
 from md_neighbor_list_tpu_torch.ops import (_cuda, decode, dense_cells,
                                             dense_force, dense_ref,
-                                            incremental, oracle, slab_kernels)
+                                            incremental, integrate, oracle,
+                                            slab_kernels)
 from md_neighbor_list_tpu_torch.parallel import dense_slab, mesh
 from md_neighbor_list_tpu_torch.parallel import slab as slab_engine
 from md_neighbor_list_tpu_torch.parallel.dense_slab import (
@@ -978,6 +983,101 @@ def full_width(sim: DenseSimulator) -> list[dict]:
     return rows
 
 
+# ------------------------------------------------------------ integrator
+def integrator_kernels(preset: str, device, reps: int = 20) -> list[dict]:
+    """The NVE step's integrator (``ops/integrate.py``) at the shapes of
+    ``PRESETS[preset]``, on the engine's state 20 steps into a run: both
+    kernels, each form, bitwise against their plain versions (velocities,
+    positions, the vote, the flag lowered) against the state's own
+    reference, against its positions (no vote) and with one particle moved
+    past the vote's trigger; then each kernel's device time beside the
+    plain sequence's, its bytes bound (pid over every slot, 72 or 36 bytes
+    a particle), the bytes of the 32-byte sectors that hold a particle,
+    which the kernels touch, and the launches. Returns the kernel table's
+    rows."""
+    cfg = PRESETS[preset]
+    sim = DenseSimulator(cfg, cap=40, device=device)
+    carry = sim.run(sim.init(), 20, chunk=20)
+    st, spec, force, ref = carry.state, sim.spec, carry.force, carry.ref_pos
+    dt, skin = float(np.float32(cfg.dt)), cfg.skin
+    flag = torch.zeros((), dtype=torch.bool, device=device)
+    first = int(torch.argmax((st.pid.reshape(-1) >= 0).to(torch.int32)))
+    far = st.pos.clone()
+    far[0].view(-1)[first] -= skin  # one particle past skin/2
+    before = dict(_cuda.LAUNCHES)
+    votes = []
+    for r, s in ((ref, skin), (st.pos, skin), (far, skin), (ref, None)):
+        want = [st.vel.clone(), st.pos.clone()]
+        got = [st.vel.clone(), st.pos.clone()]
+        vote_p = integrate.kick_drift_vote_plain(*want, force, r, st.pid, dt,
+                                                 s)
+        vote_k = integrate.kick_drift_vote(*got, force, r, st.pid, dt, s, flag)
+        check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(got, want)),
+              f"integrator/{preset}: kick_drift_vote differs from its plain "
+              "version")
+        check((vote_k is None and vote_p is None)
+              or bool(vote_k) == bool(vote_p),
+              f"integrator/{preset}: the vote differs from the plain one")
+        votes.append(None if vote_p is None else bool(vote_p))
+        integrate.kick_plain(want[0], force, dt)
+        integrate.kick(got[0], force, st.pid, dt, lower=vote_k)
+        check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+              and not bool(flag),
+              f"integrator/{preset}: kick differs from its plain version")
+    check(votes[1:] == [False, True, None],
+          f"integrator/{preset}: votes {votes}, want [*, False, True, None]")
+    launches = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
+                if v != before[k]}
+
+    vel, pos = st.vel.clone(), st.pos.clone()
+
+    def plain_chain():
+        integrate.kick_drift_vote_plain(vel, pos, force, ref, st.pid, dt, skin)
+        integrate.kick_plain(vel, force, dt)
+
+    ms = {
+        "kick_drift_vote": device_ms(lambda: integrate.kick_drift_vote(
+            vel, pos, force, ref, st.pid, dt, skin, flag), reps),
+        "kick_drift": device_ms(lambda: integrate.kick_drift_vote(
+            vel, pos, force, ref, st.pid, dt, None, flag), reps),
+        "kick": device_ms(lambda: integrate.kick(vel, force, st.pid, dt,
+                                                 lower=flag), reps),
+    }
+    plain_ms = {
+        "kick_drift_vote": device_ms(
+            lambda: integrate.kick_drift_vote_plain(vel, pos, force, ref,
+                                                    st.pid, dt, skin), reps),
+        "kick": device_ms(lambda: integrate.kick_plain(vel, force, dt), reps),
+        "chain": device_ms(plain_chain, reps),
+    }
+    S, n = spec.slots, cfg.n
+    held = int((st.pid.reshape(-1, 8) >= 0).any(dim=1).sum())
+    bound = bound_times({"kick_drift_vote": (S * 4 + n * 72, n * 16),
+                         "kick": (S * 4 + n * 36, n * 6)})
+    touched = {"kick_drift_vote": S * 4 + held * 32 * 18,
+               "kick": S * 4 + held * 32 * 9}
+    dense = {"kick_drift_vote": S * 76, "kick": S * 40}
+    rows = [{"name": name, "route": "cuda",
+             "source": "md_neighbor_list_tpu_torch/csrc/integrate.cu",
+             # no TPU kernel: the JAX step's half kick, drift and vote,
+             # which XLA fuses (md_neighbor_list_tpu/models/dense_lj.py:128)
+             "replaces": None, "launches": None, "max_abs_err": 0.0,
+             "ms": ms[name], "plain_ms": plain_ms[name],
+             "bound_ms": bound[name]["bound_ms"],
+             "bound_by": bound[name]["bound_by"], "library_ms": None,
+             "sector_bytes": touched[name],
+             "sector_bound_ms": touched[name] / PEAK_BYTES_PER_S * 1e3,
+             "dense_bytes": dense[name],
+             "dense_bound_ms": dense[name] / PEAK_BYTES_PER_S * 1e3}
+            for name in ("kick_drift_vote", "kick")]
+    emit("integrator", config=preset, n=n, mc=spec.mc, cap=spec.cap,
+         slots=S, held_sectors=held, sectors=S // 8, votes=votes,
+         kick_drift_ms=ms["kick_drift"], plain_chain_ms=plain_ms["chain"],
+         launches=launches, kernels=rows)
+    return rows
+
+
 # ------------------------------------------------------------ main path
 def chained_builds_ms(sim: DenseSimulator, state, reps: int = 10,
                       build=None) -> float:
@@ -1051,8 +1151,8 @@ def main_path(sim: DenseSimulator) -> dict:
 
     need = {"expand": rebuilds + 1, "lists_half": rebuilds + 1,
             "list_count": rebuilds, "list_pack": rebuilds,
-            "forces_list": steps + 1,
-            "forces_half_pe": 2, "pe_virial_half": 1}
+            "forces_list": steps + 1, "kick_drift_vote": steps,
+            "kick": steps, "forces_half_pe": 2, "pe_virial_half": 1}
     for name, least in need.items():
         check(launches[name] >= least,
               f"launches: {name} launched {launches[name]} times on the main "
@@ -3227,6 +3327,9 @@ def main() -> int:
     small_shapes(device)
     sim = DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device)
     rows = full_width(sim)
+    rows += integrator_kernels("c4_sorted", device)
+    if "--profile" in sys.argv[1:]:
+        integrator_kernels("lammps_lj", device)
     sim = DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device)
     launches, carry = main_path(sim)
     if "--profile" in sys.argv[1:]:

@@ -8,6 +8,8 @@ cap growth; the particle state lives in the dense cell-block layout
 
   step:   kick -> unwrapped drift -> rebuild vote -> (sort + expand +
           half list at rs) -> force over the listed pairs -> kick
+          (on the card the kicks, the drift and the vote are two passes of
+          ``csrc/integrate.cu``, ``ops/integrate.py``)
   Verlet reuse: between rebuilds the binning and the half list at rs of the
   last rebuild are reused — every rc-pair of the drifted state was within
   rs at the rebuild while 2*max_disp <= skin, so it is in the list.
@@ -83,7 +85,7 @@ from md_neighbor_list_tpu_torch.core.box import Box
 from md_neighbor_list_tpu_torch.core.config import MDConfig
 from md_neighbor_list_tpu_torch.core.system import (System, init_random,
                                                     init_start)
-from md_neighbor_list_tpu_torch.ops import dense_force
+from md_neighbor_list_tpu_torch.ops import dense_force, integrate
 from md_neighbor_list_tpu_torch.ops.dense_cells import (DenseState,
                                                         from_packed, grow_cap,
                                                         make_spec,
@@ -132,6 +134,9 @@ class DenseSimulator:
         # the step's flags for the two branches after an incremental rebuild:
         # take the full rebuild, keep the merged state
         self._window = torch.zeros(2, dtype=torch.bool, device=self.device)
+        # the step's displacement vote on the card, raised by the integrator's
+        # first pass and lowered by its closing kick
+        self._flag = torch.zeros((), dtype=torch.bool, device=self.device)
         self._runner = ChunkRunner()
         # the list build's input buffers (made for a spec), its chunk runner
         # and what its step leaves: (counts, masks, total)
@@ -202,18 +207,10 @@ class DenseSimulator:
         if not self._reads_list() or (self._list_of is not None
                                       and self._list_of() is carry.ref_pos):
             return
-        if bool(self._build_list(carry)) and not bool(self._vote(carry)):
+        if bool(self._build_list(carry)) and not bool(integrate.vote(
+                carry.state.pos, carry.ref_pos, carry.state.pid,
+                self.config.skin)):
             carry.overflow.fill_(True)
-
-    def _vote(self, carry: DenseCarry) -> torch.Tensor:
-        """The displacement vote: 0-d bool, some particle has moved more
-        than skin/2 from ``ref_pos``."""
-        state = carry.state
-        # unwrapped coordinates make the displacement an exact difference
-        disp = state.pos - carry.ref_pos
-        d2 = torch.sum(disp * disp, dim=0)  # (R, mc, cap)
-        d2max = torch.max(torch.where(state.valid(), d2, 0.0))
-        return 4.0 * d2max > self.config.skin * self.config.skin
 
     def _step_forces(self, carry: DenseCarry) -> None:
         """The step's forces into ``carry.force``: over the half list, or
@@ -310,18 +307,20 @@ class DenseSimulator:
         cfg = self.config
         dt = float(np.float32(cfg.dt))
         state = carry.state
-        state.vel.add_(carry.force, alpha=0.5 * dt)
-        # UNWRAPPED drift: positions are wrapped only inside the rebuild, so
-        # the stale-bin image shifts stay exact across the periodic boundary
-        state.pos.add_(state.vel, alpha=dt)
-
-        need = None if cfg.rebuild_every_step else self._vote(carry)
+        # kick, then an UNWRAPPED drift (positions are wrapped only inside
+        # the rebuild, so the stale-bin image shifts stay exact across the
+        # periodic boundary), then the vote, on the card in ``self._flag``
+        need = integrate.kick_drift_vote(
+            state.vel, state.pos, carry.force, carry.ref_pos, state.pid, dt,
+            None if cfg.rebuild_every_step else cfg.skin, self._flag)
         self._rebuild(carry, need, cond)
 
         self._step_forces(carry)
         if self._reads_list():
             trace.add("list_forces")
-        state.vel.add_(carry.force, alpha=0.5 * dt)
+        # the closing kick lowers the card's vote flag for the next step
+        integrate.kick(state.vel, carry.force, state.pid, dt,
+                       lower=None if need is None else self._flag)
 
     def step_fn(self, carry: DenseCarry) -> DenseCarry:
         """One velocity-Verlet step, eager (the vote read on the host).
@@ -342,7 +341,8 @@ class DenseSimulator:
         self._runner.launch(lambda cond: self._step(carry, cond), nsteps,
                             [*carry.state, carry.force, carry.ref_pos,
                              carry.n_rebuilds, carry.overflow, self._taken,
-                             self._window, *self._list_tensors()],
+                             self._window, self._flag,
+                             *self._list_tensors()],
                             key=self.spec)
 
     def _initial_build(self, state: DenseState) -> DenseCarry:

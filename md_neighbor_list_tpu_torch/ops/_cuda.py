@@ -77,6 +77,11 @@ _ENTRIES = {
     # stayer pos, vel, pid, mover pos, vel, pid, out pos, vel, pid, rows, mc,
     # cap, park_step
     "merge": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F],
+    # the NVE step's integrator: vel, pos, force, ref_pos, pid, flag (null:
+    # no vote), slots, dt/2, dt, f32(skin^2); vel, force, pid, flag (null:
+    # none to lower), slots, dt/2
+    "kick_drift_vote": [_P, _P, _P, _P, _P, _P, _I, _F, _F, _F],
+    "kick": [_P, _P, _P, _P, _I, _F],
 }
 
 # the empty marker kernels of the device spans (csrc/span.cu): the stream only

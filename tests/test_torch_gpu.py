@@ -666,6 +666,9 @@ def test_graph_chunk_matches_eager_steps(card, engine, cap, monkeypatch):
     if engine != "xla":  # the step's force reads the list
         assert graph_launches["forces_list"] == steps + 1
         assert graph_launches["forces_half"] == 0
+        # the integrator: two passes a step
+        assert graph_launches["kick_drift_vote"] == steps + 1
+        assert graph_launches["kick"] == steps + 1
 
 
 def test_traced_chunk_marks_each_rebuild_on_the_device(card):
@@ -673,7 +676,9 @@ def test_traced_chunk_marks_each_rebuild_on_the_device(card):
     marker kernels (``csrc/span.cu``) for each rebuild the chunk counted,
     K1 between the two of a pair, the chunk's host spans among the host
     events, and no device event named like a host span (a span encloses no
-    launch, so the tracer gives it no device-side range)."""
+    launch, so the tracer gives it no device-side range). Outside the
+    rebuilds the step's elementwise work is the integrator's two kernels,
+    once a step each: no add, reduction, ``where`` or compare kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -704,6 +709,13 @@ def test_traced_chunk_marks_each_rebuild_on_the_device(card):
         assert any("expand_kernel" in name and a <= s and e <= b
                    for s, e, name in dev)
     assert not [name for _, _, name in dev if name.startswith(trace.PREFIX)]
+    spans = [(a, b) for (a, _), (_, b) in zip(begins, ends)]
+    outside = [name for s, e, name in dev
+               if not any(a <= s and e <= b for a, b in spans)]
+    for word in ("CUDAFunctor_add", "reduce_kernel", "where", "Compare"):
+        assert not [name for name in outside if word in name], word
+    assert sum("kick_drift_vote_kernel" in name for name in outside) == 40
+    assert sum("kick_kernel" in name for name in outside) == 40
     host = [e.name for e in prof.events()
             if e.device_type != DeviceType.CUDA]
     for name in ("chunk", "chunk.snapshot", "chunk.launch", "chunk.settle"):
@@ -1108,3 +1120,134 @@ def test_list_steps_follow_the_sweep_steps_on_the_card(card, incremental):
     d = np.abs(pl - ps)
     assert np.minimum(d, sl.box.L - d).max() < 5e-4
     np.testing.assert_allclose(fl, fs, atol=2e-4 * max(np.abs(fs).max(), 1.0))
+
+
+def _on(card, *tensors):
+    return [t.to(card) for t in tensors]
+
+
+@pytest.mark.parametrize("voting", [True, False], ids=["vote", "no_vote"])
+@pytest.mark.parametrize("scale", [0.01, 0.08])
+@pytest.mark.parametrize("n, cap", [(1728, 40), (700, 48), (700, 37)])
+def test_integrator_kernels_match_the_plain_sequence(card, n, cap, scale,
+                                                     voting):
+    """``kick_drift_vote`` and ``kick`` (``csrc/integrate.cu``) against
+    their plain versions on the card, on rebuilt states with parked slots:
+    velocities and positions bit for bit, the vote (raised for the larger
+    displacements, not for the smaller) and the flag lowered by the closing
+    kick; one launch each. At cap 37 (999 slots) the kernels take a slot a
+    thread, else four."""
+    from md_neighbor_list_tpu_torch.ops import integrate
+    from test_torch_integrate import DT, SKIN, bits, inputs
+
+    state, force, ref = inputs(n, cap, 11, scale)
+    vel, pos, pid, force, ref = _on(card, state.vel, state.pos, state.pid,
+                                    force, ref)
+    skin = SKIN if voting else None
+    want = [vel.clone(), pos.clone()]
+    want_vote = integrate.kick_drift_vote_plain(*want, force, ref, pid, DT,
+                                                skin)
+    flag = torch.zeros((), dtype=torch.bool, device=card)
+    before = dict(_cuda.LAUNCHES)
+    got = integrate.kick_drift_vote(vel, pos, force, ref, pid, DT, skin, flag)
+    assert torch.equal(bits(vel), bits(want[0]))
+    assert torch.equal(bits(pos), bits(want[1]))
+    if voting:
+        assert got is flag and bool(flag) == bool(want_vote) == (scale > 0.05)
+    else:
+        assert got is None and not bool(flag)
+    # another force, zero on empty slots as the park invariant has it
+    force2 = torch.where((pid >= 0)[None], torch.flip(force, dims=(3,)), 0.0)
+    integrate.kick_plain(want[0], force2, DT)
+    integrate.kick(vel, force2, pid, DT, lower=got)
+    assert torch.equal(bits(vel), bits(want[0])) and not bool(flag)
+    after = _cuda.LAUNCHES
+    assert after["kick_drift_vote"] - before["kick_drift_vote"] == 1
+    assert after["kick"] - before["kick"] == 1
+
+
+def test_integrator_vote_at_the_skin_half_trigger(card):
+    """One occupied slot (the first, then the last) at the vote's trigger
+    and its f32 neighbours (``np.nextafter``), along x and along three
+    axes, every other slot at rest on its reference: the kernel's flag is
+    the plain vote on the card in each placement, and both outcomes
+    occur."""
+    from md_neighbor_list_tpu_torch.ops import integrate
+    from test_torch_integrate import (DT, SKIN, boundary_displacements,
+                                      inputs, place_at_trigger)
+
+    state, _, _ = inputs(1728, 40, 11, 0.0)
+    held = torch.nonzero(state.valid().reshape(-1)).reshape(-1)
+    pid = state.pid.to(card)
+    flag = torch.zeros((), dtype=torch.bool, device=card)
+    seen = set()
+    for slot in (int(held[0]), int(held[-1])):
+        for d in boundary_displacements(SKIN):
+            vel, pos, force, ref = _on(card, *place_at_trigger(state, slot, d))
+            want = integrate.kick_drift_vote_plain(
+                vel.clone(), pos.clone(), force, ref, pid, DT, SKIN)
+            integrate.kick_drift_vote(vel, pos, force, ref, pid, DT, SKIN,
+                                      flag)
+            assert bool(flag) == bool(want), (slot, d)
+            integrate.kick(vel, force, pid, DT, lower=flag)
+            seen.add(bool(want))
+    assert seen == {False, True}
+
+
+def test_captured_chunk_equals_eager_steps_bit_for_bit(card, monkeypatch):
+    """100 steps with several rebuilds from one carry three ways: by ``run``
+    (one captured step: the integrator's two kernels, the flag they raise
+    and lower, the rebuild's conditional node on it), by the eager
+    ``step_fn`` and by ``step_fn`` with the plain sequence in place of the
+    kernels. Every tensor of the carries bit for bit, and the integrator
+    launched twice a step (the graph's once more, in the capture's
+    warm-up). The step's force is the full sweep (K6, whose sums run in a
+    fixed order) in place of K3, whose float atomics would part the three
+    ways by rounding."""
+    from md_neighbor_list_tpu_torch import DenseSimulator, MDConfig
+    from md_neighbor_list_tpu_torch.models import dense_lj
+    from md_neighbor_list_tpu_torch.ops import integrate
+    from md_neighbor_list_tpu_torch.utils import convert
+
+    def swept(self, carry):
+        carry.force.copy_(dense_force.dense_forces(
+            carry.state.pos, carry.state.valid(), self.spec,
+            self.config.rc)[0])
+
+    monkeypatch.setattr(DenseSimulator, "_step_forces", swept)
+    n, steps = 1728, 100
+    pos, vel, pid = numpy_system(n, seed=5)
+    sim = DenseSimulator(MDConfig(n=n, **HOT), cap=32, device=card)
+    carry = sim.build(convert.system_from_numpy(
+        pos, 1.4 * vel, np.zeros_like(pos), pid, device=card))
+    graph, eager, plain = (dense_lj._clone(carry) for _ in range(3))
+
+    _strict_replays(monkeypatch)
+    _cuda.reset_launches()
+    graph = sim.run(graph, steps, chunk=steps)
+    torch.cuda.synchronize()
+    graph_launches = dict(_cuda.LAUNCHES)
+    _cuda.reset_launches()
+    for _ in range(steps):
+        eager = sim.step_fn(eager)
+    eager_launches = dict(_cuda.LAUNCHES)
+    with monkeypatch.context() as m:
+        m.setattr(integrate, "kick_drift_vote",
+                  lambda *a: integrate.kick_drift_vote_plain(*a[:7]))
+        m.setattr(integrate, "kick",
+                  lambda vel, force, pid, dt, lower=None:
+                  integrate.kick_plain(vel, force, dt))
+        for _ in range(steps):
+            plain = sim.step_fn(plain)
+
+    assert sim._runner.captures == 1 and not bool(graph.overflow)
+    assert int(graph.n_rebuilds) >= int(carry.n_rebuilds) + 3
+    for other in (eager, plain):
+        for a, b in zip(graph.state, other.state):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for name in ("force", "ref_pos", "n_rebuilds"):
+            a, b = getattr(graph, name), getattr(other, name)
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+    for name in ("kick_drift_vote", "kick"):
+        assert eager_launches[name] == steps
+        assert graph_launches[name] == steps + 1

@@ -50,7 +50,8 @@ def test_expected_modules_and_sources_exist():
         assert want in names
     for src in ("geom.cuh", "half_sweep.cuh", "expand.cu", "lists_half.cu",
                 "force_half.cu", "pe_virial_half.cu", "force_full.cu",
-                "merge.cu", "span.cu", "decode.cpp", "force_list.cu"):
+                "merge.cu", "span.cu", "decode.cpp", "force_list.cu",
+                "integrate.cu"):
         assert (PORT / "csrc" / src).exists()
 
 
@@ -62,7 +63,7 @@ def test_every_kernel_has_an_entry_a_counter_and_a_source():
         "pe_virial_half", "count_half", "force_full", "force_full_pe",
         "count_full", "merge", "expand_slab", "lists_half_slab",
         "forces_half_slab", "forces_half_slab_pe", "forces_list",
-        "list_count", "list_pack"}
+        "list_count", "list_pack", "kick_drift_vote", "kick"}
     # the device spans' marker kernels (csrc/span.cu), uncounted
     assert _cuda._SPANS == ("span_begin_rebuild", "span_end_rebuild",
                             "span_begin_halflist", "span_end_halflist")
@@ -149,7 +150,7 @@ def test_kernel_wrappers_do_not_build_for_cpu_tensors():
     """On CPU tensors the wrappers take the plain versions and count no
     launch; without nvcc the build itself raises."""
     from md_neighbor_list_tpu_torch.ops import (_cuda, dense_cells, dense_force,
-                                                incremental)
+                                                incremental, integrate)
     from torch_port_util import numpy_system, torch_state
 
     pos, vel, pid = numpy_system(1728, seed=0)
@@ -162,6 +163,12 @@ def test_kernel_wrappers_do_not_build_for_cpu_tensors():
     dense_force.dense_forces(new.pos, new.valid(), spec, 2.5)
     dense_force.dense_forces(new.pos, new.valid(), spec, 2.5, False)
     dense_force.dense_counts(new.pos, new.valid(), spec, 2.8)
+    vel, pos = new.vel.clone(), new.pos.clone()
+    flag = torch.zeros((), dtype=torch.bool)
+    for skin in (0.3, None):
+        integrate.kick_drift_vote(vel, pos, new.vel, new.pos, new.pid, 0.005,
+                                  skin, flag)
+    integrate.kick(vel, new.vel, new.pid, 0.005, lower=flag)
     incremental.rebuild_dense_incremental(new, spec)
     ext = torch.cat([new.pos, new.pos[:, :spec.mc]], dim=1)
     dense_force.dense_lists_half_slab(ext, spec, 2.8)
