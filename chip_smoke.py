@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Check of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile | --half-sweep-times | --list-full-times
-                           | --count-times | --rebuild-times | --xla-slab]
+    python3 chip_smoke.py
 
 Builds the CUDA kernels from ``md_neighbor_list_tpu_torch/csrc``, holds each
 against its plain PyTorch version (at small shapes that exercise wrap-around,
@@ -13,9 +12,10 @@ the list, half-count, half-force, pe/virial and full-sweep kernels also on
 each state with its slots scattered inside every cell, so that the occupied
 slots form no prefix),
 holds the NVE step's integrator (``csrc/integrate.cu``: the kicks, the drift
-and the displacement vote) bit for bit against its plain sequence and times
-both kernels at ``c4_sorted``'s shapes (phase ``integrator``; with
-``--profile`` also at ``lammps_lj``'s),
+and the displacement vote) bit for bit against its plain sequence at
+``c4_sorted``'s and ``lammps_lj``'s shapes (phase ``integrator``), holds the
+NVE step's half list against the cell sweep at the same two shapes and runs
+``c2_cell``, whose step keeps the sweep (phase ``list_sweep``),
 and drives four paths through the entry points a user calls, each with the
 launch counters set to 0 just before and read just after:
 
@@ -31,10 +31,9 @@ launch counters set to 0 just before and read just after:
   incremental    ``DenseSimulator(incremental=True)``: the lattice start (its
                  from_packed seed trips the mover window, so the engine takes
                  the full rebuild), 1000 NVE steps whose rebuilds go through
-                 the merge kernel, and the list build through the incremental
-                 rebuild. Before it, at N = 1,000,000: the merge kernel
-                 against its plain version, the incremental rebuild against
-                 its order-exact twin and against the full rebuild;
+                 the merge kernel. After it, at N = 1,000,000: the merge
+                 kernel against its plain version, the incremental rebuild
+                 against its order-exact twin and against the full rebuild;
   dense_slab     ``DenseSlabSimulator`` (the slab domain decomposition) in its
                  P = 1 self-halo mode on a one-rank NCCL group at
                  N = 1,000,000: 40,000,000 pairs, 1000 NVE steps through the
@@ -59,7 +58,7 @@ and must launch none of the kernels (their counters are read around each):
   xla_engine        ``Simulator`` on ``c3_verlet`` uncut (N = 100,000, Morton,
                     half rows): the build's pairs against the oracle and the
                     dense engine's half count, its forces against the oracle,
-                    1000 NVE steps, the observables, 10 chained list builds;
+                    1000 NVE steps, the observables, one ``rebuild_only``;
   xla_c2            ``Simulator`` on ``c2_cell`` (row-major, a rebuild every
                     step), 100 steps, the last list against the oracle;
   xla_compare       the CLI's ``--compare`` on ``c4_sorted`` at N = 1M (100
@@ -67,8 +66,8 @@ and must launch none of the kernels (their counters are read around each):
                     forces within the gate;
   xla_list_delivery ``neighbor_list(backend="xla")`` on the caller positions of
                     ``list_delivery``, half and full, against the dense
-                    backend's rows; the seconds a call of both backends at
-                    N = 100k and 1M and what ``auto`` picks there;
+                    backend's rows, and what ``auto`` picks at N = 100k and
+                    1M;
   xla_slab          ``SlabSimulator`` (the xla engine's slab decomposition)
                     on ``c4_sorted`` uncut at P = 4, the ranks four threads
                     of a ``LocalRing`` on the card: the lattice start's pairs
@@ -95,39 +94,23 @@ path's final carry, 100 steps by ``run``, every replay under
 ``set_sync_debug_mode("error")`` (a host read inside a chunk fails the run),
 against 100 steps of the eager ``step_fn``: equal rebuilds (and branch
 counts), positions within 5e-4 (the slab engine's gathered by pid), the
-drift, steps/s of both and the capture's seconds. The timed runs leave their
-one capture out of steps/s and print it as ``capture_s``. Phase
-``build_graph`` follows ``graph_chunk`` on the two ``DenseSimulator`` paths:
-the list build ``_rebuild_and_lists`` as one replay of its captured graph (the
-state copied into the engine's buffers first) against its eager twin on five
+drift, and one capture. Each path's own run captures its step once, too.
+Phase ``build_graph`` follows ``graph_chunk`` on the two ``DenseSimulator``
+paths: the list build ``_rebuild_and_lists`` as one replay of its captured
+graph (the state copied into the engine's buffers first) against the build
+the ops make (the full or incremental rebuild, then the list kernel) on five
 states (the lattice's ``from_packed`` seed, which trips the incremental
 engine's window predicate, the lattice start, three drifted states): state,
-counts and masks bitwise, totals and branch counts equal; ``build_ms`` both
-ways. Phase ``entry`` (after ``dense_slab``) drives the port's entry points,
+counts and masks bitwise, totals and branch counts equal. Phase ``entry``
+(after ``dense_slab``) drives the port's entry points,
 ``md_neighbor_list_tpu_torch/entry.py``: ``entry()`` and one step at
 N = 8,192, then ``dryrun_multichip(4)`` (four ``LocalRing`` threads on the
 card, eager steps, with its P = 2 overlap phase), whose gates raise.
 
-Each phase prints one JSON line; any failure ends the run with a non-zero exit
-code. Without a CUDA device the script fails at once. ``--profile`` adds a
-``torch.profiler`` breakdown by device kernel of 50 steps of each engine, of
-one ``neighbor_list`` call, of ten incremental and ten full rebuilds, of
-50 steps of the slab engine, of 50 steps and one list build of the xla
-engine, and of 10 steps of the xla slab engine at P = 4, and beside the graph
-replays of each ``graph_chunk`` engine 50 of its eager steps (information
-only).
-``--half-sweep-times`` only times the half-force and pe/virial kernels at
-N = 1,000,000, and ``--list-full-times`` the list and full-force kernels, and
-``--count-times`` the
-half- and full-count kernels (each after checking them against their
-plain versions), and ``--rebuild-times`` K1 (cube, slab form, mover
-stream), K8 and the full and incremental rebuilds on a drifted engine state
-(each kernel bitwise against its plain version first), and ``--xla-slab``
-the phase ``xla_slab`` alone (with ``--profile``, its trace); these print no
-result line: the timing of kernel variants, one tree at a time. With ``MDNL_SMOKE_LOG=<file>`` every
-phase line is also appended to that file (``tools/port_ab.py`` keeps a few
-numbers of each run and drops the rest of its output).
-The last line is
+Each phase prints one JSON line of what it checked; any failure ends the run
+with a non-zero exit code. Without a CUDA device the script fails at once. It
+times nothing: the port's times come from ``mdbench/`` (a cell's
+``--trace 1`` run). The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -141,7 +124,6 @@ import os
 import subprocess
 import sys
 import tempfile
-import time
 
 import numpy as np
 import torch
@@ -158,24 +140,10 @@ from md_neighbor_list_tpu_torch.ops import (_cuda, decode, dense_cells,
                                             incremental, integrate, oracle,
                                             slab_kernels)
 from md_neighbor_list_tpu_torch.parallel import dense_slab, mesh
-from md_neighbor_list_tpu_torch.parallel import slab as slab_engine
 from md_neighbor_list_tpu_torch.parallel.dense_slab import (
     DenseSlabSimulator, make_slab_spec)
-from md_neighbor_list_tpu_torch.parallel.slab import (DDCapacity,
-                                                      SlabSimulator)
+from md_neighbor_list_tpu_torch.parallel.slab import SlabSimulator
 from md_neighbor_list_tpu_torch.utils import graphs, native
-
-# Peak rates of one H100 SXM (NVIDIA data sheet): device memory and fp32
-# outside the tensor cores. The bounds below are stated against them.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
-
-# Operations per pair, as the kernels' arithmetic counts them.
-FLOPS_TEST = 9  # 3 sub, 3 mul, 2 add, 1 compare
-FLOPS_HIT_FORCE = 16  # divide, s6, f, f*d, own and reaction sums
-FLOPS_HIT_FORCE_FULL = 13  # the same without the reaction sums
-FLOPS_HIT_PE = 5  # 4*(s6*s6 - s6) - shift, and its sum
-FLOPS_HIT_PE_VIRIAL = 13  # divide, s6, pe, virial, two sums
 
 # Forces sum ~30 f32 terms per slot (~70 in the full sweep) in an order that
 # differs between the kernels (atomics in the half sweep, a fixed sequential
@@ -199,15 +167,9 @@ FORCE_GATE = 2e-4
 # to the cutoff and every count is exact.
 CUTOFF_BAND = 1e-5
 
-MAX_RUN_SECONDS = 420.0  # the NVE run stops early (>= 200 steps) past this
-
 
 def emit(phase: str, **fields) -> None:
-    line = json.dumps({"phase": phase, **fields})
-    print(line, flush=True)
-    if os.environ.get("MDNL_SMOKE_LOG"):  # every phase of every run, kept
-        with open(os.environ["MDNL_SMOKE_LOG"], "a") as log:
-            log.write(line + "\n")
+    print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
 def fail(msg: str):
@@ -220,54 +182,11 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-# Cycles the card spins before a device-time measurement, while the host
-# queues the calls: about 25 ms at the H100's clock, enough for hundreds of
-# wrapper calls.
-SPIN_CYCLES = 50_000_000
-
-
-def device_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up: the
-    stream is held by a spin of the card while the host queues the calls, so
-    that they run back to back and the time is the kernels', not the host's
-    (a kernel of 0.05 ms takes about as long to launch through its wrapper,
-    and ``time_ms`` would then time the launches). ``fn`` must not wait for
-    the card."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def captured_seconds(sim, before: int, path: str) -> float:
-    """The host seconds of the one graph capture that a timed run of ``sim``
-    made (its first chunk captures the step: the counterpart of the JAX
-    engine's compile, left out of steps/s and reported on its own)."""
+def captured_once(sim, before: int, path: str) -> None:
+    """A run of ``sim`` captured its step once (its first chunk captures;
+    ``before``: the engine's captures before the run)."""
     made = sim._runner.captures - before
-    check(made == 1, f"{path}: {made} graph captures in the timed run, "
-          "expected 1")
-    return sim._runner.capture_s
+    check(made == 1, f"{path}: {made} graph captures in the run, expected 1")
 
 
 @contextlib.contextmanager
@@ -382,8 +301,7 @@ def slab_path_inputs(state: dense_cells.DenseState, spec):
 # ------------------------------------------------- kernel against plain
 def compare_kernels(state0: dense_cells.DenseState, spec, cfg, label: str):
     """Run every kernel and its plain version on the same inputs; fail on
-    any disagreement. Returns (rebuilt state, the expand's inputs, per-kernel
-    max errors)."""
+    any disagreement. Returns (rebuilt state, per-kernel max errors)."""
     recs = expand_inputs(state0, spec)
     posvel, pid = dense_cells.expand(*recs, spec)
     torch.cuda.synchronize()
@@ -444,7 +362,7 @@ def compare_kernels(state0: dense_cells.DenseState, spec, cfg, label: str):
     check(abs(gap) <= band_pairs(pos, valid, spec, cfg.rs),
           f"{label}: full counts differ from twice the half counts by {gap}, "
           "more than the pairs in the cutoff band")
-    return state, recs, errs
+    return state, errs
 
 
 def scatter_slots(state: dense_cells.DenseState, spec, seed: int):
@@ -650,7 +568,7 @@ def small_shapes(device) -> None:
             state0.valid()[None] & (state0.pid % 3 == 0)[None],
             spec.L, 0.0) - torch.where(
             state0.valid()[None] & (state0.pid % 3 == 1)[None], spec.L, 0.0))
-        state, _, errs = compare_kernels(state0, spec, cfg, label)
+        state, errs = compare_kernels(state0, spec, cfg, label)
         errs["scattered"] = half_sweeps_scattered(state, spec, cfg,
                                                   label + "/scattered")
         errs["scattered"].update(lists_full_scattered(state, spec, cfg,
@@ -714,73 +632,7 @@ def small_shapes(device) -> None:
     emit("small_shapes", cases=cases)
 
 
-# --------------------------------------------------------------- bounds
-def window_tests(valid: torch.Tensor, spec) -> int:
-    """Distance tests this state needs in a full sweep: ordered pairs of
-    occupied slots whose cells are the same or neighbours (27 cells, self
-    pairs left out), from the cells' occupancy. A half sweep needs half."""
-    occ = valid.sum(dim=-1, dtype=torch.int64).reshape(spec.mc, spec.mc,
-                                                       spec.mc)
-    around = sum(torch.roll(occ, (dz, dy, dx), (0, 1, 2))
-                 for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
-    return int((occ * around).sum() - occ.sum())
-
-
-def expand_bytes(spec, row_start: torch.Tensor) -> int:
-    """Bytes K1 must move on these inputs: each record within the rows read
-    once through the permutation (key 4, permutation entry 8, pos and vel
-    24, pid 4; the records keyed outside the rows are never read), the row
-    starts, and every slot written (28)."""
-    records = int(row_start[-1] - row_start[0])
-    return records * 40 + (spec.rows + 1) * 4 + spec.slots * 28
-
-
-def bounds(spec, valid: torch.Tensor, row_start: torch.Tensor,
-           hits: int) -> dict:
-    """Least time (ms) the card could take per kernel on these inputs: the
-    larger of bytes moved (inputs read once, outputs written once) over the
-    memory rate and operations over the fp32 rate. The distance tests are
-    those between occupied slots of this state, not between all slots; K1's
-    records those within the rows (``row_start``)."""
-    S, cap = spec.slots, spec.cap
-    words = dense_force.mask_words(cap)
-    tests_full = window_tests(valid, spec)
-    tests = tests_full // 2
-    full_read = S * 12 + S  # the state and one validity byte per slot
-    work = {
-        "expand": (expand_bytes(spec, row_start), 0),
-        "lists_half": (S * 12 + 5 * words * S * 3 * 4 + S * 4,
-                       tests * FLOPS_TEST),
-        "forces_half": (S * 24, tests * FLOPS_TEST + hits * FLOPS_HIT_FORCE),
-        "forces_half_pe": (S * 28, tests * FLOPS_TEST
-                           + hits * (FLOPS_HIT_FORCE + FLOPS_HIT_PE)),
-        "pe_virial_half": (S * 20, tests * FLOPS_TEST
-                           + hits * FLOPS_HIT_PE_VIRIAL),
-        "count_half": (S * 12 + S * 4, tests * FLOPS_TEST),
-        "force_full": (full_read + S * 12, tests_full * FLOPS_TEST
-                       + 2 * hits * FLOPS_HIT_FORCE_FULL),
-        "force_full_pe": (full_read + S * 16, tests_full * FLOPS_TEST
-                          + 2 * hits * (FLOPS_HIT_FORCE_FULL + FLOPS_HIT_PE)),
-        "count_full": (full_read + S * 4, tests_full * FLOPS_TEST),
-    }
-    out = bound_times(work)
-    out["distance_tests"] = {"half_sweep": tests, "full_sweep": tests_full}
-    return out
-
-
-def bound_times(work: dict) -> dict:
-    """{name: (bytes, operations)} -> the bound of each: the larger of the
-    two times at the card's peak rates, and which one it is."""
-    out = {}
-    for name, (nbytes, flops) in work.items():
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FP32_PER_S * 1e3
-        out[name] = {"bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "bytes": nbytes, "operations": flops}
-    return out
-
-
+# --------------------------------------------------------- kernel table
 SOURCES = {
     "expand": ("md_neighbor_list_tpu_torch/csrc/expand.cu",
                "md_neighbor_list_tpu/ops/dense_cells.py:192"),
@@ -808,6 +660,11 @@ SOURCES = {
                     "md_neighbor_list_tpu/ops/pallas_force.py:613"),
     "list_count": ("md_neighbor_list_tpu_torch/csrc/force_list.cu", None),
     "list_pack": ("md_neighbor_list_tpu_torch/csrc/force_list.cu", None),
+    # the NVE step's integrator (no TPU kernel: the JAX step's half kick,
+    # drift and vote, which XLA fuses; md_neighbor_list_tpu/models/
+    # dense_lj.py:128)
+    "kick_drift_vote": ("md_neighbor_list_tpu_torch/csrc/integrate.cu", None),
+    "kick": ("md_neighbor_list_tpu_torch/csrc/integrate.cu", None),
     # K9: the slab forms of K1-K3, where ops/slab_kernels.py runs them
     "expand_slab": ("md_neighbor_list_tpu_torch/csrc/expand.cu",
                     "md_neighbor_list_tpu/ops/slab_kernels.py:333"),
@@ -828,16 +685,29 @@ ALSO_REPLACES = {"expand": ["md_neighbor_list_tpu/ops/dense_cells.py:358",
                      "md_neighbor_list_tpu/ops/slab_kernels.py:238"]}
 
 
+def kernel_row(name: str, err: float) -> dict:
+    """A row of the kernel table: the kernel, its source, the TPU kernel it
+    replaces and its largest error against its plain version; ``launches``
+    is filled in at the end of the run."""
+    source, replaces = SOURCES[name]
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": None, "max_abs_err": err}
+    if name in ALSO_REPLACES:
+        row["also_replaces"] = ALSO_REPLACES[name]
+    return row
+
+
 def full_width(sim: DenseSimulator) -> list[dict]:
-    """Every kernel against its plain version at N = 1M, cap = 40, with
-    times: on a jittered state, on its scattered-slot twin and, for K2 and
-    the full sweep, on the main path's lattice start; the NVE step's list
-    kernels (K3 over the list, the list's count and pack) on the jittered
-    state's list, K3 also drifted by skin/2."""
+    """Every kernel against its plain version at N = 1M, cap = 40: on a
+    jittered state, on its scattered-slot twin and, for K2 and the full
+    sweep, on the main path's lattice start; K1 also on the rebuilt state
+    drifted by skin/2; the NVE step's list kernels (K3 over the list, the
+    list's count and pack) on the jittered state's list, K3 also drifted by
+    skin/2. Returns the kernel table's rows."""
     cfg, spec, dev = sim.config, sim.spec, sim.device
     system, _ = jittered_system(cfg.n, cfg.rho, seed=7, jitter=0.1, device=dev)
     state0 = dense_cells.from_packed(system.pos, system.vel, system.pid, spec)
-    state, recs, errs = compare_kernels(state0, spec, cfg, "full_width")
+    state, errs = compare_kernels(state0, spec, cfg, "full_width")
     check(int(state.valid().sum()) == cfg.n, "full_width: lost particles")
     scattered = half_sweeps_scattered(state, spec, cfg, "full_width/scattered")
     scattered.update(lists_full_scattered(state, spec, cfg,
@@ -863,18 +733,14 @@ def full_width(sim: DenseSimulator) -> list[dict]:
     for name in ("force_full", "force_full_pe", "count_full"):
         errs[name] = max(errs[name], lat_errs[name])
     del lattice, lat_pos, lat_valid, windows
-    pos, valid = state.pos, state.valid()
-    counts_rc, _ = dense_force.dense_lists_half(pos, spec, cfg.rc)
-    hits = int(counts_rc[state.valid()].sum())
+    pos = state.pos
     # K1 as the main path runs it, on a rebuilt state drifted by skin/2:
     # cell-sorted, so the reads through the permutation nearly coalesce (the
-    # from_packed seed above reads through one far from the identity; its
-    # time is kept beside)
+    # from_packed seed above reads through one far from the identity)
     drift_recs = expand_inputs(drifted_state(sim, state), spec)
     ok, _ = agree(dense_cells.expand(*drift_recs, spec),
                   dense_cells.expand_plain(*drift_recs, spec), True)
     check(ok, "full_width/drifted: expand differs from its plain version")
-    expand_seed_ms = device_ms(lambda: dense_cells.expand(*recs, spec), 10)
     # the NVE step's list of this rebuilt state (K2 at rs, the count, the
     # starts, the pack): count and pack bitwise their plain versions, the
     # list-driven K3 against its plain version here and drifted by skin/2
@@ -899,101 +765,27 @@ def full_width(sim: DenseSimulator) -> list[dict]:
         check(ok, f"full_width: forces_list off its plain version by {err}")
         errs["forces_list"] = max(errs["forces_list"], err)
     listed = int(lst.nsparse.sum())
-    dense_tests = int(dense_force.dense_pairs(drifted, spec)[0].numel())
-    force_out = torch.empty_like(drifted)
-
-    runs = {
-        "expand": (lambda: dense_cells.expand(*drift_recs, spec),
-                   lambda: dense_cells.expand_plain(*drift_recs, spec)),
-        "lists_half": (
-            lambda: dense_force.dense_lists_half(pos, spec, cfg.rs),
-            lambda: dense_force.lists_half_plain(pos, spec, cfg.rs)),
-        "forces_half": (
-            lambda: dense_force.dense_forces_half(pos, spec, cfg.rc),
-            lambda: dense_force.forces_half_plain(pos, spec, cfg.rc)),
-        "forces_half_pe": (
-            lambda: dense_force.dense_forces_half(pos, spec, cfg.rc, True),
-            lambda: dense_force.forces_half_plain(pos, spec, cfg.rc, True)),
-        "pe_virial_half": (
-            lambda: dense_force.dense_pe_virial(pos, spec, cfg.rc),
-            lambda: dense_force.pe_virial_half_plain(pos, spec, cfg.rc)),
-        "count_half": (
-            lambda: dense_force.dense_counts_half(pos, spec, cfg.rs),
-            lambda: dense_force.counts_half_plain(pos, spec, cfg.rs)),
-        "force_full": (
-            lambda: dense_force.dense_forces(pos, valid, spec, cfg.rc, False),
-            lambda: dense_force.forces_full_plain(pos, valid, spec, cfg.rc,
-                                                  False)),
-        "force_full_pe": (
-            lambda: dense_force.dense_forces(pos, valid, spec, cfg.rc, True),
-            lambda: dense_force.forces_full_plain(pos, valid, spec, cfg.rc,
-                                                  True)),
-        "count_full": (
-            lambda: dense_force.dense_counts(pos, valid, spec, cfg.rs),
-            lambda: dense_force.counts_full_plain(pos, valid, spec, cfg.rs)),
-        "forces_list": (
-            lambda: dense_force.dense_forces_list(drifted, lst, spec, cfg.rc,
-                                                  out=force_out),
-            lambda: dense_force.forces_list_plain(drifted, lst, spec,
-                                                  cfg.rc)),
-        "list_count": (
-            lambda: dense_force.count_half_list(masks_rs, counts_rs,
-                                                lst.nsparse, spec),
-            lambda: dense_force.count_half_list_plain(masks_rs, counts_rs,
-                                                      nsparse, spec)),
-        "list_pack": (
-            lambda: dense_force.pack_half_list(masks_rs, counts_rs, lst.start,
-                                               lst.lanes, spec),
-            lambda: dense_force.pack_half_list_plain(masks_rs, counts_rs,
-                                                     lst.start, lanes, spec)),
-    }
-    bound = bounds(spec, valid, drift_recs[5], hits)
-    # the list's kernels: K3 tests the dense cells' slot pairs and the
-    # listed ones and reads the list; the count reads the sparse cells'
-    # mask words, the pack those and writes the entries
-    S, words = spec.slots, dense_force.mask_words(spec.cap)
-    sparse_words = S * len(dense_force.SPARSE_CELLS) * words * 4
-    bound.update(bound_times({
-        "forces_list": (S * 32 + 2 * listed, (dense_tests + listed)
-                        * FLOPS_TEST + hits * FLOPS_HIT_FORCE),
-        "list_count": (sparse_words + S * 8, 0),
-        "list_pack": (sparse_words + S * 8 + 2 * listed, 0),
-    }))
-    rows = []
-    for name, (kernel, plain) in runs.items():
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": None,
-            "max_abs_err": errs[name],
-            "ms": device_ms(kernel, 10), "plain_ms": time_ms(plain, 1),
-            "bound_ms": bound[name]["bound_ms"],
-            "bound_by": bound[name]["bound_by"],
-            # no single PyTorch call computes any of these functions
-            "library_ms": None,
-        })
-        if name in ALSO_REPLACES:
-            rows[-1]["also_replaces"] = ALSO_REPLACES[name]
-    del lst, counts_rs, masks_rs, nsparse, lanes, drifted, force_out
+    rows = [kernel_row(name, errs[name]) for name in (
+        "expand", "lists_half", "forces_half", "forces_half_pe",
+        "pe_virial_half", "count_half", "force_full", "force_full_pe",
+        "count_full", "forces_list", "list_count", "list_pack")]
+    del lst, counts_rs, masks_rs, nsparse, lanes, drifted
     dense_force._window_slots.cache_clear()
     emit("kernels_full_width", n=cfg.n, mc=spec.mc, cap=spec.cap,
-         slots=spec.slots, hits_rc=hits, listed=listed,
-         dense_slot_pairs=dense_tests, launches_so_far=dict(_cuda.LAUNCHES),
-         expand_from_packed_seed_ms=expand_seed_ms,
-         scattered_slots_max_abs_err=scattered, bounds=bound, kernels=rows)
+         slots=spec.slots, listed=listed,
+         launches_so_far=dict(_cuda.LAUNCHES),
+         scattered_slots_max_abs_err=scattered, kernels=rows)
     return rows
 
 
 # ------------------------------------------------------------ integrator
-def integrator_kernels(preset: str, device, reps: int = 20) -> list[dict]:
+def integrator_kernels(preset: str, device) -> list[dict]:
     """The NVE step's integrator (``ops/integrate.py``) at the shapes of
     ``PRESETS[preset]``, on the engine's state 20 steps into a run: both
     kernels, each form, bitwise against their plain versions (velocities,
     positions, the vote, the flag lowered) against the state's own
     reference, against its positions (no vote) and with one particle moved
-    past the vote's trigger; then each kernel's device time beside the
-    plain sequence's, its bytes bound (pid over every slot, 72 or 36 bytes
-    a particle), the bytes of the 32-byte sectors that hold a particle,
-    which the kernels touch, and the launches. Returns the kernel table's
+    past the vote's trigger; and the launches. Returns the kernel table's
     rows."""
     cfg = PRESETS[preset]
     sim = DenseSimulator(cfg, cap=40, device=device)
@@ -1029,76 +821,95 @@ def integrator_kernels(preset: str, device, reps: int = 20) -> list[dict]:
           f"integrator/{preset}: votes {votes}, want [*, False, True, None]")
     launches = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
                 if v != before[k]}
-
-    vel, pos = st.vel.clone(), st.pos.clone()
-
-    def plain_chain():
-        integrate.kick_drift_vote_plain(vel, pos, force, ref, st.pid, dt, skin)
-        integrate.kick_plain(vel, force, dt)
-
-    ms = {
-        "kick_drift_vote": device_ms(lambda: integrate.kick_drift_vote(
-            vel, pos, force, ref, st.pid, dt, skin, flag), reps),
-        "kick_drift": device_ms(lambda: integrate.kick_drift_vote(
-            vel, pos, force, ref, st.pid, dt, None, flag), reps),
-        "kick": device_ms(lambda: integrate.kick(vel, force, st.pid, dt,
-                                                 lower=flag), reps),
-    }
-    plain_ms = {
-        "kick_drift_vote": device_ms(
-            lambda: integrate.kick_drift_vote_plain(vel, pos, force, ref,
-                                                    st.pid, dt, skin), reps),
-        "kick": device_ms(lambda: integrate.kick_plain(vel, force, dt), reps),
-        "chain": device_ms(plain_chain, reps),
-    }
-    S, n = spec.slots, cfg.n
-    held = int((st.pid.reshape(-1, 8) >= 0).any(dim=1).sum())
-    bound = bound_times({"kick_drift_vote": (S * 4 + n * 72, n * 16),
-                         "kick": (S * 4 + n * 36, n * 6)})
-    touched = {"kick_drift_vote": S * 4 + held * 32 * 18,
-               "kick": S * 4 + held * 32 * 9}
-    dense = {"kick_drift_vote": S * 76, "kick": S * 40}
-    rows = [{"name": name, "route": "cuda",
-             "source": "md_neighbor_list_tpu_torch/csrc/integrate.cu",
-             # no TPU kernel: the JAX step's half kick, drift and vote,
-             # which XLA fuses (md_neighbor_list_tpu/models/dense_lj.py:128)
-             "replaces": None, "launches": None, "max_abs_err": 0.0,
-             "ms": ms[name], "plain_ms": plain_ms[name],
-             "bound_ms": bound[name]["bound_ms"],
-             "bound_by": bound[name]["bound_by"], "library_ms": None,
-             "sector_bytes": touched[name],
-             "sector_bound_ms": touched[name] / PEAK_BYTES_PER_S * 1e3,
-             "dense_bytes": dense[name],
-             "dense_bound_ms": dense[name] / PEAK_BYTES_PER_S * 1e3}
-            for name in ("kick_drift_vote", "kick")]
-    emit("integrator", config=preset, n=n, mc=spec.mc, cap=spec.cap,
-         slots=S, held_sectors=held, sectors=S // 8, votes=votes,
-         kick_drift_ms=ms["kick_drift"], plain_chain_ms=plain_ms["chain"],
-         launches=launches, kernels=rows)
+    rows = [kernel_row(name, 0.0) for name in ("kick_drift_vote", "kick")]
+    emit("integrator", config=preset, n=cfg.n, mc=spec.mc, cap=spec.cap,
+         slots=spec.slots, votes=votes, launches=launches, kernels=rows)
     return rows
 
 
+# ------------------------------------------------------ list and sweep
+def list_sweep(device) -> None:
+    """The NVE step's half list against the cell sweep at the shapes of
+    ``c4_sorted`` (N = 1M) and ``lammps_lj`` (LAMMPS ``bench/in.lj`` x 4,
+    N = 2,048,000 from fcc), each on the engine's state after 200 NVE steps
+    (cap still 40), rebuilt, then drifted by skin/2 (the last state before
+    the vote fires): the list built (``build_half_list``: K2, the count,
+    the starts, the pack) without overflow, its count and pack bitwise their
+    plain versions, its force on the drifted state against the sweep's and
+    the plain version's, its pairs within rc those the sweep counts. Then
+    ``c2_cell``, which rebuilds every step and so keeps the sweep in its
+    step: 100 steps by ``run`` at cap 40, a rebuild each, no list force."""
+    for preset in ("c4_sorted", "lammps_lj"):
+        emit("list_sweep", config=preset, **list_against_sweep(
+            PRESETS[preset], device))
+        torch.cuda.empty_cache()
+    cfg = PRESETS["c2_cell"]
+    sim = DenseSimulator(cfg, cap=40, device=device)
+    carry = sim.init()
+    before = dict(_cuda.LAUNCHES)
+    carry = sim.run(carry, cfg.steps)
+    rebuilds = int(carry.n_rebuilds)
+    launches = {k: _cuda.LAUNCHES[k] - before[k]
+                for k in ("forces_half", "forces_list")}
+    check(not bool(carry.overflow) and sim.cap == 40,
+          f"list_sweep c2_cell: the run grew cap to {sim.cap}")
+    check(rebuilds == 1 + cfg.steps,
+          f"list_sweep c2_cell: {rebuilds} rebuilds, want {1 + cfg.steps}")
+    check(launches["forces_half"] >= cfg.steps
+          and launches["forces_list"] == 0,
+          f"list_sweep c2_cell: the step's forces launched {launches}")
+    emit("list_sweep", config="c2_cell", n=cfg.n, steps=cfg.steps,
+         n_rebuilds=rebuilds, launches=launches)
+
+
+def list_against_sweep(cfg: MDConfig, device) -> dict:
+    """One configuration of ``list_sweep``; returns its numbers."""
+    sim = DenseSimulator(cfg, cap=40, device=device)
+    spec, df = sim.spec, dense_force
+    carry = sim.run(sim.init(), 200)
+    check(not bool(carry.overflow) and sim.cap == 40,
+          f"list_sweep: {cfg.n} particles: the run grew cap to {sim.cap}")
+    new, _ = dense_cells.rebuild_dense(carry.state, spec)
+    del carry
+    lst = df.half_list_buffers(spec, cfg.n, cfg.rs, device)
+    check(not bool(df.build_half_list(new.pos, spec, cfg.rs, lst)),
+          "list_sweep: the list overflowed its capacity")
+    counts, masks = df.dense_lists_half(new.pos, spec, cfg.rs)
+    nsparse, lanes = torch.zeros_like(lst.nsparse), torch.zeros_like(lst.lanes)
+    df.count_half_list_plain(masks, counts, nsparse, spec)
+    df.pack_half_list_plain(masks, counts, lst.start, lanes, spec)
+    check(torch.equal(nsparse, lst.nsparse) and torch.equal(lanes, lst.lanes),
+          "list_sweep: the count or pack is off its plain version")
+    drifted = drifted_state(sim, new)
+    f_list = df.dense_forces_list(drifted.pos, lst, spec, cfg.rc)
+    errs = {}
+    for name, want in (
+            ("sweep", df.dense_forces_half(drifted.pos, spec, cfg.rc)[0]),
+            ("plain", df.forces_list_plain(drifted.pos, lst, spec, cfg.rc))):
+        ok, errs[name] = force_close(f_list, want)
+        check(ok, f"list_sweep: the list's force off the {name} by "
+                  f"{errs[name]}")
+    p = drifted.pos.reshape(3, -1)
+    pairs_rc = 0
+    for own, part, shift in (df.dense_pairs(drifted.pos, spec),
+                             df.list_pairs(lst, spec)):
+        d = p[:, own] - (p[:, part] + shift)
+        r2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
+        pairs_rc += int((r2 < float(np.float32(cfg.rc * cfg.rc))).sum())
+    counts_rc = df.dense_counts_half(drifted.pos, spec, cfg.rc)
+    sweep_rc = int(counts_rc[drifted.valid()].sum())
+    check(pairs_rc == sweep_rc, f"list_sweep: {pairs_rc} listed pairs "
+                                f"within rc against the sweep's {sweep_rc}")
+    result = dict(n=cfg.n, cap=spec.cap, mc=spec.mc,
+                  pairs_rs=int(counts[new.valid()].sum()),
+                  listed=int(nsparse.sum()),
+                  capacity=df.list_capacity(spec, cfg.n, cfg.rs),
+                  pairs_rc=pairs_rc, max_force_err=errs)
+    df._window_slots.cache_clear()
+    return result
+
+
 # ------------------------------------------------------------ main path
-def chained_builds_ms(sim: DenseSimulator, state, reps: int = 10,
-                      build=None) -> float:
-    """ms per list build over ``reps`` chained builds, each from a state
-    drifted ballistically so that the largest displacement is skin/2 — the
-    state a rebuild sees when the displacement vote fires. ``build``: the
-    engine's ``_rebuild_and_lists`` (on the card one replay of the captured
-    build), or its eager twin."""
-    build = build or sim._rebuild_and_lists
-    v2 = torch.sum(state.vel * state.vel, dim=0)
-    tau = 0.5 * sim.config.skin / torch.sqrt(torch.max(v2))
-
-    def chain():
-        st = state
-        for _ in range(reps):
-            st = st._replace(pos=st.pos + tau * st.vel)
-            st, _, _, _ = build(st)
-
-    return time_ms(chain, 1) / reps
-
-
 def main_path(sim: DenseSimulator) -> dict:
     cfg = sim.config
     _cuda.reset_launches()
@@ -1112,17 +923,9 @@ def main_path(sim: DenseSimulator) -> dict:
     e0 = ke0 + pe0
 
     captures = sim._runner.captures
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps = 0
-    while steps < cfg.steps:
-        carry = sim.run(carry, 100)
-        steps += 100
-        torch.cuda.synchronize()
-        if steps >= 200 and time.perf_counter() - t0 > MAX_RUN_SECONDS:
-            break
-    run_s = time.perf_counter() - t0
-    capture_s = captured_seconds(sim, captures, "main_path")
+    steps = cfg.steps
+    carry = sim.run(carry, steps)
+    captured_once(sim, captures, "main_path")
 
     ke1, pe1 = (float(x) for x in sim.energies(carry))
     drift = abs((ke1 + pe1) - e0) / abs(e0)
@@ -1141,13 +944,9 @@ def main_path(sim: DenseSimulator) -> dict:
           and bool(torch.isfinite(carry.force).all()),
           "main_path: forces not finite or of the wrong shape")
 
-    build_ms = chained_builds_ms(sim, carry.state)
-    result = {"n": cfg.n, "cap": sim.spec.cap, "pairs": pairs, "steps": steps,
-              "energy_drift": drift, "e0": e0, "e1": ke1 + pe1,
-              "pressure": pressure, "n_rebuilds": rebuilds, "kept": kept,
-              "steps_per_s": steps / (run_s - capture_s),
-              "capture_s": capture_s, "build_ms": build_ms}
-    emit("main_path", **result)
+    emit("main_path", n=cfg.n, cap=sim.spec.cap, pairs=pairs, steps=steps,
+         energy_drift=drift, e0=e0, e1=ke1 + pe1, pressure=pressure,
+         n_rebuilds=rebuilds, kept=kept)
 
     need = {"expand": rebuilds + 1, "lists_half": rebuilds + 1,
             "list_count": rebuilds, "list_pack": rebuilds,
@@ -1177,11 +976,9 @@ def graph_chunk(sim, carry, path: str) -> None:
     the eager ``step_fn`` (the vote read on the host each step). Equal
     rebuilds, for the two dense engines equal branch counts, positions
     within ``TRAJECTORY_TOL`` of each other, |dE/E| of the graph run at most
-    1e-4; steps/s of both and the capture's seconds. The engine is the cube
-    or incremental ``DenseSimulator``, the xla ``Simulator`` or the slab
-    engine (its positions gathered by pid over the ring). With
-    ``--profile``, the device time of 50 eager steps beside
-    ``profile``'s 50 graph steps."""
+    1e-4, one capture. The engine is the cube or incremental
+    ``DenseSimulator``, the xla ``Simulator`` or the slab engine (its
+    positions gathered by pid over the ring)."""
     xla = isinstance(sim, Simulator)
     slab = isinstance(sim, DenseSlabSimulator)
     counted = not (xla or slab)  # the dense engines count their branches
@@ -1204,20 +1001,13 @@ def graph_chunk(sim, carry, path: str) -> None:
     e0 = sum(float(x) for x in sim.energies(carry))
     taken = [sim._taken.tolist()] if counted else []
     captures = sim._runner.captures
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with strict_replays():
         graph = sim.run(graph, GRAPH_STEPS, chunk=GRAPH_STEPS)
-    torch.cuda.synchronize()
-    graph_s = time.perf_counter() - t0
-    capture_s = captured_seconds(sim, captures, f"graph_chunk {path}")
+    captured_once(sim, captures, f"graph_chunk {path}")
     if counted:
         taken.append(sim._taken.tolist())
-    t0 = time.perf_counter()
     for _ in range(GRAPH_STEPS):
         eager = sim.step_fn(eager)
-    torch.cuda.synchronize()
-    eager_s = time.perf_counter() - t0
     if counted:
         taken.append(sim._taken.tolist())
 
@@ -1245,12 +1035,8 @@ def graph_chunk(sim, carry, path: str) -> None:
     emit("graph_chunk", path=path, steps=GRAPH_STEPS,
          n_rebuilds=r_graph - rebuilds(carry), **branches,
          position_gap=gap, tolerance=TRAJECTORY_TOL, energy_drift=drift,
-         steps_per_s_graph=GRAPH_STEPS / (graph_s - capture_s),
-         steps_per_s_eager=GRAPH_STEPS / eager_s, capture_s=capture_s,
          launches_per_step=sim._runner.graph.per_step,
          launches_per_branch=sim._runner.graph.per_body)
-    if "--profile" in sys.argv[1:]:
-        profile_steps(sim, eager, f"{path}_eager", eager=True)
 
 
 # ------------------------------------------------------------ build graph
@@ -1265,7 +1051,7 @@ def build_states(sim: DenseSimulator, carry) -> list[tuple[str, object]]:
                              sim.device)
     seed = dense_cells.from_packed(system.pos, system.vel, system.pid,
                                    sim.spec)
-    lattice = sim._rebuild_and_lists_eager(seed)[0]
+    lattice = dense_cells.rebuild_dense(seed, sim.spec)[0]
     st = carry.state
     v2 = torch.sum(st.vel * st.vel, dim=0)
     tau = 0.5 * cfg.skin / torch.sqrt(torch.max(v2))
@@ -1280,31 +1066,53 @@ def build_states(sim: DenseSimulator, carry) -> list[tuple[str, object]]:
     return out
 
 
+def ops_build(sim: DenseSimulator, state):
+    """The list build from the ops themselves, into new tensors: the full
+    rebuild, or in the incremental engine the incremental one unless its
+    window predicate holds, where the full one is taken; then the half-list
+    kernel and the total over valid slots. Returns (new_state, counts,
+    masks, total, taken), ``taken`` the branches the engine counts:
+    [incremental rebuilds kept, full fallbacks] (the twin of
+    ``tests/torch_port_util.py``'s)."""
+    spec = sim.spec
+    taken = [0, 0]
+    full = not sim.incremental
+    if sim.incremental:
+        new, window_overflow = incremental.rebuild_dense_incremental(state,
+                                                                     spec)
+        full = bool(window_overflow)
+        taken[int(full)] = 1
+    if full:
+        new = dense_cells.rebuild_dense(state, spec)[0]
+    counts, masks = dense_force.dense_lists_half(new.pos, spec,
+                                                 sim.config.rs)
+    total = torch.sum(torch.where(new.valid(), counts, 0))
+    return new, counts, masks, total, taken
+
+
 def build_graph(sim: DenseSimulator, carry, path: str) -> None:
     """``_rebuild_and_lists`` on the card (the state copied into the
     engine's buffers, then one replay of the captured build, every replay
-    under ``strict_replays``) against its eager twin on each of
-    ``build_states``: the state, counts and masks bitwise, the totals equal,
-    the branch counts equal (one state must take the full rebuild of the
-    incremental engine); then ``build_ms`` both ways."""
+    under ``strict_replays``) against the build the ops make (``ops_build``)
+    on each of ``build_states``: the state, counts and masks bitwise, the
+    totals equal, the branch the ops take counted (one state must take the
+    full rebuild of the incremental engine); one capture for all."""
     cases = []
     for label, state in build_states(sim, carry):
+        want = ops_build(sim, state)
         before = sim._taken.clone()
-        want = sim._rebuild_and_lists_eager(state)
-        mid = sim._taken.clone()
         with strict_replays():
             got = sim._rebuild_and_lists(state)
-        by_eager = (mid - before).tolist()
-        by_graph = (sim._taken - mid).tolist()
+        by_graph = (sim._taken - before).tolist()
         same = [torch.equal(a, b) for a, b in
                 zip((*got[0], got[1], got[2]), (*want[0], want[1], want[2]))]
         check(all(same) and int(got[3]) == int(want[3]),
               f"build_graph {path} {label}: captured build differs from the "
-              f"eager one (pos, vel, pid, counts, masks equal: {same}; "
-              f"totals {int(got[3])}, {int(want[3])})")
-        check(by_graph == by_eager,
+              f"ops' (pos, vel, pid, counts, masks equal: {same}; totals "
+              f"{int(got[3])}, {int(want[3])})")
+        check(by_graph == want[4],
               f"build_graph {path} {label}: branch counts {by_graph} "
-              f"captured, {by_eager} eager")
+              f"captured, {want[4]} by the ops")
         cases.append({"state": label, "pairs": int(got[3]),
                       "incremental_kept": by_graph[0],
                       "full_fallbacks": by_graph[1]})
@@ -1316,11 +1124,7 @@ def build_graph(sim: DenseSimulator, carry, path: str) -> None:
     check(sim._build_runner.captures == 1,
           f"build_graph {path}: {sim._build_runner.captures} captures")
     emit("build_graph", path=path, n=sim.config.n, cap=sim.spec.cap,
-         cases=cases, capture_s=sim._build_runner.capture_s,
-         build_ms_graph=chained_builds_ms(sim, carry.state),
-         build_ms_eager=chained_builds_ms(
-             sim, carry.state, build=sim._rebuild_and_lists_eager),
-         launches_per_build=sim._build_runner.graph.per_step,
+         cases=cases, launches_per_build=sim._build_runner.graph.per_step,
          launches_per_branch=sim._build_runner.graph.per_body)
 
 
@@ -1340,9 +1144,7 @@ def entry_phase(device) -> dict:
     finite = bool(torch.isfinite(out.state.vel).all())
     check(valid == 8192 and finite,
           f"entry: {valid} valid slots after a step, finite: {finite}")
-    t0 = time.perf_counter()
     dry = entry_points.dryrun_multichip(4, device=device)
-    dry_s = time.perf_counter() - t0
     launches = dict(_cuda.LAUNCHES)
     need = {"expand": 1, "forces_list": 2, "expand_slab": 1,
             "forces_half_slab": 1, "lists_half_slab": 1}
@@ -1351,7 +1153,7 @@ def entry_phase(device) -> dict:
               f"launches: {name} launched {launches[name]} times on the "
               f"entry path, expected at least {least}")
     emit("entry", n=fn.__self__.config.n, valid=valid,
-         dryrun_multichip=dry, dryrun_s=dry_s)
+         dryrun_multichip=dry)
     emit("launches", path="entry", launches=launches, expected_at_least=need)
     return launches
 
@@ -1397,37 +1199,20 @@ def list_delivery(sim: DenseSimulator) -> dict:
     pos, box = caller_positions(sim)
     _cuda.reset_launches()
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     idx_h, cnt_h = neighbor_list(pos, box.L, rs, half=True, backend="dense")
-    torch.cuda.synchronize()
-    t_half = time.perf_counter() - t0
-    t0 = time.perf_counter()
     idx_f, cnt_f = neighbor_list(pos, box.L, rs, half=False, backend="dense")
-    torch.cuda.synchronize()
-    t_full = time.perf_counter() - t0
-    t0 = time.perf_counter()
     pi, pj = pair_list(pos, box.L, rs, backend="dense")
-    t_pairs = time.perf_counter() - t0
 
-    # the same build piece by piece: the parity passes, and the split of the
-    # time into device part, copy to the host and host decode
+    # the same build piece by piece (rebuild, list kernel, copy to the host,
+    # host decode), and the parity passes on it
     spec = dense_cells.make_spec(box, rs, 40)
     pid = torch.arange(n, dtype=torch.int32, device=dev)
     seed_state = dense_cells.from_packed(box.wrap(pos), torch.zeros_like(pos),
                                          pid, spec)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     state, _ = dense_cells.rebuild_dense(seed_state, spec)
     _, masks = dense_force.dense_lists_half(state.pos, spec, rs)
-    torch.cuda.synchronize()
-    t_device = time.perf_counter() - t0
-    t0 = time.perf_counter()
     masks_h, pid_h = masks.cpu().numpy(), state.pid.cpu().numpy()
-    t_copy = time.perf_counter() - t0
-    t0 = time.perf_counter()
     idx_m, cnt_m = decode.masks_to_padded(masks_h, pid_h, spec, n=n)
-    t_decode = time.perf_counter() - t0
     valid = state.valid()
     check(int(valid.sum()) == n, "list_delivery: lost particles")
     check(np.array_equal(idx_m, idx_h.cpu().numpy())
@@ -1505,9 +1290,6 @@ def list_delivery(sim: DenseSimulator) -> dict:
          full_sweep_count=full_total, pairs_in_cutoff_band=in_band,
          k_half=idx_h.shape[1], k_full=idx_f.shape[1],
          sampled_rows=SAMPLE_ROWS, sampled_entries_in_cutoff_band=n_differ,
-         seconds={"neighbor_list_half": t_half, "neighbor_list_full": t_full,
-                  "pair_list": t_pairs, "device_rebuild_and_lists": t_device,
-                  "masks_to_host": t_copy, "native_decode_half": t_decode},
          mask_bytes=masks_h.nbytes, force_err_half_vs_full_sweep=f_err,
          pe_half_sweep=pe_half, pe_full_sweep=pe_full,
          lattice_pairs=k7_total // 2, clustered=clustered)
@@ -1533,11 +1315,8 @@ def clustered_neighbor_list(dev) -> dict:
                                   device=dev, cluster=CLUSTER_K)
     n, rs = CLUSTER_N, MDConfig(n=CLUSTER_N).rs
     spec40 = dense_cells.make_spec(box, rs, 40)
-    t0 = time.perf_counter()
     idx, cnt = neighbor_list(system.pos, box.L, rs, half=False,
                              backend="dense")
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     want, near = brute_force_rows(system.pos, box.L, rs,
                                   torch.arange(n, device=dev), chunk=500)
     got = torch.zeros((n, n + 1), dtype=torch.bool, device=dev)
@@ -1564,7 +1343,7 @@ def clustered_neighbor_list(dev) -> dict:
     return {"n": n, "largest_cell": most, "cap": cap,
             "mask_words": dense_force.mask_words(cap),
             "pairs_full_rows": int(cnt.sum()), "k": idx.shape[1],
-            "entries_in_cutoff_band": int(differ.sum()), "seconds": seconds}
+            "entries_in_cutoff_band": int(differ.sum())}
 
 
 # ------------------------------------------------------------ incremental
@@ -1582,23 +1361,12 @@ def per_cell_sets(pid: torch.Tensor, spec) -> torch.Tensor:
     return torch.sort(torch.where(rows >= 0, rows, 1 << 40), dim=1).values
 
 
-def merge_bytes(spec, args) -> int:
-    """Bytes K8 must move on ``merge_inputs``' output: each slot's stayer
-    pid (a stayer's pid is not read again), each particle's pos and vel once
-    from the side it comes from, each mover's pid and one end-of-movers pid
-    per cell are read; each slot written once."""
-    stayers = int((args[1] >= 0).sum())
-    movers = int((args[2].pid >= 0).sum())
-    return (spec.slots * 4 + (stayers + movers) * 24 + movers * 4
-            + spec.ncells * 4 + spec.slots * 28)
-
-
 def incremental_kernels(sim: DenseSimulator, state) -> tuple[dict, dict]:
     """At N = 1M, on ``state`` (the incremental run's last state) drifted by
     skin/2: K8 bitwise against its plain version, the incremental rebuild
     bitwise against its twin and as the same partition per cell as the full
     rebuild; and the window predicate tripped by a from_packed seed. Returns
-    (the K8 row of the kernels line, numbers for the phase)."""
+    (the K8 row of the kernel table, numbers for the phase)."""
     cfg, spec, dev = sim.config, sim.spec, sim.device
     system, _ = init_lattice(cfg.n, cfg.rho,
                              torch.Generator(dev).manual_seed(5),
@@ -1641,41 +1409,14 @@ def incremental_kernels(sim: DenseSimulator, state) -> tuple[dict, dict]:
                       per_cell_sets(full.pid, spec)),
           "incremental: not the same partition per cell as the full rebuild")
 
-    S = spec.slots
-    stayers_n = int((args[1] >= 0).sum())
-    nbytes = merge_bytes(spec, args)
-    bound = nbytes / PEAK_BYTES_PER_S * 1e3
-    row = {"name": "merge", "route": "cuda", "source": SOURCES["merge"][0],
-           "replaces": SOURCES["merge"][1], "launches": None,
-           "max_abs_err": 0.0,
-           "ms": device_ms(lambda: incremental.merge(*args, spec), 20),
-           "plain_ms": time_ms(lambda: incremental.merge_plain(*args, spec),
-                               3),
-           "bound_ms": bound, "bound_by": "bytes",
-           # no PyTorch call merges two slot arrays per cell
-           "library_ms": None}
     numbers = {"movers": movers_n, "mover_share": movers_n / cfg.n,
-               "stayers": stayers_n,
-               "expand_movers_ms": device_ms(
-                   lambda: dense_cells.expand(*mover_recs, spec), 20),
-               "expand_movers_bound_ms": expand_bytes(
-                   spec, mover_recs[5]) / PEAK_BYTES_PER_S * 1e3,
-               "merge_bytes": nbytes,
-               "merge_bytes_all_slots": 21 * 4 * S,
-               "keys_sort_expand_movers_ms": time_ms(
-                   lambda: incremental.merge_inputs(state, spec), 10),
-               "rebuild_incremental_ms": time_ms(
-                   lambda: incremental.rebuild_dense_incremental(state, spec),
-                   10),
-               "rebuild_full_ms": time_ms(
-                   lambda: dense_cells.rebuild_dense(state, spec), 10)}
-    return row, numbers
+               "stayers": int((args[1] >= 0).sum())}
+    return kernel_row("merge", 0.0), numbers
 
 
 def incremental_path(sim: DenseSimulator):
-    """``DenseSimulator(incremental=True)``: init, 1000 NVE steps, energies,
-    and the list build through the incremental rebuild. Returns the launch
-    counts of this path and the last carry."""
+    """``DenseSimulator(incremental=True)``: init, 1000 NVE steps, energies.
+    Returns the launch counts of this path and the last carry."""
     cfg = sim.config
     _cuda.reset_launches()
     carry = sim.init()
@@ -1684,12 +1425,8 @@ def incremental_path(sim: DenseSimulator):
     ke0, pe0 = (float(x) for x in sim.energies(carry))
     e0 = ke0 + pe0
     captures = sim._runner.captures
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     carry = sim.run(carry, cfg.steps)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    capture_s = captured_seconds(sim, captures, "incremental")
+    captured_once(sim, captures, "incremental")
     ke1, pe1 = (float(x) for x in sim.energies(carry))
     drift = abs((ke1 + pe1) - e0) / abs(e0)
     kept = int(carry.state.valid().sum())
@@ -1703,13 +1440,9 @@ def incremental_path(sim: DenseSimulator):
     check(kept == cfg.n, f"incremental: {kept} particles kept of {cfg.n}")
     check(launches["merge"] > 0 and taken[0] > 0,
           "incremental: the merge kernel was not launched on the path")
-    build_ms = chained_builds_ms(sim, carry.state)
     emit("incremental", n=cfg.n, cap=sim.spec.cap, steps=cfg.steps,
          energy_drift=drift, e0=e0, e1=ke1 + pe1, n_rebuilds=rebuilds,
-         kept=kept, steps_per_s=cfg.steps / (run_s - capture_s),
-         capture_s=capture_s, build_ms=build_ms,
-         incremental_rebuilds=taken[0], full_fallbacks=taken[1],
-         chained_builds_incremental=sim.incremental_rebuilds - taken[0])
+         kept=kept, incremental_rebuilds=taken[0], full_fallbacks=taken[1])
     need = {"merge": rebuilds - 1, "expand": rebuilds + taken[1],
             "forces_list": cfg.steps + 1}
     for name, least in need.items():
@@ -1755,46 +1488,6 @@ def p1_windows(pos, valid, spec):
                                              ext_v, slab), ext_v)
 
 
-def slab_half_tests(ext_valid: torch.Tensor, mc: int) -> int:
-    """Distance tests a slab half sweep needs on these inputs: for each
-    occupied own slot of the walked layers, the occupied slots of the 13
-    forward neighbour cells and the later slots of its own cell. Over a
-    cube (ghost = first layer) it is ``window_tests // 2``."""
-    occ = ext_valid.sum(dim=-1, dtype=torch.int64).reshape(-1, mc, mc)
-    own, up = occ[:-1], occ[1:]
-
-    def around_x(a):  # the x-1, x, x+1 cells of each cell's row
-        return sum(torch.roll(a, dx, dims=2) for dx in (-1, 0, 1))
-
-    fwd = torch.roll(own, -1, dims=2) + around_x(torch.roll(own, -1, dims=1))
-    fwd = fwd + sum(around_x(torch.roll(up, -dy, dims=1)) for dy in (-1, 0, 1))
-    return int((own * fwd).sum() + (own * (own - 1) // 2).sum())
-
-
-def slab_bounds(spec, ext_valid: torch.Tensor, row_start: torch.Tensor,
-                hits: int) -> dict:
-    """``bounds`` for the slab forms on an extended state: the state read is
-    the extended array's (nz+1 layers), the outputs the owned layers', the
-    distance tests those the slab's own occupancy needs, and K1's records
-    those within the owned rows (``row_start``)."""
-    S = spec.slots
-    S_ext = spec.ext().slots
-    words = dense_force.mask_words(spec.cap)
-    tests = slab_half_tests(ext_valid, spec.mc)
-    work = {
-        "expand_slab": (expand_bytes(spec, row_start), 0),
-        "lists_half_slab": (S_ext * 12 + 5 * words * S * 3 * 4 + S * 4,
-                            tests * FLOPS_TEST),
-        "forces_half_slab": (S_ext * 24,
-                             tests * FLOPS_TEST + hits * FLOPS_HIT_FORCE),
-        "forces_half_slab_pe": (S_ext * 24 + S * 4, tests * FLOPS_TEST
-                                + hits * (FLOPS_HIT_FORCE + FLOPS_HIT_PE)),
-    }
-    out = bound_times(work)
-    out["distance_tests"] = tests
-    return out
-
-
 def slab_records(system: System, spec, z0: int, wrap: bool = True):
     """The slab rebuild's input over every packed record: keys relative to
     the slab at z-cell ``z0``, the (3, N) positions (wrapped) and
@@ -1822,7 +1515,6 @@ def expand_args(system: System, spec, z0: int, wrap: bool = True):
     base = spec.mc * spec.mc
     row_start = dense_cells.row_starts(keys_s, spec, base)
     return (pos, vel, pid, order, keys_s, row_start), base
-
 
 
 def emulate_slabs(cube_state, cube_spec, p: int, cfg, split: bool):
@@ -1986,14 +1678,14 @@ def small_slab_shapes(device) -> None:
 
 def slab_kernels_phase(sim: DenseSimulator) -> list[dict]:
     """The slab forms of K1-K3 against their plain versions at N = 1M,
-    cap = 40, on the P = 1 extended state of the jittered system, with
-    times; K1's slab form on a stream with records keyed below key_base;
+    cap = 40, on the P = 1 extended state of the jittered system; K1's
+    slab form on a stream with records keyed below key_base;
     P = 5 and P = 7 slabs emulated serially against the cube's sweeps.
     Returns the kernel rows."""
     cfg, cube_spec, dev = sim.config, sim.spec, sim.device
     system, _ = jittered_system(cfg.n, cfg.rho, seed=7, jitter=0.1, device=dev)
     spec = cube_slabs(cube_spec, 1)
-    mc, L = spec.mc, spec.L
+    mc = spec.mc
 
     # K1: the P = 1 slab rebuild (unwrapped keys), bitwise
     recs, base = expand_args(system, spec, 0, wrap=False)
@@ -2006,13 +1698,12 @@ def slab_kernels_phase(sim: DenseSimulator) -> list[dict]:
                                    vel=posvel[3:].contiguous(), pid=pid)
     check(int(state.valid().sum()) == cfg.n, "slab_kernels: lost particles")
     # ... and as the slab engine runs it, on its own state drifted by skin/2
-    # (the packed stream above is in pid order; its time is kept beside)
+    # (the packed stream above is in pid order)
     path_recs = slab_path_inputs(drifted_state(sim, state), spec)
     ok, _ = agree(dense_cells.expand(*path_recs, spec, base),
                   dense_cells.expand_plain(*path_recs, spec, base), True)
     check(ok, "slab_kernels: expand_slab differs from its plain version on "
           "the drifted slab state")
-    packed_ms = device_ms(lambda: dense_cells.expand(*recs, spec, base), 10)
     # K1 on a stream that holds records keyed below key_base and beyond the
     # owned range: a middle slab of P = 5 (wrapped keys) keeps exactly its
     # own records
@@ -2097,50 +1788,12 @@ def slab_kernels_phase(sim: DenseSimulator) -> list[dict]:
                   f"by {err} (split={split})")
             emulated[f"P{p}{'_split' if split else ''}"] = err
 
-    hits = int(dense_force.dense_lists_half_slab(
-        windows, spec, cfg.rc)[0][state.valid()].sum())
-    bound = slab_bounds(spec, ext_v, path_recs[5], hits)
-    check(bound["distance_tests"] == window_tests(cube.valid(), cube_spec) // 2,
-          "slab_kernels: the slab's distance tests differ from the cube's")
-    runs = {
-        "expand_slab": (
-            lambda: dense_cells.expand(*path_recs, spec, base),
-            lambda: dense_cells.expand_plain(*path_recs, spec, base)),
-        "lists_half_slab": (
-            lambda: dense_force.dense_lists_half_slab(windows, spec, cfg.rs),
-            lambda: dense_force.lists_half_plain(windows, spec, cfg.rs,
-                                                 zwrap=False)),
-        "forces_half_slab": (
-            lambda: dense_force.dense_forces_half_slab(windows, spec, cfg.rc),
-            lambda: dense_force.forces_half_plain(windows, spec, cfg.rc,
-                                                  zwrap=False)),
-        "forces_half_slab_pe": (
-            lambda: dense_force.dense_forces_half_slab(windows, spec, cfg.rc,
-                                                       True),
-            lambda: dense_force.forces_half_plain(windows, spec, cfg.rc, True,
-                                                  zwrap=False)),
-    }
-    rows = []
-    for name, (kernel, plain) in runs.items():
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": None,
-            "max_abs_err": errs[name],
-            "ms": device_ms(kernel, 10), "plain_ms": time_ms(plain, 1),
-            "bound_ms": bound[name]["bound_ms"],
-            "bound_by": bound[name]["bound_by"],
-            # no single PyTorch call computes any of these functions
-            "library_ms": None,
-        })
-        if name in ALSO_REPLACES:
-            rows[-1]["also_replaces"] = ALSO_REPLACES[name]
-    cube_ms = {"forces_half": time_ms(lambda: dense_force.dense_forces_half(
-        cube.pos, cube_spec, cfg.rc), 10)}
+    rows = [kernel_row(name, errs[name]) for name in (
+        "expand_slab", "lists_half_slab", "forces_half_slab",
+        "forces_half_slab_pe")]
     emit("slab_kernels", n=cfg.n, mc=mc, cap=spec.cap, ext_slots=spec.ext().slots,
-         hits_rc=hits, records_below_key_base=below,
-         expand_slab_packed_stream_ms=packed_ms,
-         emulated_max_force_err=emulated, force_scale=scale,
-         cube_ms_same_run=cube_ms, bounds=bound, kernels=rows)
+         records_below_key_base=below, emulated_max_force_err=emulated,
+         force_scale=scale, kernels=rows)
     return rows
 
 
@@ -2158,15 +1811,10 @@ def slab_c5_geometry(device, cfg=PRESETS["c5_dd"]) -> dict:
     system, box = jittered_system(cfg.n, cfg.rho, seed=C5_SEED, jitter=0.1,
                                   device=device)
     spec = make_slab_spec(box, cfg.rs, p, 40)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     states = [slab_state(system, spec, r * spec.nz) for r in range(p)]
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
     kept = sum(int(s.valid().sum()) for s in states)
     check(kept == cfg.n, f"slab_c5_geometry: {kept} particles kept of {cfg.n}")
     forces, seams, pairs, largest = [], [], 0, 0
-    slab_ms = None
     for r in range(p):
         nxt = states[(r + 1) % p]
         gpos, gvalid = ghost_layer(nxt.pos, nxt.valid(), spec,
@@ -2179,9 +1827,6 @@ def slab_c5_geometry(device, cfg=PRESETS["c5_dd"]) -> dict:
         counts, _ = slab_kernels.slab_lists_half(ext, ext_v, spec, cfg.rs)
         pairs += int(counts[states[r].valid()].sum())
         largest = max(largest, int(states[r].valid().sum(dim=-1).max()))
-        if r == 0:
-            slab_ms = time_ms(lambda: slab_kernels.slab_forces_half(
-                ext, ext_v, spec, cfg.rc), 5)
     for r in range(p):
         forces[(r + 1) % p][:, :spec.mc] += seams[r]
     n = cfg.n
@@ -2200,8 +1845,6 @@ def slab_c5_geometry(device, cfg=PRESETS["c5_dd"]) -> dict:
                                                    cfg.rs)[valid].sum())
     in_band = band_pairs(cube.pos, valid, cube_spec, cfg.rs)
     f3, _ = dense_force.dense_forces_half(cube.pos, cube_spec, cfg.rc)
-    cube_ms = time_ms(lambda: dense_force.dense_forces_half(
-        cube.pos, cube_spec, cfg.rc), 5)
     keep = valid.reshape(-1)
     f_cube = torch.empty_like(f_slab)
     f_cube[cube.pid.reshape(-1)[keep].long()] = f3.reshape(3, -1)[:, keep].T
@@ -2232,20 +1875,9 @@ def slab_c5_geometry(device, cfg=PRESETS["c5_dd"]) -> dict:
               "max_force_err_near_xy_faces": float(diff[near_face].max()),
               "max_force_err_off_xy_faces": err_off,
               "pairs_in_rc_band": band_pairs(cube.pos, valid, cube_spec,
-                                             cfg.rc),
-              "slab_rebuilds_s": t_build,
-              "slab0_forces_half_slab_ms": slab_ms,
-              "cube_forces_half_ms": cube_ms}
+                                             cfg.rc)}
     emit("slab_c5_geometry", **result)
     return result
-
-
-def slab_build(sim: DenseSlabSimulator, carry):
-    """One list build of the slab engine, into ``carry``'s tensors: its
-    rebuild (with the ghost layer) and the slab list pass."""
-    sim._rebuild(carry)
-    slab_kernels.slab_lists_half(*sim._ext(carry), sim.spec, sim.config.rs)
-    return carry
 
 
 def dense_slab_path(device, cfg=PRESETS["c4_sorted"]
@@ -2274,24 +1906,16 @@ def dense_slab_path(device, cfg=PRESETS["c4_sorted"]
     ke0, pe0 = (float(x) for x in sim.energies(carry))
     e0 = ke0 + pe0
     captures = sim._runner.captures
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     carry = sim.run(carry, 100)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
     pos100 = sim.gather(carry).pos.cpu().numpy()
     d = np.abs(pos100 - cube_pos)
     gap = float(np.minimum(d, sim.box.L - d).max())
     rebuilds100 = int(carry.n_rebuilds)
     migrated = int(carry.n_migrated)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     carry = sim.run(carry, cfg.steps - 100)
-    torch.cuda.synchronize()
-    run_s += time.perf_counter() - t0
     chunk = "graph" if sim.ring.capturable else "eager"
-    capture_s = (captured_seconds(sim, captures, "dense_slab")
-                 if chunk == "graph" else 0.0)
+    if chunk == "graph":
+        captured_once(sim, captures, "dense_slab")
     ke1, pe1 = (float(x) for x in sim.energies(carry))
     drift = abs((ke1 + pe1) - e0) / abs(e0)
     kept = int((carry.pid >= 0).sum())
@@ -2313,27 +1937,12 @@ def dense_slab_path(device, cfg=PRESETS["c4_sorted"]
     check(bool(torch.isfinite(carry.force).all()),
           "dense_slab: forces not finite")
 
-    at = [dense_slab._clone(carry)]  # the builds update it in place
-
-    def chain(reps=10):
-        for _ in range(reps):
-            st = at[0]
-            v2 = torch.sum(st.vel * st.vel, dim=0)
-            tau = 0.5 * cfg.skin / torch.sqrt(torch.max(v2))
-            at[0] = slab_build(sim, st._replace(pos=st.pos + tau * st.vel))
-
-    build_ms = time_ms(chain, 1) / 10
-    del at
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
     emit("dense_slab_p1", n=cfg.n, p=sim.p, cap=sim.spec.cap, nz=sim.spec.nz,
          pairs=pairs, steps=cfg.steps, energy_drift=drift, e0=e0,
          e1=ke1 + pe1, n_rebuilds=rebuilds, n_migrated=int(carry.n_migrated),
          kept=kept, max_position_gap_100_steps=gap,
          cube_rebuilds_100_steps=cube_rebuilds, chunk=chunk,
-         steps_per_s=cfg.steps / (run_s - capture_s), capture_s=capture_s,
-         build_ms=build_ms, card=smi, backend=mesh.backend_for(device))
+         backend=mesh.backend_for(device))
     need = {"expand_slab": rebuilds, "lists_half_slab": 1,
             "forces_half_slab": 2 * cfg.steps + 1, "forces_half_slab_pe": 2}
     for name, least in need.items():
@@ -2367,10 +1976,10 @@ def xla_pairs(carry) -> int:
 
 def xla_engine(device) -> tuple[dict, Simulator, object]:
     """``Simulator`` (the padded-row engine) on ``c3_verlet`` uncut: the
-    lattice start, 1000 NVE steps, the observables and 10 chained list
-    builds; then the build held against the oracle and the dense engine's
-    half count, off the counted path. Returns the launch counts, the engine
-    and its carry."""
+    lattice start, 1000 NVE steps, the observables and one list build by
+    ``rebuild_only``; then the build held against the oracle and the dense
+    engine's half count, off the counted path. Returns the launch counts,
+    the engine and its carry."""
     cfg = PRESETS["c3_verlet"]
     _cuda.reset_launches()
     sim = Simulator(cfg, device=device)
@@ -2379,12 +1988,8 @@ def xla_engine(device) -> tuple[dict, Simulator, object]:
     pairs = xla_pairs(carry)
     ke0, pe0 = (float(x) for x in sim.energies(carry))
     captures = sim._runner.captures
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     carry = sim.run(carry, cfg.steps)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    capture_s = captured_seconds(sim, captures, "xla_engine")
+    captured_once(sim, captures, "xla_engine")
     ke1, pe1 = (float(x) for x in sim.energies(carry))
     ke, pe, w = (float(x) for x in sim.thermo(carry))
     pressure = sim.pressure(carry)
@@ -2393,14 +1998,8 @@ def xla_engine(device) -> tuple[dict, Simulator, object]:
     system = carry.system
     tau = 0.5 * cfg.skin / float(torch.sqrt(torch.max(
         torch.sum(system.vel * system.vel, dim=-1))))
-
-    def chain(reps=10):
-        s = system
-        for _ in range(reps):
-            s = sim.rebuild_only(s._replace(
-                pos=sim.box.wrap(s.pos + tau * s.vel))).system
-
-    build_ms = time_ms(chain, 1) / 10
+    sim.rebuild_only(system._replace(
+        pos=sim.box.wrap(system.pos + tau * system.vel)))
     launches = no_launches("xla_engine")
 
     e0, e1 = ke0 + pe0, ke1 + pe1
@@ -2430,8 +2029,7 @@ def xla_engine(device) -> tuple[dict, Simulator, object]:
          pairs=pairs, oracle_pairs=want, dense_pairs=dense_pairs,
          force_err_vs_oracle=f_err, steps=cfg.steps, energy_drift=drift,
          e0=e0, e1=e1, n_rebuilds=rebuilds,
-         steps_per_s=cfg.steps / (run_s - capture_s), capture_s=capture_s,
-         rebuild_only_ms=build_ms, thermo={"ke": ke, "pe": pe, "virial": w},
+         thermo={"ke": ke, "pe": pe, "virial": w},
          pressure=pressure)
     return launches, sim, carry
 
@@ -2446,12 +2044,8 @@ def xla_c2(device) -> dict:
     sim = Simulator(cfg, device=device)
     carry = sim.init()
     captures = sim._runner.captures
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     carry = sim.run(carry, cfg.steps)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    capture_s = captured_seconds(sim, captures, "xla_c2")
+    captured_once(sim, captures, "xla_c2")
     pairs = xla_pairs(carry)
     rebuilds = int(carry.nbr.n_rebuilds)
     launches = no_launches("xla_c2")
@@ -2469,8 +2063,7 @@ def xla_c2(device) -> dict:
     check(not bool(carry.nbr.overflow), "xla_c2: overflow")
     emit("xla_c2", n=cfg.n, layout=cfg.layout, steps=cfg.steps,
          n_rebuilds=rebuilds, pairs=pairs, oracle_pairs=want,
-         pairs_in_cutoff_band=outer - inner,
-         steps_per_s=cfg.steps / (run_s - capture_s), capture_s=capture_s)
+         pairs_in_cutoff_band=outer - inner)
     return launches
 
 
@@ -2493,10 +2086,7 @@ def xla_compare(device) -> dict:
          pairs=pairs,
          max_cross_force_err=res["max_cross_force_err"],
          force_scale=res["force_scale"],
-         steps_per_s={name: cfg.steps / el for name, _, el, _, _
-                      in res["rows"]},
          n_rebuilds={name: r for name, _, _, r, _ in res["rows"]},
-         total_s={name: t for name, _, _, _, t in res["rows"]},
          launches=launches)
 
 
@@ -2523,54 +2113,23 @@ def outside_band(keys: torch.Tensor, pos: torch.Tensor, L: float,
     return int(((r2 - r2cut).abs() > CUTOFF_BAND * r2cut).sum())
 
 
-def calls_s(fn, reps: int = 2) -> float:
-    """Mean host seconds of ``fn()`` over ``reps`` calls after a warm-up,
-    synchronised on both sides."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / reps
-
-
 def xla_list_delivery(sim: DenseSimulator) -> dict:
     """``neighbor_list(backend="xla")`` on the caller positions of
     ``list_delivery`` (N = 1M), half and full rows, against the dense
-    backend's; the seconds a call of either backend at N = 100k and 1M, and
-    what ``auto`` picks there. Returns the launch counts of the xla calls."""
+    backend's, and what ``auto`` picks at N = 100k and 1M. Returns the
+    launch counts of the xla calls."""
     cfg, dev = sim.config, sim.device
     n, rs = cfg.n, cfg.rs
     pos, box = caller_positions(sim)
-    small, _ = jittered_system(100_000, cfg.rho, seed=7, jitter=0.1,
-                               device=dev)
     small_L = Box.from_density(100_000, cfg.rho).L
     _cuda.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     idx_h, cnt_h = neighbor_list(pos, box.L, rs, half=True, backend="xla")
-    torch.cuda.synchronize()
-    t_half = time.perf_counter() - t0
-    t0 = time.perf_counter()
     idx_f, cnt_f = neighbor_list(pos, box.L, rs, half=False, backend="xla")
-    torch.cuda.synchronize()
-    t_full = time.perf_counter() - t0
-    seconds = {"xla": {str(n): t_full, "100000": calls_s(
-        lambda: neighbor_list(small.pos, small_L, rs, backend="xla"))}}
     launches = no_launches("xla_list_delivery")
 
-    seconds["dense"] = {"100000": calls_s(
-        lambda: neighbor_list(small.pos, small_L, rs, backend="dense"))}
-    t0 = time.perf_counter()
     idx_hd, _ = neighbor_list(pos, box.L, rs, half=True, backend="dense")
-    torch.cuda.synchronize()
-    t_half_dense = time.perf_counter() - t0
-    t0 = time.perf_counter()
     idx_fd, cnt_fd = neighbor_list(pos, box.L, rs, half=False,
                                    backend="dense")
-    torch.cuda.synchronize()
-    seconds["dense"][str(n)] = time.perf_counter() - t0
     auto = {str(m): "dense" if api.use_dense("auto", dev, m, L, rs)
             else "xla" for m, L in ((100_000, small_L), (n, box.L))}
 
@@ -2605,8 +2164,6 @@ def xla_list_delivery(sim: DenseSimulator) -> dict:
          entries_full=int(cnt_f.sum()), entries_full_dense=int(cnt_fd.sum()),
          k_half=idx_h.shape[1], k_full=idx_f.shape[1],
          entries_differing_from_dense=diffs, pairs_in_cutoff_band=in_band,
-         seconds_per_call=seconds,
-         seconds_half={"xla": t_half, "dense": t_half_dense},
          auto_picks=auto, dense_api_min_n=api.DENSE_API_MIN_N)
     return launches
 
@@ -2633,20 +2190,14 @@ def lattice_pairs(cfg: MDConfig) -> int:
 
 
 def slab_rank(ring, cfg: MDConfig, system: System | None, steps: int,
-              device, rebuild_reps: int) -> dict:
+              device) -> dict:
     """One rank of ``SlabSimulator`` on the card: the lattice start by
     ``init`` and its global pair count (the owned rows' entries, summed over
     the ring, halved); then ``system`` built (None: the lattice start kept),
-    its energies, ``steps`` NVE steps, the energies, ``rebuild_reps``
-    rebuilds of the final state, the gathered System (rank 0's) and the
-    final state. The ranks run in lockstep, so rank 0's host clock,
-    synchronised, times them all."""
+    its energies, ``steps`` NVE steps, the energies and the gathered System
+    (rank 0's)."""
     sim = SlabSimulator(cfg, device=device, ring=ring)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     st = sim.init()
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     cl, m = sim.capacity.local, st.idx.shape[0]
     entries = int(ring.sum(torch.sum(st.idx[:cl] < m)))
     if system is not None:
@@ -2654,42 +2205,27 @@ def slab_rank(ring, cfg: MDConfig, system: System | None, steps: int,
         st = sim.build(system)
     ke0, pe0 = (float(x) for x in sim.energies(st))
     pid0 = st.pid.cpu().numpy()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     st = sim.run(st, steps)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
     ke1, pe1 = (float(x) for x in sim.energies(st))
-    work = slab_engine._clone(st)  # the rebuilds work in place
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(rebuild_reps):
-        sim._rebuild(work)
-    torch.cuda.synchronize()
-    rebuild_ms = (time.perf_counter() - t0) / rebuild_reps * 1e3
-    del work
     gathered = sim.gather(st)
     return {"entries": entries, "e0": ke0 + pe0, "e1": ke1 + pe1,
-            "init_s": init_s, "run_s": run_s, "rebuild_ms": rebuild_ms,
             "n_rebuilds": int(st.n_rebuilds), "overflow": bool(st.overflow),
             "forces_finite": bool(torch.isfinite(st.force).all()),
             "pid0": pid0, "pid1": st.pid.cpu().numpy(),
             "capacity": dataclasses.asdict(sim.capacity),
-            "system": gathered if ring.rank == 0 else None, "state": st}
+            "system": gathered if ring.rank == 0 else None}
 
 
 def slab_ranks(cfg: MDConfig, system: System | None, steps: int, device,
-               label: str, rebuild_reps: int) -> tuple[list, dict, dict]:
+               label: str) -> tuple[list, int, dict]:
     """``slab_rank`` on P threads of a ``LocalRing`` on the card, with the
     checks every slab phase makes: the owned entries even, every pid held
     once, the same rebuilds on every rank, no overflow, finite forces and
-    energies, |dE/E| <= 1e-4. Returns (the ranks' results, the re-homed
-    count and the seconds, the launches); rank 0's has the drift."""
+    energies, |dE/E| <= 1e-4. Returns (the ranks' results, the particles
+    re-homed, the launches); rank 0's has the drift."""
     _cuda.reset_launches()
-    t0 = time.perf_counter()
     out = mesh.run_ranks(cfg.mesh_devices, lambda ring: slab_rank(
-        ring, cfg, system, steps, device, rebuild_reps), device)
-    seconds = time.perf_counter() - t0
+        ring, cfg, system, steps, device), device)
     launches = no_launches(label)
     r0 = out[0]
     home = np.full((2, cfg.n), -1)
@@ -2710,28 +2246,7 @@ def slab_ranks(cfg: MDConfig, system: System | None, steps: int, device,
     r0["energy_drift"] = abs(r0["e1"] - r0["e0"]) / abs(r0["e0"])
     check(r0["energy_drift"] <= 1e-4,
           f"{label}: |dE/E| = {r0['energy_drift']} > 1e-4")
-    return out, {"re_homed": int((home[0] != home[1]).sum()),
-                 "seconds": seconds}, launches
-
-
-def profile_xla_slab(cfg: MDConfig, out: list, device,
-                     steps: int = 10) -> None:
-    """Device time by kernel of ``steps`` more steps of the ranks' final
-    states (``out``, from ``slab_ranks``), traced from this thread around a
-    new ring of threads: the trace holds the card's kernels of every rank."""
-    def advance(k):
-        return mesh.run_ranks(cfg.mesh_devices, lambda ring: SlabSimulator(
-            cfg, capacity=DDCapacity(**out[ring.rank]["capacity"]),
-            device=device, ring=ring)._run_chunk(out[ring.rank]["state"], k),
-            device)
-
-    traced(lambda: advance(2))  # the first trace pays the set-up
-    wall_ms, rows = traced(lambda: advance(steps))
-    busy_ms = sum(r[1] for r in rows)
-    emit("profile", path="xla_slab", steps=steps, wall_ms=wall_ms,
-         device_busy_ms=busy_ms,
-         kernels=[{"name": k[:70], "ms": ms, "calls": c}
-                  for k, ms, c in rows[:14]])
+    return out, int((home[0] != home[1]).sum()), launches
 
 
 def dense_lattice_pairs(cfg: MDConfig, device) -> int:
@@ -2754,7 +2269,6 @@ def xla_slab(device, p: int = 4, steps: int = 100) -> dict:
     >= 1 rebuild in the run, particles re-homed, and the gathered positions
     within 5e-4 of ``Simulator(half_list=False)``'s from the same start.
     Returns the launch counts of the path."""
-    t_start = time.perf_counter()
     cfg = dataclasses.replace(PRESETS["c4_sorted"], mesh_devices=p)
     want = lattice_pairs(cfg)
     dense_pairs = dense_lattice_pairs(cfg, device)
@@ -2772,8 +2286,8 @@ def xla_slab(device, p: int = 4, steps: int = 100) -> dict:
     del single, sc
     torch.cuda.empty_cache()
 
-    out, more, launches = slab_ranks(cfg, system, steps, device, "xla_slab",
-                                     rebuild_reps=3)
+    out, re_homed, launches = slab_ranks(cfg, system, steps, device,
+                                         "xla_slab")
     r0 = out[0]
     pairs = r0["entries"] // 2
     d = (r0["system"].pos - want_pos).abs()
@@ -2783,38 +2297,28 @@ def xla_slab(device, p: int = 4, steps: int = 100) -> dict:
           f"{want}, the dense engine {dense_pairs}")
     check(r0["n_rebuilds"] >= 2,
           f"xla_slab: {r0['n_rebuilds']} rebuilds, none in the run")
-    check(more["re_homed"] >= 1, "xla_slab: no particle changed slab")
+    check(re_homed >= 1, "xla_slab: no particle changed slab")
     check(gap <= 5e-4, f"xla_slab: positions after {steps} steps {gap} off "
           "Simulator(half_list=False)'s")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
     emit("xla_slab", n=cfg.n, p=p, ring="LocalRing", steps=steps,
          capacity=r0["capacity"], pairs=pairs, lattice_pairs=want,
          dense_pairs=dense_pairs, energy_drift=r0["energy_drift"],
          e0=r0["e0"], e1=r0["e1"], n_rebuilds=r0["n_rebuilds"],
-         single_rebuilds=single_rebuilds, re_homed=more["re_homed"],
-         max_position_gap=gap, steps_per_s=steps / r0["run_s"],
-         rebuild_ms=r0["rebuild_ms"], init_s=r0["init_s"],
-         ranks_seconds=more["seconds"],
-         phase_seconds=time.perf_counter() - t_start, card=smi)
-    if "--profile" in sys.argv[1:]:
-        profile_xla_slab(cfg, out, device)
+         single_rebuilds=single_rebuilds, re_homed=re_homed,
+         max_position_gap=gap)
     return launches
 
 
 def xla_slab_c5(device, steps: int = 20) -> dict:
     """``SlabSimulator`` on ``c5_dd`` (N = 8M, P = 8 on a ``LocalRing`` of
     eight threads on the one card, steps cut from 1000 to 20 for the time
-    limit; one rebuild timed): the lattice start's pairs against the
-    lattice's count and the dense engine's, then 20 steps from it. Returns
-    the launch counts."""
-    t_start = time.perf_counter()
+    limit): the lattice start's pairs against the lattice's count and the
+    dense engine's, then 20 steps from it. Returns the launch counts."""
     cfg = PRESETS["c5_dd"]
     want = lattice_pairs(cfg)
     dense_pairs = dense_lattice_pairs(cfg, device)
-    out, more, launches = slab_ranks(cfg, None, steps, device,
-                                     "xla_slab_c5", rebuild_reps=1)
+    out, re_homed, launches = slab_ranks(cfg, None, steps, device,
+                                         "xla_slab_c5")
     r0 = out[0]
     pairs = r0["entries"] // 2
     check(pairs == want == dense_pairs,
@@ -2825,10 +2329,7 @@ def xla_slab_c5(device, steps: int = 20) -> dict:
          capacity=r0["capacity"], pairs=pairs, lattice_pairs=want,
          dense_pairs=dense_pairs, energy_drift=r0["energy_drift"],
          e0=r0["e0"], e1=r0["e1"], n_rebuilds=r0["n_rebuilds"],
-         re_homed=more["re_homed"], steps_per_s=steps / r0["run_s"],
-         rebuild_ms=r0["rebuild_ms"], init_s=r0["init_s"],
-         ranks_seconds=more["seconds"],
-         phase_seconds=time.perf_counter() - t_start)
+         re_homed=re_homed)
     return launches
 
 
@@ -2855,7 +2356,6 @@ def ring_graph() -> None:
                f"--nproc-per-node={p}", "-m",
                "md_neighbor_list_tpu_torch.parallel.ring_check", "--engine",
                engine, "--preset", "c4_sorted", "--steps", "100"]
-        t0 = time.perf_counter()
         proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True,
                                 start_new_session=True)
@@ -2871,8 +2371,7 @@ def ring_graph() -> None:
         result = json.loads(out.strip().splitlines()[-1])
         check(result["ok"] and result["captures"] == 1,
               f"ring_graph {engine}: {result}")
-        emit("ring_graph", ran=True, cards=cards,
-             seconds=time.perf_counter() - t0, **result)
+        emit("ring_graph", ran=True, cards=cards, **result)
 
 
 def cli_phase() -> None:
@@ -2890,7 +2389,6 @@ def cli_phase() -> None:
                                 "--engine", "xla", "--resume", ckpt]),
                 ("dense_slab_p1", ["--steps", "50", "--engine", "dense_slab",
                                    "--mesh-devices", "1"])):
-            t0 = time.perf_counter()
             out = subprocess.run(
                 [sys.executable, "-m", "md_neighbor_list_tpu_torch",
                  "--preset", "c3_verlet", *args], capture_output=True,
@@ -2900,8 +2398,7 @@ def cli_phase() -> None:
             summary = out.stdout.strip().splitlines()[-1]
             check("--check-parity" not in args or "parity=OK" in summary,
                   f"cli {name}: {summary}")
-            runs[name] = {"seconds": time.perf_counter() - t0,
-                          "summary": summary}
+            runs[name] = {"summary": summary}
     emit("cli", runs=runs)
 
 
@@ -2917,377 +2414,6 @@ def agree(got, want, exact: bool) -> tuple[bool, float]:
     return all(ok for ok, _ in results), max(err for _, err in results)
 
 
-def sweep_times(device, which: str, reps: int = 20) -> None:
-    """``--half-sweep-times``: K3 (both forms, cube and P = 1 slab) and K4,
-    and K3 on the scattered-slot twin; ``--list-full-times``: K2 (cube and
-    P = 1 slab forms) and K6 (both forms), each also on the scattered-slot
-    twin; ``--count-times``: K5 and K7, each also on the scattered-slot
-    twin. At N = 1M, cap = 40 on full_width's jittered state, each first
-    held against its plain version (K2, K5 and K7 bitwise), then timed (CUDA
-    events, ``reps`` launches). Prints one JSON line and no result line. Kernel
-    variants are compared by running this script in each tree, one process
-    per tree, in turns on one card."""
-    cfg = PRESETS["c4_sorted"]
-    system, box = jittered_system(cfg.n, cfg.rho, seed=7, jitter=0.1,
-                                  device=device)
-    spec = dense_cells.make_spec(box, cfg.rs, 40)
-    state, _ = dense_cells.rebuild_dense(dense_cells.from_packed(
-        system.pos, system.vel, system.pid, spec), spec)
-    valid = state.valid()
-    slab, windows, _ = p1_windows(state.pos, valid, spec)
-    sc = scatter_slots(state, spec, 5)
-    sc_valid = sc.valid()
-    pos, rc, rs, df = state.pos, cfg.rc, cfg.rs, dense_force
-    if which == "half_sweep_times":
-        runs = {  # name: (kernel, plain version, bitwise)
-            "forces_half": (
-                lambda: df.dense_forces_half(pos, spec, rc)[0],
-                lambda: df.forces_half_plain(pos, spec, rc)[0], False),
-            "forces_half_pe": (
-                lambda: df.dense_forces_half(pos, spec, rc, True),
-                lambda: df.forces_half_plain(pos, spec, rc, True), False),
-            "pe_virial_half": (
-                lambda: df.dense_pe_virial(pos, spec, rc),
-                lambda: df.pe_virial_half_plain(pos, spec, rc), False),
-            "forces_half_slab": (
-                lambda: df.dense_forces_half_slab(windows, slab, rc)[0],
-                lambda: df.forces_half_plain(windows, slab, rc,
-                                             zwrap=False)[0], False),
-            "forces_half_slab_pe": (
-                lambda: df.dense_forces_half_slab(windows, slab, rc, True),
-                lambda: df.forces_half_plain(windows, slab, rc, True,
-                                             zwrap=False), False),
-            "forces_half_scattered": (
-                lambda: df.dense_forces_half(sc.pos, spec, rc)[0],
-                lambda: df.forces_half_plain(sc.pos, spec, rc)[0], False),
-        }
-    elif which == "count_times":
-        runs = {
-            "count_half": (
-                lambda: df.dense_counts_half(pos, spec, rs),
-                lambda: df.counts_half_plain(pos, spec, rs), True),
-            "count_half_scattered": (
-                lambda: df.dense_counts_half(sc.pos, spec, rs),
-                lambda: df.counts_half_plain(sc.pos, spec, rs), True),
-            "count_full": (
-                lambda: df.dense_counts(pos, valid, spec, rs),
-                lambda: df.counts_full_plain(pos, valid, spec, rs), True),
-            "count_full_scattered": (
-                lambda: df.dense_counts(sc.pos, sc_valid, spec, rs),
-                lambda: df.counts_full_plain(sc.pos, sc_valid, spec, rs),
-                True),
-        }
-    else:
-        runs = {
-            "lists_half": (
-                lambda: df.dense_lists_half(pos, spec, rs),
-                lambda: df.lists_half_plain(pos, spec, rs), True),
-            "lists_half_slab": (
-                lambda: df.dense_lists_half_slab(windows, slab, rs),
-                lambda: df.lists_half_plain(windows, slab, rs, zwrap=False),
-                True),
-            "lists_half_scattered": (
-                lambda: df.dense_lists_half(sc.pos, spec, rs),
-                lambda: df.lists_half_plain(sc.pos, spec, rs), True),
-            "force_full": (
-                lambda: df.dense_forces(pos, valid, spec, rc, False)[0],
-                lambda: df.forces_full_plain(pos, valid, spec, rc, False)[0],
-                False),
-            "force_full_pe": (
-                lambda: df.dense_forces(pos, valid, spec, rc, True),
-                lambda: df.forces_full_plain(pos, valid, spec, rc, True),
-                False),
-            "force_full_scattered": (
-                lambda: df.dense_forces(sc.pos, sc_valid, spec, rc, False)[0],
-                lambda: df.forces_full_plain(sc.pos, sc_valid, spec, rc,
-                                             False)[0], False),
-        }
-    ms = {}
-    for name, (kernel, plain, exact) in runs.items():
-        ok, err = agree(kernel(), plain(), exact)
-        check(ok, f"{which}: {name} off its plain version by {err}")
-        ms[name] = time_ms(kernel, reps)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    emit(which, n=cfg.n, cap=spec.cap, reps=reps, card=smi,
-         nvcc_flags=os.environ.get("MDNL_NVCC_FLAGS", ""), ms=ms)
-
-
-def list_force_times(device, reps: int = 20) -> None:
-    """``--list-force-times``: the NVE step's force over the half list
-    (``dense_forces_list``, K3's trace name) against the cell sweep
-    (``dense_forces_half``), cap = 40, at ``c4_sorted`` (N = 1M) and at
-    ``lammps_lj`` (LAMMPS ``bench/in.lj`` x 4, N = 2,048,000 from fcc), each
-    on the engine's state after 200 NVE steps, rebuilt, then drifted by
-    skin/2 (the last state before the vote fires); see ``_list_force_times``.
-    Then the NVE step run by ``run`` with its force forced to the sweep and
-    to the list: steps/s over 300 steps after 100, for the configurations
-    that rebuild every step (``c2_cell`` as preset and ``c4_sorted`` with
-    ``rebuild_every_step``) and for ``lammps_lj`` under its own displacement
-    trigger. One JSON line and no result line: the timing of kernel variants,
-    one tree at a time."""
-    by_preset = {name: _list_force_times(PRESETS[name], device, reps)
-                 for name in ("c4_sorted", "lammps_lj")}
-    every_step, nve = {}, {}
-    for out, name, c in (
-            (every_step, "c2_cell", PRESETS["c2_cell"]),
-            (every_step, "c4_sorted", dataclasses.replace(
-                PRESETS["c4_sorted"], rebuild_every_step=True)),
-            (nve, "lammps_lj", PRESETS["lammps_lj"])):
-        out[name] = {}
-        for side in ("sweep", "list"):
-            sim = DenseSimulator(c, cap=40, device=device)
-            sim._reads_list = (lambda: True) if side == "list" \
-                else (lambda: False)
-            carry = sim.run(sim.init(), 100)  # the capture, warm
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            carry = sim.run(carry, 300)
-            torch.cuda.synchronize()
-            out[name][side] = 300 / (time.perf_counter() - t0)
-            check(not bool(carry.overflow) and sim.cap == 40,
-                  f"list_force_times: {name} ({side}) overflowed")
-            del sim, carry
-            torch.cuda.empty_cache()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    emit("list_force_times", reps=reps, card=smi,
-         nvcc_flags=os.environ.get("MDNL_NVCC_FLAGS", ""), **by_preset,
-         every_step_steps_per_s=every_step, nve_steps_per_s=nve)
-
-
-def _list_force_times(cfg, device, reps: int) -> dict:
-    """One configuration of ``list_force_times``: first the list of the
-    rebuilt state is built (``build_half_list``: K2, the count, the starts,
-    the pack), its count and pack held bitwise against their plain versions,
-    then the list's force on the drifted state against the sweep's and the
-    plain version's, and the list's pairs within rc against the sweep's
-    count. Then each is timed by ``device_ms`` (``reps`` calls)."""
-    sim = DenseSimulator(cfg, cap=40, device=device)
-    spec, df = sim.spec, dense_force
-    carry = sim.run(sim.init(), 200)
-    new, _ = dense_cells.rebuild_dense(carry.state, spec)
-    del carry
-    lst = df.half_list_buffers(spec, cfg.n, cfg.rs, device)
-    check(not bool(df.build_half_list(new.pos, spec, cfg.rs, lst)),
-          "list_force_times: the list overflowed its capacity")
-    counts, masks = df.dense_lists_half(new.pos, spec, cfg.rs)
-    nsparse, lanes = torch.zeros_like(lst.nsparse), torch.zeros_like(lst.lanes)
-    df.count_half_list_plain(masks, counts, nsparse, spec)
-    df.pack_half_list_plain(masks, counts, lst.start, lanes, spec)
-    check(torch.equal(nsparse, lst.nsparse) and torch.equal(lanes, lst.lanes),
-          "list_force_times: the count or pack is off its plain version")
-    drifted = drifted_state(sim, new)
-    f_list = df.dense_forces_list(drifted.pos, lst, spec, cfg.rc)
-    for name, want in (
-            ("sweep", df.dense_forces_half(drifted.pos, spec, cfg.rc)[0]),
-            ("plain", df.forces_list_plain(drifted.pos, lst, spec, cfg.rc))):
-        ok, err = force_close(f_list, want)
-        check(ok, f"list_force_times: the list's force off the {name} by "
-                  f"{err}")
-    p = drifted.pos.reshape(3, -1)
-    pairs_rc = 0
-    for own, part, shift in (df.dense_pairs(drifted.pos, spec),
-                             df.list_pairs(lst, spec)):
-        d = p[:, own] - (p[:, part] + shift)
-        r2 = (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2]
-        pairs_rc += int((r2 < float(np.float32(cfg.rc * cfg.rc))).sum())
-    counts_rc = df.dense_counts_half(drifted.pos, spec, cfg.rc)
-    sweep_rc = int(counts_rc[drifted.valid()].sum())
-    check(pairs_rc == sweep_rc, f"list_force_times: {pairs_rc} listed pairs "
-                                f"within rc against the sweep's {sweep_rc}")
-    pairs_rs = int(counts[new.valid()].sum())
-    listed = int(nsparse.sum())
-    del own, part, shift, p, d, r2, lanes
-    df._window_slots.cache_clear()
-    out = torch.empty_like(drifted.pos)
-    ms = {
-        "forces_list": device_ms(lambda: df.dense_forces_list(
-            drifted.pos, lst, spec, cfg.rc, out=out), reps),
-        "forces_half_sweep": device_ms(lambda: df.dense_forces_half(
-            drifted.pos, spec, cfg.rc), reps),
-        "lists_half": device_ms(lambda: df.dense_lists_half(
-            new.pos, spec, cfg.rs), reps),
-        "list_count": device_ms(lambda: df.count_half_list(
-            masks, counts, nsparse, spec), reps),
-        "list_pack": device_ms(lambda: df.pack_half_list(
-            masks, counts, lst.start, lst.lanes, spec), reps),
-        "build_half_list": device_ms(lambda: df.build_half_list(
-            new.pos, spec, cfg.rs, lst), reps),
-    }
-    result = dict(n=cfg.n, cap=spec.cap, mc=spec.mc, pairs_rs=pairs_rs,
-                  listed=listed, capacity=df.list_capacity(spec, cfg.n,
-                                                           cfg.rs),
-                  pairs_rc=pairs_rc, ms=ms)
-    del sim, new, drifted, lst, counts, masks, nsparse, out, f_list
-    df._window_slots.cache_clear()
-    torch.cuda.empty_cache()
-    return result
-
-
-def rebuild_times(device, reps: int = 20) -> None:
-    """``--rebuild-times``: K1 (cube), its slab form, K1 on the mover stream
-    and K8, each first held bitwise against its plain version, and the
-    rebuilds around them (``rebuild_full_ms``, the incremental rebuild's
-    keys, sort and mover expand ``keys_sort_expand_movers_ms``,
-    ``rebuild_incremental_ms``), at N = 1M, cap = 40, on the c4_sorted
-    engine's state after 200 NVE steps drifted by skin/2 (what a rebuild
-    sees when the vote fires; the slab form on the P = 1 slab engine's
-    input made from it). Each is timed (CUDA events, ``reps`` calls) in
-    order, then in the reverse order, and both times are printed with the
-    kernels' bounds: the kernels' device time (``device_ms``) and their time
-    through the wrapper as the engine calls them (``wrapper_ms``, CUDA events
-    around the calls), the rebuilds' as the engine calls them. One JSON line
-    and no result line: the timing of kernel variants, one tree at a time."""
-    cfg = PRESETS["c4_sorted"]
-    sim = DenseSimulator(cfg, cap=40, device=device)
-    spec = sim.spec
-    state = drifted_state(sim, sim.run(sim.init(), 200).state)
-    slab = cube_slabs(spec, 1)
-    base = slab.mc * slab.mc
-    cube = expand_inputs(state, spec)
-    slab_recs = slab_path_inputs(state, slab)
-    movers = mover_inputs(state, spec)
-    args, _ = incremental.merge_inputs(state, spec)
-    dc = dense_cells
-    runs = {  # name: (kernel or rebuild, plain version)
-        "expand": (lambda: dc.expand(*cube, spec),
-                   lambda: dc.expand_plain(*cube, spec)),
-        "expand_slab": (lambda: dc.expand(*slab_recs, slab, base),
-                        lambda: dc.expand_plain(*slab_recs, slab, base)),
-        "expand_movers": (lambda: dc.expand(*movers, spec),
-                          lambda: dc.expand_plain(*movers, spec)),
-        "merge": (lambda: incremental.merge(*args, spec),
-                  lambda: incremental.merge_plain(*args, spec)),
-        "rebuild_full_ms": (lambda: dc.rebuild_dense(state, spec), None),
-        "keys_sort_expand_movers_ms": (
-            lambda: incremental.merge_inputs(state, spec), None),
-        "rebuild_incremental_ms": (
-            lambda: incremental.rebuild_dense_incremental(state, spec), None),
-    }
-    for name, (kernel, plain) in runs.items():
-        if plain is not None:
-            ok, _ = agree(kernel(), plain(), True)
-            check(ok, f"rebuild_times: {name} differs from its plain version")
-    ms = {name: [] for name in runs}
-    wrapper_ms = {name: [] for name, (_, plain) in runs.items() if plain}
-    for names in (list(runs), list(reversed(runs))):
-        for name in names:
-            fn, plain = runs[name]
-            ms[name].append((device_ms if plain else time_ms)(fn, reps))
-            if plain:
-                wrapper_ms[name].append(time_ms(fn, reps))
-    # a yardstick: one PyTorch fill of the bytes K1 and K8 write (7 words a
-    # slot), the least a kernel that writes them takes on this card
-    out = torch.empty((7, spec.slots), dtype=torch.float32, device=device)
-    ms["fill_output_bytes"] = [device_ms(lambda: out.fill_(1.0), reps)]
-    nbytes = {"expand": expand_bytes(spec, cube[5]),
-              "expand_slab": expand_bytes(slab, slab_recs[5]),
-              "expand_movers": expand_bytes(spec, movers[5]),
-              "merge": merge_bytes(spec, args)}
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    emit("rebuild_times", n=cfg.n, cap=spec.cap, reps=reps, card=smi,
-         movers=int((args[2].pid >= 0).sum()), ms=ms, wrapper_ms=wrapper_ms,
-         bound_ms={k: b / PEAK_BYTES_PER_S * 1e3 for k, b in nbytes.items()})
-
-
-def traced(fn) -> tuple[float, list]:
-    """Host ms of ``fn()`` under ``torch.profiler`` (synchronised), and its
-    device kernels as (name, device ms, calls), longest first."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return wall_ms, sorted(rows, key=lambda r: -r[1])
-
-
-def profile_steps(sim: DenseSimulator, carry, path: str,
-                  steps: int = 50, eager: bool = False) -> None:
-    """Device time of ``steps`` NVE steps by kernel and in all (compare
-    ``device_busy_ms / steps`` with the path's untraced time per step:
-    tracing slows the host side down). The steps are a chunk (for the engines
-    with a chunk runner, replays of the captured step), or with ``eager``
-    a loop of ``step_fn``."""
-    at = [carry]  # the steps update the carry's tensors in place
-
-    def advance(nsteps: int) -> None:
-        if not eager:
-            at[0] = sim._run_chunk(at[0], nsteps)
-            return
-        for _ in range(nsteps):
-            at[0] = sim.step_fn(at[0])
-
-    def rebuilds() -> int:  # the xla engine keeps its count in ``nbr``
-        return int(getattr(at[0], "nbr", at[0]).n_rebuilds)
-
-    traced(lambda: advance(5))  # the first trace pays the set-up
-    before = rebuilds()
-    wall_ms, rows = traced(lambda: advance(steps))
-    busy_ms = sum(r[1] for r in rows)
-    emit("profile", path=path, steps=steps, wall_ms=wall_ms,
-         graph=not eager and hasattr(sim, "_runner"),
-         device_busy_ms=busy_ms,
-         rebuilds=rebuilds() - before,
-         kernels=[{"name": k[:70], "ms": ms, "calls": c}
-                  for k, ms, c in rows[:14]])
-
-
-def profile_neighbor_list(sim: DenseSimulator) -> None:
-    """Device time by kernel of one ``neighbor_list`` call at full width,
-    and in all."""
-    cfg = sim.config
-    pos, box = caller_positions(sim)
-    wall_ms, rows = traced(lambda: neighbor_list(
-        pos, box.L, cfg.rs, half=True, backend="dense"))
-    busy_ms = sum(r[1] for r in rows)
-    emit("profile_neighbor_list", n=cfg.n, half=True, wall_ms=wall_ms,
-         device_busy_ms=busy_ms,
-         kernels=[{"name": k[:70], "ms": ms, "calls": c}
-                  for k, ms, c in rows[:8]])
-
-
-def profile_xla(sim: Simulator, carry) -> None:
-    """The xla engine under the profiler: 50 steps, and one list build
-    (``rebuild_only``) with its device time."""
-    profile_steps(sim, carry, "xla_engine")
-    wall_ms, rows = traced(lambda: sim.rebuild_only(carry.system))
-    busy_ms = sum(r[1] for r in rows)
-    emit("profile_rebuild", path="xla_engine", wall_ms=wall_ms,
-         device_busy_ms=busy_ms,
-         device_ops=sum(r[2] for r in rows),
-         kernels=[{"name": k[:70], "ms": ms, "calls": c}
-                  for k, ms, c in rows[:10]])
-
-
-def profile_rebuilds(sim: DenseSimulator, state, reps: int = 10) -> None:
-    """Device time by kernel of ``reps`` incremental and ``reps`` full
-    rebuilds of one skin/2-drifted state, with the device time in all and
-    the device operations per rebuild: what bounds a rebuild."""
-    runs = (("incremental",
-             lambda: incremental.rebuild_dense_incremental(state, sim.spec)),
-            ("full", lambda: dense_cells.rebuild_dense(state, sim.spec)))
-    for path, fn in runs:
-        traced(fn)  # the first trace pays the set-up
-        wall_ms, rows = traced(lambda: [fn() for _ in range(reps)])
-        busy_ms = sum(r[1] for r in rows)
-        emit("profile_rebuild", path=path, reps=reps, wall_ms=wall_ms,
-             device_busy_ms=busy_ms,
-             device_ops_per_rebuild=sum(r[2] for r in rows) / reps,
-             kernels=[{"name": k[:70], "ms": ms, "calls": c}
-                      for k, ms, c in rows[:8]])
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -3300,41 +2426,24 @@ def main() -> int:
     emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    t0 = time.perf_counter()
     _cuda.library()
-    t_kernels = time.perf_counter() - t0
     native.load()  # the host decoder of the list delivery path (g++)
-    emit("build", seconds=t_kernels,
-         decoder_seconds=time.perf_counter() - t0 - t_kernels,
-         ptxas=[line for text in _cuda.build_log for line in text.splitlines()
-                if "registers" in line or "entry function" in line
-                or "spill" in line or "error" in line.lower()])
+    emit("build", ptxas=[line for text in _cuda.build_log
+                         for line in text.splitlines()
+                         if "registers" in line or "entry function" in line
+                         or "spill" in line or "error" in line.lower()])
 
     device = torch.device("cuda")
-    for flag in ("--half-sweep-times", "--list-full-times", "--count-times"):
-        if flag in sys.argv[1:]:
-            sweep_times(device, flag[2:].replace("-", "_"))
-            return 0
-    if "--rebuild-times" in sys.argv[1:]:
-        rebuild_times(device)
-        return 0
-    if "--list-force-times" in sys.argv[1:]:
-        list_force_times(device)
-        return 0
-    if "--xla-slab" in sys.argv[1:]:
-        xla_slab(device)
-        return 0
     small_shapes(device)
     sim = DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device)
     rows = full_width(sim)
     rows += integrator_kernels("c4_sorted", device)
-    if "--profile" in sys.argv[1:]:
-        integrator_kernels("lammps_lj", device)
+    integrator_kernels("lammps_lj", device)
+    torch.cuda.empty_cache()
+    list_sweep(device)
+    torch.cuda.empty_cache()
     sim = DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device)
     launches, carry = main_path(sim)
-    if "--profile" in sys.argv[1:]:
-        profile_steps(sim, carry, "main_path")
-        profile_neighbor_list(sim)
     graph_chunk(sim, carry, "main_path")
     build_graph(sim, carry, "main_path")
     del carry
@@ -3344,9 +2453,6 @@ def main() -> int:
                          incremental=True)
     inc, carry = incremental_path(sim)
     row_k8, numbers = incremental_kernels(sim, carry.state)
-    if "--profile" in sys.argv[1:]:
-        profile_rebuilds(sim, drifted_state(sim, carry.state))
-        profile_steps(sim, carry, "incremental")
     graph_chunk(sim, carry, "incremental")
     build_graph(sim, carry, "incremental")
     del carry
@@ -3362,8 +2468,6 @@ def main() -> int:
           f"slab_c5_geometry: not the c5_dd geometry: {c5}")
     torch.cuda.empty_cache()
     slab, carry, sim = dense_slab_path(device)
-    if "--profile" in sys.argv[1:]:
-        profile_steps(sim, carry, "dense_slab")
     graph_chunk(sim, carry, "dense_slab")
     del carry, sim
     torch.distributed.destroy_process_group()
@@ -3371,8 +2475,6 @@ def main() -> int:
     entry_launches = entry_phase(device)
     torch.cuda.empty_cache()
     launches_x, sim, carry = xla_engine(device)
-    if "--profile" in sys.argv[1:]:
-        profile_xla(sim, carry)
     graph_chunk(sim, carry, "xla_engine")
     del carry, sim
     xla_launches = {"xla_engine": launches_x, "xla_c2": xla_c2(device)}

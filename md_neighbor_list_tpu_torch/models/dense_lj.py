@@ -54,9 +54,9 @@ The timed list build, ``_rebuild_and_lists``, is one device program on the
 card too, as the JAX ``jit`` of the rebuild and the list kernel is: the
 caller's state is copied into the engine's own buffers and one captured graph
 (the rebuild, its branches as conditional nodes, then the list kernel) is
-replayed. What it returns are the graph's own tensors, which the next build
-overwrites; ``_rebuild_and_lists_eager`` is its eager twin, which the CPU
-runs.
+replayed. On the CPU the same build step runs eagerly on the same buffers.
+On either device what it returns are the engine's own tensors, which the
+next build overwrites.
 
 Which implementation runs is decided by the device alone: tensors on a CUDA
 device go through the CUDA kernels, tensors on the CPU through their plain
@@ -228,18 +228,6 @@ class DenseSimulator:
         return dense_force.dense_forces_half(state.pos, self.spec,
                                              self.config.rc, want_pe)
 
-    def _rebuilt(self, state: DenseState) -> DenseState:
-        """The rebuild of ``_rebuild_and_lists_eager``, into new tensors: the
-        full one, or with ``incremental`` the incremental one unless its
-        window predicate holds (one host read)."""
-        if not self.incremental:
-            return rebuild_dense(state, self.spec)[0]
-        new, window_overflow = rebuild_dense_incremental(state, self.spec)
-        self._taken.add_(torch.stack([~window_overflow, window_overflow]))
-        if bool(window_overflow):
-            return rebuild_dense(state, self.spec)[0]
-        return new
-
     def _rebuild(self, carry: DenseCarry, need, cond) -> None:
         """Rebuild ``carry`` in place where the 0-d bool ``need`` holds
         (``None``: always), branching through ``cond``: the rebuilt state is
@@ -366,43 +354,13 @@ class DenseSimulator:
         slots). Returns (new_state, counts, masks, total), ``total`` a 0-d
         tensor.
 
-        On the card, one replay of a captured graph (``_captured_build``):
-        the returned tensors are the engine's, and the next build overwrites
-        them (clone what must outlive it; the masks are about 206 MB at
-        N = 1M). On the CPU, the eager twin, into new tensors."""
-        if state.pos.is_cuda:
-            return self._captured_build(state)
-        return self._rebuild_and_lists_eager(state)
-
-    def _rebuild_and_lists_eager(self, state: DenseState):
-        """``_rebuild_and_lists`` eagerly, into new tensors, the window
-        predicate of the incremental engine read on the host."""
-        new = self._rebuilt(state)
-        counts, masks = dense_force.dense_lists_half(new.pos, self.spec,
-                                                     self.config.rs)
-        total = torch.sum(torch.where(new.valid(), counts, 0))
-        return new, counts, masks, total
-
-    def _build_step(self, state: DenseState, cond) -> None:
-        """The list build as a step: ``state`` rebuilt in place (the
-        incremental engine's branches through ``cond``), then the list kernel;
-        leaves (counts, masks, total) in ``self._lists``. Made during a
-        capture, those are the graph's outputs."""
-        def take(new: DenseState) -> None:
-            for dst, src in zip(state, new):
-                dst.copy_(src)
-
-        self._rebuild_state(state, None, cond, take)
-        counts, masks = dense_force.dense_lists_half(state.pos, self.spec,
-                                                     self.config.rs)
-        total = torch.sum(torch.where(state.valid(), counts, 0))
-        self._lists = (counts, masks, total)
-
-    def _captured_build(self, state: DenseState):
-        """``state`` copied into the engine's build buffers, then the build
-        step once by the build's chunk runner: on the card one replay of a
-        graph captured for the spec (again after the capacity grows), with no
-        host read; on the CPU the step eagerly."""
+        ``state`` is copied into the engine's build buffers, then the build
+        step runs once by the build's chunk runner: on the card one replay of
+        a graph captured for the spec (again after the capacity grows), with
+        no host read; on the CPU the step eagerly, the incremental engine's
+        window predicate read on the host. On either device the returned
+        tensors are the engine's, and the next build overwrites them (clone
+        what must outlive it; the masks are about 206 MB at N = 1M)."""
         spec = self.spec
         shape = (spec.rows, spec.mc, spec.cap)
         if self._build_in is None or self._build_in.pid.shape != shape:
@@ -419,6 +377,21 @@ class DenseSimulator:
                                [*buf, self._taken, self._window],
                                key=(spec, self.incremental))
         return (buf, *self._lists)
+
+    def _build_step(self, state: DenseState, cond) -> None:
+        """The list build as a step: ``state`` rebuilt in place (the
+        incremental engine's branches through ``cond``), then the list kernel;
+        leaves (counts, masks, total) in ``self._lists``. Made during a
+        capture, those are the graph's outputs."""
+        def take(new: DenseState) -> None:
+            for dst, src in zip(state, new):
+                dst.copy_(src)
+
+        self._rebuild_state(state, None, cond, take)
+        counts, masks = dense_force.dense_lists_half(state.pos, self.spec,
+                                                     self.config.rs)
+        total = torch.sum(torch.where(state.valid(), counts, 0))
+        self._lists = (counts, masks, total)
 
     @staticmethod
     def _kinetic(state: DenseState) -> torch.Tensor:

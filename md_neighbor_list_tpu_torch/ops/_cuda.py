@@ -3,8 +3,8 @@
 The sources have a plain C interface (no PyTorch headers), so ``nvcc``
 compiles each in seconds. ``library()`` compiles every ``csrc/*.cu`` for
 ``sm_90a`` — one ``nvcc`` per source, all started together — links them into
-one shared library under ``build/`` (named by a hash of the sources and of
-``MDNL_NVCC_FLAGS``, so an edit rebuilds) and loads it with ``ctypes``. Nothing is built when this
+one shared library under ``build/`` (named by a hash of the sources, so an
+edit rebuilds) and loads it with ``ctypes``. Nothing is built when this
 module is imported; the first kernel launch builds.
 
 ``launch(name, ...)`` is the only place a kernel is launched: it calls the C
@@ -24,7 +24,6 @@ import ctypes
 import hashlib
 import os
 import pathlib
-import shlex
 import shutil
 import subprocess
 import threading
@@ -112,15 +111,9 @@ def _nvcc() -> str:
     return found
 
 
-def _extra_flags() -> list[str]:
-    """Further nvcc flags from the environment, for measurements of a compile
-    time variant (``MDNL_NVCC_FLAGS=-maxrregcount=40``)."""
-    return shlex.split(os.environ.get("MDNL_NVCC_FLAGS", ""))
-
-
 def _sources() -> tuple[list[pathlib.Path], str]:
     cu = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(_extra_flags()).encode())
+    h = hashlib.sha256(b"")
     for path in cu + sorted(CSRC.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -132,8 +125,7 @@ def _build(cu: list[pathlib.Path], out: pathlib.Path) -> None:
     work = BUILD / f"obj-{out.stem}-{os.getpid()}"
     work.mkdir(parents=True, exist_ok=True)
     flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC),
-             *_extra_flags()]
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC)]
     procs = []
     for src in cu:  # one nvcc per source, all in flight together
         obj = work / (src.stem + ".o")

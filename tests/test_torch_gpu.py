@@ -17,7 +17,8 @@ from md_neighbor_list_tpu_torch.ops import (_cuda, dense_cells, dense_force,
 from md_neighbor_list_tpu_torch.utils import graphs
 from torch_port_util import (BAND_N, BAND_RHO, CASES, RC, RS,
                              clustered_system, cutoff_band_inputs,
-                             numpy_system, scatter_slots, torch_state)
+                             numpy_system, ops_build, scatter_slots,
+                             torch_state)
 
 pytestmark = pytest.mark.gpu
 
@@ -983,20 +984,22 @@ def test_ring_check_on_two_cards_or_more(card, engine):
 def test_captured_build_equals_the_eager_twin(card, incremental,
                                               monkeypatch):
     """``_rebuild_and_lists`` on the card (the caller's state copied in, one
-    replay of the captured build) against its eager twin, from a state whose
-    mover stream trips the window predicate and from a drifted one that does
-    not: state, counts, masks and total bitwise, the same branch counts; one
-    capture for both calls, whose outputs the second call overwrites."""
+    replay of the captured build) against the build the ops make
+    (``ops_build``), from a state whose mover stream trips the window
+    predicate and from a drifted one that does not: state, counts, masks and
+    total bitwise, the branch the ops take counted once; one capture for
+    both calls, whose outputs the second call overwrites."""
     from md_neighbor_list_tpu_torch import DenseSimulator, MDConfig
 
     n, cap = 13824, 32
     sim = DenseSimulator(MDConfig(n=n), cap=cap, device=card,
                          incremental=incremental)
+    rs = sim.config.rs
     pos, vel, pid = numpy_system(n, seed=21)
     seed = dense_cells.from_packed(torch.from_numpy(pos).to(card),
                                    torch.from_numpy(1.4 * vel).to(card),
                                    torch.from_numpy(pid).to(card), sim.spec)
-    new = sim._rebuild_and_lists_eager(seed)[0]
+    new = ops_build(seed, sim.spec, rs, incremental)[0]
     g = torch.Generator(card).manual_seed(1)
     dr = 0.08 * torch.randn(new.pos.shape, generator=g, device=card)
     drifted = new._replace(pos=new.pos + torch.where(new.valid()[None], dr,
@@ -1005,18 +1008,17 @@ def test_captured_build_equals_the_eager_twin(card, incremental,
     outputs = []
     start = sim._taken.clone()
     for state in (seed, drifted):
+        want = ops_build(state, sim.spec, rs, incremental)
         taken = sim._taken.clone()
-        want = sim._rebuild_and_lists_eager(state)
-        by_eager = sim._taken - taken
         got = sim._rebuild_and_lists(state)
-        assert torch.equal(sim._taken - taken, 2 * by_eager)
-        for a, b in zip((*got[0], *got[1:]), (*want[0], *want[1:])):
+        assert (sim._taken - taken).tolist() == want[4]
+        for a, b in zip((*got[0], *got[1:]), (*want[0], *want[1:4])):
             assert torch.equal(a, b)
         outputs.append([t.data_ptr() for t in (*got[0], *got[1:])])
     assert sim._build_runner.captures == 1
     assert outputs[0] == outputs[1]
-    if incremental:  # the seed falls back, the drift is merged: each twice
-        assert (sim._taken - start).tolist() == [2, 2]
+    if incremental:  # the seed falls back, the drift is merged
+        assert (sim._taken - start).tolist() == [1, 1]
 
 
 def test_refused_capture_raises_and_runs_nothing_eagerly(card):

@@ -18,7 +18,8 @@ from md_neighbor_list_tpu_torch.parallel.dense_slab import DenseSlabSimulator
 from md_neighbor_list_tpu_torch.parallel.mesh import LocalRing, Ring, run_ranks
 from md_neighbor_list_tpu_torch.parallel.slab import SlabSimulator
 from md_neighbor_list_tpu_torch.utils import convert, graphs
-from torch_port_util import assert_state_equal, jax_state, numpy_system
+from torch_port_util import (assert_state_equal, jax_state, numpy_system,
+                             ops_build)
 
 HOT = dict(dt=0.005, temperature=2.0)  # a rebuild every few steps
 
@@ -215,7 +216,7 @@ def test_incremental_branch_counts_follow_the_jax_engine():
         jnew = jdc.rebuild_dense(js, jspec, True)[0] if bool(inc_of) else inc
         want_taken[int(bool(inc_of))] += 1
 
-        new = sim._rebuilt(carry.state)  # the path of the eager build
+        new = sim._rebuild_and_lists(carry.state)[0]  # the list build's
         assert_state_equal(new, jnew, parked_pos=False)
         sim._rebuild(carry, None, graphs.eager_cond)  # the step's path
         assert_state_equal(carry.state, jnew, parked_pos=False)
@@ -228,28 +229,29 @@ def test_build_step_equals_the_eager_build(incremental):
     """The list build as the card captures it (the caller's state copied into
     the engine's buffers, rebuilt there in place, the incremental engine's
     branches through ``cond``), run here by the chunk runner's eager path:
-    state, counts, masks and total bitwise those of the eager twin, from a
-    state whose mover stream trips the window predicate and from a drifted
-    one that does not, with the same branch counts."""
+    state, counts, masks and total bitwise those the ops build
+    (``ops_build``), from a state whose mover stream trips the window
+    predicate and from a drifted one that does not, with the branch the ops
+    take counted once."""
     n, cap = 13824, 32
     sim = DenseSimulator(MDConfig(n=n), cap=cap, device="cpu",
                          incremental=incremental)
+    rs = sim.config.rs
     seed = _dense_carry_from_seed(sim).state
-    drifted = _drifted(sim._rebuild_and_lists_eager(seed)[0], 0.08, 1)
+    drifted = _drifted(ops_build(seed, sim.spec, rs, incremental)[0], 0.08, 1)
     start = sim._taken.clone()
     for state in (seed, drifted):
+        want = ops_build(state, sim.spec, rs, incremental)
         taken = sim._taken.clone()
-        want = sim._rebuild_and_lists_eager(state)
-        by_eager = sim._taken - taken
-        got = sim._captured_build(state)
-        assert torch.equal(sim._taken - taken, 2 * by_eager)
+        got = sim._rebuild_and_lists(state)
+        assert (sim._taken - taken).tolist() == want[4]
         for a, b in zip(got[0], want[0]):
             assert torch.equal(a, b)
-        for a, b in zip(got[1:], want[1:]):
+        for a, b in zip(got[1:], want[1:4]):
             assert torch.equal(a, b)
     if incremental:
-        # the seed falls back, the drift is merged: each twice
-        assert (sim._taken - start).tolist() == [2, 2]
+        # the seed falls back, the drift is merged
+        assert (sim._taken - start).tolist() == [1, 1]
     assert sim._build_runner.captures == 0
 
 

@@ -16,6 +16,9 @@ from md_neighbor_list_tpu.core.box import Box as JBox
 from md_neighbor_list_tpu.ops import dense_cells as jdc
 from md_neighbor_list_tpu_torch.core.box import Box as TBox
 from md_neighbor_list_tpu_torch.ops import dense_cells as tdc
+from md_neighbor_list_tpu_torch.ops import dense_force
+from md_neighbor_list_tpu_torch.ops.incremental import \
+    rebuild_dense_incremental
 
 # (n, cap): L = 12 -> mc = 4 with one and two mask words; n = 700 -> mc = 3,
 # where every neighbour row and x-cell wraps around the box
@@ -170,6 +173,26 @@ def assert_state_equal(tstate, jstate, parked_pos: bool = True):
         if name == "pos" and not parked_pos:
             t, j = t[:, valid], j[:, valid]
         np.testing.assert_array_equal(t, j, err_msg=name)
+
+
+def ops_build(state, spec, rs: float, incremental: bool = False):
+    """The list build from the ops themselves, into new tensors: the full
+    rebuild (``rebuild_dense``), or with ``incremental`` the incremental one
+    unless its window predicate holds, where the full one is taken; then the
+    half-list kernel at ``rs`` and the total over valid slots. Returns
+    (new_state, counts, masks, total, taken), ``taken`` the branches the
+    engine counts: [incremental rebuilds kept, full fallbacks]."""
+    taken = [0, 0]
+    full = not incremental
+    if incremental:
+        new, window_overflow = rebuild_dense_incremental(state, spec)
+        full = bool(window_overflow)
+        taken[int(full)] = 1
+    if full:
+        new = tdc.rebuild_dense(state, spec)[0]
+    counts, masks = dense_force.dense_lists_half(new.pos, spec, rs)
+    total = torch.sum(torch.where(new.valid(), counts, 0))
+    return new, counts, masks, total, taken
 
 
 def scatter_slots(state, spec, seed: int):
