@@ -654,12 +654,11 @@ SOURCES = {
                    "md_neighbor_list_tpu/ops/pallas_force.py:230"),
     "merge": ("md_neighbor_list_tpu_torch/csrc/merge.cu",
               "md_neighbor_list_tpu/ops/incremental.py:127"),
-    # the NVE step's K3 over the half list, and the list's count and pack
-    # (no TPU kernel: the JAX step sweeps the cells)
+    # the NVE step's K3 over the half list, and the list's build (no TPU
+    # kernel: the JAX step sweeps the cells)
     "forces_list": ("md_neighbor_list_tpu_torch/csrc/force_list.cu",
                     "md_neighbor_list_tpu/ops/pallas_force.py:613"),
-    "list_count": ("md_neighbor_list_tpu_torch/csrc/force_list.cu", None),
-    "list_pack": ("md_neighbor_list_tpu_torch/csrc/force_list.cu", None),
+    "list_sparse": ("md_neighbor_list_tpu_torch/csrc/list_sparse.cu", None),
     # the NVE step's integrator (no TPU kernel: the JAX step's half kick,
     # drift and vote, which XLA fuses; md_neighbor_list_tpu/models/
     # dense_lj.py:128)
@@ -701,9 +700,9 @@ def full_width(sim: DenseSimulator) -> list[dict]:
     """Every kernel against its plain version at N = 1M, cap = 40: on a
     jittered state, on its scattered-slot twin and, for K2 and the full
     sweep, on the main path's lattice start; K1 also on the rebuilt state
-    drifted by skin/2; the NVE step's list kernels (K3 over the list, the
-    list's count and pack) on the jittered state's list, K3 also drifted by
-    skin/2. Returns the kernel table's rows."""
+    drifted by skin/2; the NVE step's list kernels (the list's build, K3
+    over the list) on the jittered state's list, K3 also drifted by skin/2.
+    Returns the kernel table's rows."""
     cfg, spec, dev = sim.config, sim.spec, sim.device
     system, _ = jittered_system(cfg.n, cfg.rho, seed=7, jitter=0.1, device=dev)
     state0 = dense_cells.from_packed(system.pos, system.vel, system.pid, spec)
@@ -741,22 +740,11 @@ def full_width(sim: DenseSimulator) -> list[dict]:
     ok, _ = agree(dense_cells.expand(*drift_recs, spec),
                   dense_cells.expand_plain(*drift_recs, spec), True)
     check(ok, "full_width/drifted: expand differs from its plain version")
-    # the NVE step's list of this rebuilt state (K2 at rs, the count, the
-    # starts, the pack): count and pack bitwise their plain versions, the
-    # list-driven K3 against its plain version here and drifted by skin/2
-    lst = dense_force.half_list_buffers(spec, cfg.n, cfg.rs, dev)
-    check(not bool(dense_force.build_half_list(pos, spec, cfg.rs, lst)),
-          "full_width: the step's list overflowed its capacity")
-    counts_rs, masks_rs = dense_force.dense_lists_half(pos, spec, cfg.rs)
-    nsparse, lanes = torch.zeros_like(lst.nsparse), torch.zeros_like(lst.lanes)
-    dense_force.count_half_list_plain(masks_rs, counts_rs, nsparse, spec)
-    dense_force.pack_half_list_plain(masks_rs, counts_rs, lst.start, lanes,
-                                     spec)
-    check(torch.equal(nsparse, lst.nsparse),
-          "full_width: list_count differs from its plain version")
-    check(torch.equal(lanes, lst.lanes),
-          "full_width: list_pack differs from its plain version")
-    errs["list_count"] = errs["list_pack"] = errs["forces_list"] = 0.0
+    # the NVE step's list of this rebuilt state: the list's kernel bitwise
+    # its plain version, the list-driven K3 against its plain version here
+    # and drifted by skin/2
+    lst = list_bitwise(pos, spec, cfg, "full_width")
+    errs["list_sparse"] = errs["forces_list"] = 0.0
     drifted = drifted_state(sim, state).pos
     for p in (pos, drifted):
         ok, err = force_close(
@@ -768,8 +756,8 @@ def full_width(sim: DenseSimulator) -> list[dict]:
     rows = [kernel_row(name, errs[name]) for name in (
         "expand", "lists_half", "forces_half", "forces_half_pe",
         "pe_virial_half", "count_half", "force_full", "force_full_pe",
-        "count_full", "forces_list", "list_count", "list_pack")]
-    del lst, counts_rs, masks_rs, nsparse, lanes, drifted
+        "count_full", "forces_list", "list_sparse")]
+    del lst, drifted
     dense_force._window_slots.cache_clear()
     emit("kernels_full_width", n=cfg.n, mc=spec.mc, cap=spec.cap,
          slots=spec.slots, listed=listed,
@@ -828,15 +816,31 @@ def integrator_kernels(preset: str, device) -> list[dict]:
 
 
 # ------------------------------------------------------ list and sweep
+def list_bitwise(pos, spec, cfg, label: str):
+    """The step's list of ``pos`` at ``cfg.rs`` by its kernel, held bit for
+    bit (starts, counts, entries, the overflow flag) against its plain
+    version run on the same card tensors; returns the kernel's list."""
+    lst = dense_force.half_list_buffers(spec, cfg.n, cfg.rs, pos.device)
+    flag = dense_force.build_half_list(pos, spec, cfg.rs, lst)
+    check(not bool(flag), f"{label}: the step's list overflowed its capacity")
+    ref = dense_force.half_list_buffers(spec, cfg.n, cfg.rs, pos.device)
+    check(not bool(dense_force.build_half_list_plain(pos, spec, cfg.rs, ref)),
+          f"{label}: the plain list overflowed its capacity")
+    for name, got, want in zip(ref._fields, lst, ref):
+        check(torch.equal(got, want),
+              f"{label}: list_sparse's {name} differs from its plain version")
+    return lst
+
+
 def list_sweep(device) -> None:
     """The NVE step's half list against the cell sweep at the shapes of
     ``c4_sorted`` (N = 1M) and ``lammps_lj`` (LAMMPS ``bench/in.lj`` x 4,
     N = 2,048,000 from fcc), each on the engine's state after 200 NVE steps
     (cap still 40), rebuilt, then drifted by skin/2 (the last state before
-    the vote fires): the list built (``build_half_list``: K2, the count,
-    the starts, the pack) without overflow, its count and pack bitwise their
-    plain versions, its force on the drifted state against the sweep's and
-    the plain version's, its pairs within rc those the sweep counts. Then
+    the vote fires): the list built (``build_half_list``, one kernel)
+    without overflow and bitwise its plain version, its force on the drifted
+    state against the sweep's and the plain version's, its pairs within rc
+    those the sweep counts. Then
     ``c2_cell``, which rebuilds every step and so keeps the sweep in its
     step: 100 steps by ``run`` at cap 40, a rebuild each, no list force."""
     for preset in ("c4_sorted", "lammps_lj"):
@@ -871,15 +875,8 @@ def list_against_sweep(cfg: MDConfig, device) -> dict:
           f"list_sweep: {cfg.n} particles: the run grew cap to {sim.cap}")
     new, _ = dense_cells.rebuild_dense(carry.state, spec)
     del carry
-    lst = df.half_list_buffers(spec, cfg.n, cfg.rs, device)
-    check(not bool(df.build_half_list(new.pos, spec, cfg.rs, lst)),
-          "list_sweep: the list overflowed its capacity")
-    counts, masks = df.dense_lists_half(new.pos, spec, cfg.rs)
-    nsparse, lanes = torch.zeros_like(lst.nsparse), torch.zeros_like(lst.lanes)
-    df.count_half_list_plain(masks, counts, nsparse, spec)
-    df.pack_half_list_plain(masks, counts, lst.start, lanes, spec)
-    check(torch.equal(nsparse, lst.nsparse) and torch.equal(lanes, lst.lanes),
-          "list_sweep: the count or pack is off its plain version")
+    lst = list_bitwise(new.pos, spec, cfg, "list_sweep")
+    counts = df.dense_counts_half(new.pos, spec, cfg.rs)
     drifted = drifted_state(sim, new)
     f_list = df.dense_forces_list(drifted.pos, lst, spec, cfg.rc)
     errs = {}
@@ -902,7 +899,7 @@ def list_against_sweep(cfg: MDConfig, device) -> dict:
                                 f"within rc against the sweep's {sweep_rc}")
     result = dict(n=cfg.n, cap=spec.cap, mc=spec.mc,
                   pairs_rs=int(counts[new.valid()].sum()),
-                  listed=int(nsparse.sum()),
+                  listed=int(lst.nsparse.sum()),
                   capacity=df.list_capacity(spec, cfg.n, cfg.rs),
                   pairs_rc=pairs_rc, max_force_err=errs)
     df._window_slots.cache_clear()
@@ -948,8 +945,7 @@ def main_path(sim: DenseSimulator) -> dict:
          energy_drift=drift, e0=e0, e1=ke1 + pe1, pressure=pressure,
          n_rebuilds=rebuilds, kept=kept)
 
-    need = {"expand": rebuilds + 1, "lists_half": rebuilds + 1,
-            "list_count": rebuilds, "list_pack": rebuilds,
+    need = {"expand": rebuilds + 1, "lists_half": 1, "list_sparse": rebuilds,
             "forces_list": steps + 1, "kick_drift_vote": steps,
             "kick": steps, "forces_half_pe": 2, "pe_virial_half": 1}
     for name, least in need.items():
@@ -1444,7 +1440,7 @@ def incremental_path(sim: DenseSimulator):
          energy_drift=drift, e0=e0, e1=ke1 + pe1, n_rebuilds=rebuilds,
          kept=kept, incremental_rebuilds=taken[0], full_fallbacks=taken[1])
     need = {"merge": rebuilds - 1, "expand": rebuilds + taken[1],
-            "forces_list": cfg.steps + 1}
+            "list_sparse": rebuilds, "forces_list": cfg.steps + 1}
     for name, least in need.items():
         check(launches[name] >= least,
               f"launches: {name} launched {launches[name]} times on the "

@@ -1,15 +1,16 @@
 // K3 on the half list: the NVE step's Newton-3 Lennard-Jones forces at the
 // cutoff rc over the pairs of the half list at rs = rc + skin that the last
-// rebuild built, and the pack that turns K2's masks into that list.
+// rebuild built (list_sparse.cu builds it).
 //
 // Replaces md_neighbor_list_tpu/ops/pallas_force.py::_force_half_kernel as
 // the JAX engine's step launches it (the cube form without PE). The cell
 // sweep (force_half.cu, half_sweep.cuh) stays for every caller that holds no
 // fresh list.
 //
-// THE PAIR SET. The list holds K2's bits (lists_half.cu) at rs for the state
-// of the last rebuild: own slot i of cell c has window lane v when K2 set
-// bit i of its mask word at v. Between rebuilds the slots and the image
+// THE PAIR SET. The list holds the pairs within rs of the state of the last
+// rebuild that K2 (lists_half.cu) would find in the ten sparse cells: own
+// slot i of cell c has window lane v when K2 would set bit i of its mask
+// word at v (the same test, list_sparse.cu). Between rebuilds the slots and the image
 // shifts stay those of that rebuild (positions drift unwrapped), and the
 // step rebuilds before any particle has moved more than skin/2 from where
 // it was then (the vote 4 * max|d|^2 > skin^2). So a pair within rc now was
@@ -77,32 +78,16 @@
 //     varies from run to run, so the forces agree with the plain version to
 //     rounding, not bitwise.
 //
-// The pack (list_pack_kernel), once a rebuild in the rebuild's branch after
-// K2, in two launches: the count (WRITE false: nsparse), then, after the
-// prefix sum of the counts, the write (WRITE true: lanes). One warp per own
-// cell, lane b taking own slot 32w + b of mask word w. The warp loads word
-// w of 32 list positions at a time (a lane each) and transposes the
-// 32 x 32 bits by shuffles, so that lane b holds the positions where its
-// slot has a partner; the count adds their popcounts, the write stores them
-// from its start in list order: the same list, bit for bit, from run to
-// run. The count takes 0.074 ms and the write 0.21 ms a rebuild (PERF.md;
-// the write took 0.29 while the starts also spanned the dense cells' pairs,
-// 0.43 as a warp per own slot scanning the positions by ballots).
 #include "half_sweep.cuh"
 
 namespace mdnl {
 
-// Chunks of 32 list positions whose mask words a lane loads at once.
-constexpr int kPackChunks = 4;
 // Window lanes a thread loads per round (loads in flight at once).
 constexpr int kListItems = 5;
 // Lanes the sparse walk gives one own slot (four own slots a warp): 16
 // ran 11 % and 32 13 % slower (PERF.md).
 constexpr int kSparseLanes = 8;
 constexpr int kSlotsWarp = 32 / kSparseLanes;
-// Dense cells of the window: the own cell and its three face neighbours.
-constexpr int kDenseCells = 4;
-constexpr int kSparseCells = kHalfRowsLanes - kDenseCells;
 // Partner columns a warp takes at a time in the dense walk: with 1 the
 // dense cells' three columns or so spread over three warps; 2 and 4
 // (half_sweep.cuh's) ran 1.5-20 % slower (PERF.md).
@@ -115,13 +100,6 @@ constexpr int kListMinBlocks = 12;
 // List entries of one cell staged in shared memory (8 KB): about 300 at
 // cap 40 in the liquid; a longer cell reads the rest from global memory.
 constexpr int kListStage = 4096;
-
-// The partner cell (pc, half_row_lane's order) at pack position q: the ten
-// sparse cells 2, 4-8, 10-13 first, then the dense ones 0, 1, 3, 9; four
-// bits each.
-__device__ __forceinline__ int pack_cell(int q) {
-  return (int)((0x9310dcba876542ull >> (4 * q)) & 0xf);
-}
 
 // Shared memory of one force block: half_sweep.cuh's, with the four dense
 // cells' lanes as its partners.
@@ -138,110 +116,6 @@ inline bool list_force_plan(int cap, int& warps) {
   for (warps = kHalfWarps; warps >= 1; warps /= 2)
     if (list_force_shared(cap, warps) <= limit) return true;
   return false;
-}
-
-// The table of the 14 partner cells of own cell c (lists_half.cu's): first
-// flat slot, row k, first lane in the row, own cell; and the image shift.
-__device__ __forceinline__ void window_table(int mc, int cap, float L,
-                                             const CellId& c, int4* cell_i,
-                                             float4* cell_shift) {
-  if (threadIdx.x < kHalfRowsLanes) {
-    const int pc = threadIdx.x;
-    const int k = pc < 2 ? 0 : 1 + (pc - 2) / 3;
-    const int seg = pc < 2 ? pc + 1 : (pc - 2) % 3;
-    int dz, dy;
-    float xs, ys, zs;
-    half_offset(k, dz, dy);
-    const int slot0 =
-        partner_slot<true>(mc, cap, L, c, dz, dy, seg * cap, xs, ys, zs);
-    cell_i[pc] = make_int4(slot0, k, seg * cap, pc == 0);
-    cell_shift[pc] = make_float4(xs, ys, zs, 0.f);
-  }
-}
-
-// The 32 x 32 bit matrix whose row i lane i holds, transposed: lane j gets
-// column j (bit i of it is bit j of lane i's word). Five butterfly steps,
-// each swapping the off-diagonal blocks of one size between lane pairs.
-__device__ __forceinline__ unsigned transpose32(unsigned x, int lane) {
-  const unsigned masks[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu,
-                             0x33333333u, 0x55555555u};
-#pragma unroll
-  for (int t = 0; t < 5; ++t) {
-    const int s = 16 >> t;
-    const unsigned m = masks[t];
-    const unsigned y = __shfl_xor_sync(0xffffffffu, x, s);
-    x = (lane & s) ? ((x & ~m) | ((y >> s) & m)) : ((x & m) | ((y & m) << s));
-  }
-  return x;
-}
-
-// The window lane v of list position o (the sparse cells in list order),
-// and its mask word's row k and lane l in the row.
-__device__ __forceinline__ int sparse_lane(int o, int cap, float inv_cap,
-                                           int& k, int& l) {
-  int slot;
-  const int pc = pack_cell(div_rem(o, cap, inv_cap, slot));  // 2..13
-  k = 1 + (pc - 2) / 3;
-  l = ((pc - 2) % 3) * cap + slot;
-  return pc * cap + slot;
-}
-
-// WRITE false: each slot's count of partners in the sparse cells into
-// nsparse; true: those partners into lanes from the slot's start, entries
-// at or past the capacity not stored.
-template <bool WRITE>
-__global__ void __launch_bounds__(32)
-list_pack_kernel(const int* __restrict__ masks, const int* __restrict__ counts,
-                 const int* __restrict__ start, short* __restrict__ lanes,
-                 int* __restrict__ nsparse, int mc, int cap, int capacity) {
-  const int lane = threadIdx.x;
-  const int words = (cap + 31) / 32;
-  const int win = 3 * cap, nsp = kSparseCells * cap;
-  const size_t own0 = (size_t)blockIdx.x * cap;
-  const size_t plane = (size_t)mc * mc * mc * win;  // mask words of one (k, w)
-  const int* cell_masks = masks + (size_t)blockIdx.x * win;
-  const float inv_cap = 1.0f / cap;
-  for (int ww = 0; ww < words; ++ww) {
-    // lane b takes own slot i = 32ww + b: its partners, in list order
-    const int i = 32 * ww + lane;
-    const bool has = i < cap && counts[own0 + i] > 0;
-    if (__ballot_sync(0xffffffffu, has) == 0u) {  // warp-uniform
-      if (!WRITE && i < cap) nsparse[own0 + i] = 0;
-      continue;
-    }
-    const int s = WRITE && has ? start[own0 + i] : 0;
-    int got = 0;
-    for (int c0 = 0; c0 < nsp; c0 += 32 * kPackChunks) {
-      // word ww of list positions c0 + 32t + lane, loads in flight together
-      unsigned m[kPackChunks];
-#pragma unroll
-      for (int t = 0; t < kPackChunks; ++t) {
-        const int o = c0 + 32 * t + lane;
-        m[t] = 0u;
-        if (o < nsp) {
-          int k, l;
-          sparse_lane(o, cap, inv_cap, k, l);
-          m[t] = (unsigned)cell_masks[(size_t)(k * words + ww) * plane + l];
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < kPackChunks; ++t) {
-        // bit j: list position c0 + 32t + j has own slot i within rs
-        unsigned h = transpose32(m[t], lane);
-        if (!WRITE) {
-          got += __popc(h);
-          continue;
-        }
-        for (; h != 0u; h &= h - 1u, ++got) {
-          const int o = c0 + 32 * t + __ffs(h) - 1;
-          int k, l;
-          if (s + got < capacity)
-            lanes[s + got] = (short)sparse_lane(o, cap, inv_cap, k, l);
-        }
-      }
-    }
-    if (!WRITE && i < cap) nsparse[own0 + i] = got;
-  }
 }
 
 template <int KIND, bool ZWRAP>
@@ -501,30 +375,6 @@ force_half_kernel(const float* __restrict__ pos,
 }
 
 }  // namespace mdnl
-
-// masks (5, words, R, mc, 3cap) i32 and counts (R, mc, cap) i32 from K2;
-// writes nsparse (R, mc, cap) i32.
-extern "C" int mdnl_list_count(const void* masks, const void* counts,
-                               void* nsparse, int mc, int cap, void* stream) {
-  using namespace mdnl;
-  if (cap < 1 || kHalfRowsLanes * cap > 32767) return (int)cudaErrorInvalidValue;
-  list_pack_kernel<false><<<mc * mc * mc, 32, 0, (cudaStream_t)stream>>>(
-      (const int*)masks, (const int*)counts, nullptr, nullptr, (int*)nsparse,
-      mc, cap, 0);
-  return (int)cudaGetLastError();
-}
-
-// the same, and start (R, mc, cap) i32; writes lanes (capacity,) i16.
-extern "C" int mdnl_list_pack(const void* masks, const void* counts,
-                              const void* start, void* lanes, int mc, int cap,
-                              int capacity, void* stream) {
-  using namespace mdnl;
-  if (cap < 1 || kHalfRowsLanes * cap > 32767) return (int)cudaErrorInvalidValue;
-  list_pack_kernel<true><<<mc * mc * mc, 32, 0, (cudaStream_t)stream>>>(
-      (const int*)masks, (const int*)counts, (const int*)start, (short*)lanes,
-      nullptr, mc, cap, capacity);
-  return (int)cudaGetLastError();
-}
 
 // pos (3, R, mc, cap); the list (start, nsparse, lanes); force (3, R, mc,
 // cap), zeroed by the caller. occupied_below: a slot whose stored x is below

@@ -14,8 +14,9 @@ cap growth; the particle state lives in the dense cell-block layout
   last rebuild are reused — every rc-pair of the drifted state was within
   rs at the rebuild while 2*max_disp <= skin, so it is in the list.
 
-The list (``ops/dense_force.py::build_half_list``: the list kernel K2 at rs,
-then its pack) is built where every rebuild ends, in ``take``, into buffers
+The list (``ops/dense_force.py::build_half_list``: one kernel, each slot's
+partners within rs in the ten sparse cells of its window, placed by a
+single-pass scan) is built where every rebuild ends, in ``take``, into buffers
 the engine owns, and read by the list-driven force kernel at every step
 (``dense_forces_list``); it is a function of the carry's ``ref_pos`` (the
 positions of its last rebuild), so a carry the list was not built for (a

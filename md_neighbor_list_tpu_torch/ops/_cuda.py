@@ -52,10 +52,9 @@ _ENTRIES = {
     # K3 on the half list: pos, start, nsparse, lanes, force, mc, cap, L,
     # r2cut, occupied_below, capacity
     "forces_list": [_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I],
-    # the list's count and pack: masks, counts, nsparse, mc, cap; masks,
-    # counts, start, lanes, mc, cap, capacity
-    "list_count": [_P, _P, _P, _I, _I],
-    "list_pack": [_P, _P, _P, _P, _I, _I, _I],
+    # the step's half list in one kernel: pos, start, nsparse, lanes, status
+    # (scratch), overflow, mc, cap, L, r2cut, occupied_below, capacity
+    "list_sparse": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _I],
     # the slab forms of K1-K3: the expand's arguments and key_base; the
     # sweeps' arguments and nz_grid, nz_arr (layers walked, layers read),
     # then occupied_below

@@ -8,13 +8,13 @@ name changes because nothing here is Pallas): ``dense_lists_half``,
 ``dense_forces`` and ``dense_counts`` launch hand-written CUDA kernels
 (``csrc/lists_half.cu``, which also holds the half count, ``force_half.cu``,
 ``pe_virial_half.cu`` and ``force_full.cu``, which also holds the full count)
-on CUDA tensors; ``count_half_list``, ``pack_half_list`` and
-``dense_forces_list``, the NVE step's force over the half list of its last
-rebuild, launch ``csrc/force_list.cu``.
+on CUDA tensors; ``build_half_list``, the NVE step's half list, launches
+``csrc/list_sparse.cu``, and ``dense_forces_list``, the step's force over
+the half list of its last rebuild, ``csrc/force_list.cu``.
 Beside each stands its plain PyTorch version (``lists_half_plain``,
 ``forces_half_plain``, ``pe_virial_half_plain``, ``counts_half_plain``,
-``forces_full_plain``, ``counts_full_plain``, ``count_half_list_plain``,
-``pack_half_list_plain``, ``forces_list_plain``), taken only for tensors that
+``forces_full_plain``, ``counts_full_plain``, ``build_half_list_plain``,
+``forces_list_plain``), taken only for tensors that
 lie on the CPU; it is what the CPU tests run and what the kernels are held against
 on the card.
 
@@ -414,9 +414,9 @@ def dense_forces_half_slab(pos: torch.Tensor, spec, rc: float,
 
 # ------------------------------------------------- K3 on the half list
 # The NVE step's force between rebuilds reads the half list at rs that the
-# last rebuild built (``build_half_list``): K2's bits in the ten sparse
-# cells counted (``count_half_list``) and packed into per-slot partner lanes
-# (``pack_half_list``), then the step's forces (``dense_forces_list``). The
+# last rebuild built (``build_half_list``): each slot's partners within rs in
+# the ten sparse cells, K2's bits there counted and packed into per-slot
+# partner lanes, then the step's forces (``dense_forces_list``). The
 # window lanes are half_row_lane's numbering (csrc/half_sweep.cuh): partner cell pc = v // cap (0: the own cell, 1: its
 # x+1, then cells x-1, x, x+1 of rows 1-4), slot v % cap. The force sweeps
 # the four dense cells (the own cell and its face neighbours, where 71 % of
@@ -516,33 +516,20 @@ def _sparse_bits(masks: torch.Tensor, spec):
 
 def count_half_list_plain(masks: torch.Tensor, counts: torch.Tensor,
                           nsparse: torch.Tensor, spec) -> None:
-    """Plain PyTorch version of ``count_half_list``."""
+    """Each slot's count of K2's bits (``masks``) in the ten sparse cells
+    (``SPARSE_CELLS``) into ``nsparse``: the length of its list."""
     bits, _ = _sparse_bits(masks, spec)
     nsparse.reshape(-1).copy_(bits.sum(1))
-
-
-def count_half_list(masks: torch.Tensor, counts: torch.Tensor,
-                    nsparse: torch.Tensor, spec) -> None:
-    """Each slot's count of K2's bits (``masks``; ``counts`` says which
-    slots have any) in the ten sparse cells (``SPARSE_CELLS``) into
-    ``nsparse``: the length of its list.
-
-    Kernel: ``csrc/force_list.cu`` (``list_pack_kernel<false>``), bitwise
-    its plain version: the pack's transposes, a popcount for the writes.
-    CPU tensors take ``count_half_list_plain``."""
-    if not masks.is_cuda:
-        count_half_list_plain(masks, counts, nsparse, spec)
-        return
-    _cuda.check_cuda(masks, counts, nsparse)
-    _cuda.launch("list_count", masks, counts, nsparse, spec.mc, spec.cap)
 
 
 def pack_half_list_plain(masks: torch.Tensor, counts: torch.Tensor,
                          start: torch.Tensor, lanes: torch.Tensor,
                          spec) -> None:
-    """Plain PyTorch version of ``pack_half_list``: the set bits of the
-    masks in the sparse cells, each slot's at its start in list order, those
-    past ``lanes.numel()`` dropped."""
+    """The set bits of K2's masks in the ten sparse cells into the list:
+    slot s's partners there at ``lanes[start[s]:start[s] + nsparse[s]]``,
+    in list order (cell by cell of ``SPARSE_CELLS``, slot by slot), those
+    past ``lanes.numel()`` dropped. The four dense cells' bits are not
+    packed: the force sweeps those cells."""
     bits, order = _sparse_bits(masks, spec)
     n = bits.sum(1)
     slot, col = torch.nonzero(bits, as_tuple=True)
@@ -553,44 +540,53 @@ def pack_half_list_plain(masks: torch.Tensor, counts: torch.Tensor,
     lanes[at[keep]] = order[col[keep]].to(torch.int16)
 
 
-def pack_half_list(masks: torch.Tensor, counts: torch.Tensor,
-                   start: torch.Tensor, lanes: torch.Tensor, spec) -> None:
-    """K2's bits (``masks``; ``counts`` says which slots have any) in the
-    ten sparse cells (``SPARSE_CELLS``) into the list: slot s's partners
-    there at ``lanes[start[s]:start[s] + nsparse[s]]`` (``count_half_list``
-    counted them), in list order (cell by cell of ``SPARSE_CELLS``, slot by
-    slot), entries past the capacity dropped (the caller flags that). The
-    four dense cells' bits are not packed: the force sweeps those cells.
-
-    Kernel: ``csrc/force_list.cu`` (``list_pack_kernel<true>``), bitwise
-    its plain version: a warp per own cell, a lane per own slot, transposes
-    the mask bits of 32 window lanes at a time by shuffles and writes its
-    slot's lanes. CPU tensors take ``pack_half_list_plain``."""
-    if not masks.is_cuda:
-        pack_half_list_plain(masks, counts, start, lanes, spec)
-        return
-    _cuda.check_cuda(masks, counts, start, lanes)
-    _cuda.launch("list_pack", masks, counts, start, lanes, spec.mc,
-                 spec.cap, lanes.numel())
+def build_half_list_plain(pos4: torch.Tensor, spec, rs: float,
+                          out: HalfList) -> torch.Tensor:
+    """Plain PyTorch version of ``build_half_list``: K2's masks and counts
+    at ``rs`` (``lists_half_plain``), each slot's count of partners in the
+    sparse cells, its start (an exclusive prefix sum of those counts,
+    clipped at the capacity), then the pack."""
+    counts, masks = lists_half_plain(pos4, spec, rs)
+    count_half_list_plain(masks, counts, out.nsparse, spec)
+    flat = out.nsparse.reshape(-1)
+    ends = torch.cumsum(flat, 0, dtype=torch.int64)
+    capacity = out.lanes.numel()
+    out.start.reshape(-1).copy_(torch.clamp(ends - flat, max=capacity))
+    pack_half_list_plain(masks, counts, out.start, out.lanes, spec)
+    return ends[-1] > capacity
 
 
 def build_half_list(pos4: torch.Tensor, spec, rs: float,
                     out: HalfList) -> torch.Tensor:
     """The half list at ``rs`` of the rebuilt state ``pos4`` into ``out``:
-    K2 (``dense_lists_half``, unchanged; its counts and masks are scratch,
-    freed here), each slot's count of partners in the sparse cells, its
-    start (an exclusive prefix sum of those counts, clipped at the
-    capacity), then the pack. Returns a 0-d bool tensor: the list has more
-    entries than its capacity, so some are not stored (the caller raises the
-    carry's overflow flag). Nothing is read on the host."""
-    counts, masks = dense_lists_half(pos4, spec, rs)
-    count_half_list(masks, counts, out.nsparse, spec)
-    flat = out.nsparse.reshape(-1)
-    ends = torch.cumsum(flat, 0, dtype=torch.int64)
-    capacity = out.lanes.numel()
-    out.start.reshape(-1).copy_(torch.clamp(ends - flat, max=capacity))
-    pack_half_list(masks, counts, out.start, out.lanes, spec)
-    return ends[-1] > capacity
+    each slot's partners within ``rs`` in the ten sparse cells
+    (``SPARSE_CELLS``), K2's bits there (``dense_lists_half``), counted
+    (``nsparse``), placed from each slot's start (an exclusive prefix sum of
+    the counts over flat slots, clipped at the capacity) in list order (cell
+    by cell of ``SPARSE_CELLS``, slot by slot), the entries past the
+    capacity not stored. Returns a 0-d bool tensor: the list has more
+    entries than its capacity, so some are not stored (the caller raises
+    the carry's overflow flag). Nothing is read on the host.
+
+    Kernel: ``csrc/list_sparse.cu`` (``list_sparse_kernel``), bitwise its
+    plain version: a block per own cell tests its occupied slots against
+    those of the ten sparse cells only, keeps the hits in shared memory,
+    places the cell's entries by a single-pass scan over the cells
+    (decoupled look-back, its status words zeroed by a kernel just before)
+    and stores them as one contiguous range. No mask reaches device memory.
+    CPU tensors take ``build_half_list_plain``."""
+    _check_state(pos4, spec)
+    if not pos4.is_cuda:
+        return build_half_list_plain(pos4, spec, rs, out)
+    _cuda.check_cuda(pos4, *out)
+    if out.lanes.data_ptr() % 16:
+        raise ValueError("the list's lanes must be 16-byte aligned")
+    status = torch.empty(spec.mc**3 + 1, dtype=torch.int64, device=pos4.device)
+    overflow = torch.empty((), dtype=torch.bool, device=pos4.device)
+    _cuda.launch("list_sparse", pos4, out.start, out.nsparse, out.lanes,
+                 status, overflow, spec.mc, spec.cap, _f32(spec.L),
+                 _f32(rs * rs), OCCUPIED_BELOW, out.lanes.numel())
+    return overflow
 
 
 def list_pairs(lst: HalfList, spec):

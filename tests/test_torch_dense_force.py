@@ -147,7 +147,7 @@ SKIN = RS - RC
 
 def _list_of(ts, tspec):
     """The half list at RS of the rebuilt state ``ts`` (the plain
-    versions: K2, the starts, the pack)."""
+    version: K2's bits in the sparse cells, the starts, the pack)."""
     lst = tdf.half_list_buffers(tspec, int(ts.valid().sum()), RS, "cpu")
     assert not bool(tdf.build_half_list(ts.pos, tspec, RS, lst))
     return lst

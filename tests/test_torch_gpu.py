@@ -727,9 +727,10 @@ def test_traced_chunk_marks_each_rebuild_on_the_device(card):
 def test_traced_chunk_marks_the_half_list_inside_each_rebuild(card):
     """The ``lammps_lj`` preset at a small fcc shape (n = 4 * 12^3, 7 cells
     a side): in a traced chunk each pair of ``rebuild`` markers holds one
-    pair of ``halflist`` markers (``csrc/span.cu``) around K2 and the list's
-    pack, and the captured list build that ``_rebuild_and_lists`` replays
-    launches no ``halflist`` marker."""
+    pair of ``halflist`` markers (``csrc/span.cu``) around the list's kernel
+    (``list_sparse_kernel``) and no K2 nor any kernel of the former count
+    and pack, and the captured list build that ``_rebuild_and_lists``
+    replays launches K2 and no ``halflist`` marker."""
     import dataclasses
 
     from torch.autograd import DeviceType
@@ -761,9 +762,10 @@ def test_traced_chunk_marks_the_half_list_inside_each_rebuild(card):
     assert len(rb) == len(re) == len(hb) == len(he) == rebuilds
     for (_, a), (b, _), (h0, h1), (h2, h3) in zip(rb, re, hb, he):
         assert a <= h0 and h1 <= h2 and h3 <= b  # halflist inside rebuild
+        inside = [m for s, e, m in dev if h1 <= s and e <= h2]
+        assert any("list_sparse_kernel" in m for m in inside), inside
         for kernel in ("lists_half_kernel", "list_pack_kernel"):
-            assert any(kernel in m and h1 <= s and e <= h2
-                       for s, e, m in dev), kernel
+            assert not any(kernel in m for m in inside), kernel
     # the timed list build carries no marker
     sim._rebuild_and_lists(carry.state)  # its capture
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1048,7 +1050,8 @@ def _list_on(state, spec, n, device):
 @pytest.mark.parametrize("case", sorted(CASES) + ["scattered_cap40",
                                                   "scattered_cap384"])
 def test_list_kernels_match_plain_versions(card, case):
-    """The list's count and pack (bitwise) and the list-driven K3 against
+    """The list's kernel (bitwise, one launch a build: the one-walk form up
+    to cap 192, the two-walk form at cap 384) and the list-driven K3 against
     their plain versions on the rebuilt state, and K3 also against the sweep, on the
     rebuilt state and on it drifted to just under the vote's trigger (every
     particle 0.999 skin/2 from where the list was built); parked slots get
@@ -1086,9 +1089,126 @@ def test_list_kernels_match_plain_versions(card, case):
                                        atol=2e-5 * scale)
         assert float(f[:, ~valid].abs().sum()) == 0.0
     after = _cuda.LAUNCHES
-    assert after["list_count"] - before["list_count"] == 1
-    assert after["list_pack"] - before["list_pack"] == 1
+    assert after["list_sparse"] - before["list_sparse"] == 1
+    assert "list_count" not in after and "list_pack" not in after
+    assert after["lists_half"] == before["lists_half"]
     assert after["forces_list"] - before["forces_list"] == 2
+
+
+def test_list_overflow_on_the_card_clips_and_stores_the_plain_entries(card):
+    """A list whose capacity is half its entries: the kernel returns the
+    flag, its starts are clipped at the capacity, and every entry it stores
+    (and every count) equals the plain version's bit for bit."""
+    n, cap = CASES["mc4_cap40"]
+    pos, vel, pid = numpy_system(n, seed=11, jitter=0.2)
+    state, spec, _ = torch_state(pos, vel, pid, cap)
+    state, _ = dense_cells.rebuild_dense(
+        dense_cells.DenseState(*(t.to(card) for t in state)), spec)
+    full = _list_on(state, spec, n, card)
+    entries = int(full.nsparse.sum())
+    capacity = entries // 2 // 8 * 8
+    assert 0 < capacity < entries
+
+    def small(device):
+        shape = full.start.shape
+        return dense_force.HalfList(
+            start=torch.full(shape, -1, dtype=torch.int32, device=device),
+            nsparse=torch.full(shape, -1, dtype=torch.int32, device=device),
+            lanes=torch.zeros(capacity, dtype=torch.int16, device=device))
+
+    got, want = small(card), small("cpu")
+    assert bool(dense_force.build_half_list(state.pos, spec, RS, got))
+    assert bool(dense_force.build_half_list(state.pos.cpu(), spec, RS, want))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert int(got.start.max()) == capacity
+    assert torch.equal(got.nsparse, full.nsparse)
+    assert torch.equal(got.lanes, full.lanes[:capacity])
+
+
+def test_list_kernel_places_a_cell_past_its_buffer(card):
+    """Five cells around one corner, the own cell (1, 1, 1) and its sparse
+    cells at (dz, dy, dx) = (0, 1, 1), (1, 0, 1), (1, 1, 0), (1, 1, 1), hold
+    40 particles each within 0.3 of the corner, so all their pairs lie within
+    rs: the own cell lists 40 x 160 entries, more than the 88 x cap = 4,224
+    its staged slots hold at cap 48 (the one-walk form), and places them in
+    two passes. The list equals the plain version's bit for bit."""
+    n, cap, L = 200, 48, 12.0  # mc = 4 at rs 2.8
+    rng = np.random.default_rng(31)
+    offsets = ((0, 0, 0), (0, 1, 1), (1, 0, 1), (1, 1, 0), (1, 1, 1))
+    pos = np.concatenate([5.7 + 0.3 * np.array(off[::-1])  # x, y, z
+                          + rng.uniform(0.0, 0.3, (40, 3)) for off in offsets])
+    state, spec, _ = torch_state(pos.astype(np.float32),
+                                 np.zeros((n, 3), np.float32),
+                                 np.arange(n, dtype=np.int32), cap,
+                                 rho=n / L**3)
+    assert spec.mc == 4
+    state, _ = dense_cells.rebuild_dense(
+        dense_cells.DenseState(*(t.to(card) for t in state)), spec)
+
+    def buffers(device):
+        return dense_force.HalfList(
+            start=torch.zeros(state.pid.shape, dtype=torch.int32,
+                              device=device),
+            nsparse=torch.zeros(state.pid.shape, dtype=torch.int32,
+                                device=device),
+            lanes=torch.zeros(n * 10 * cap, dtype=torch.int16,
+                              device=device))
+
+    got, want = buffers(card), buffers("cpu")
+    assert not bool(dense_force.build_half_list(state.pos, spec, RS, got))
+    assert not bool(dense_force.build_half_list(state.pos.cpu(), spec, RS,
+                                                want))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert int(want.nsparse.reshape(-1, cap).sum(1).max()) > 88 * cap
+
+
+def test_list_kernel_replayed_at_full_width_is_bitwise_each_time(card):
+    """At ``c4_sorted``'s shape (N = 1M, mc = 35: 42,875 blocks, so the
+    look-back crosses many waves of resident blocks), the list built inside
+    a captured graph and replayed 5 times in a row equals, bitwise, at each
+    replay, K2's sparse bits counted and packed by the plain versions: the
+    status words and the ticket are reset inside the graph. The outputs are
+    overwritten with -1 before each replay."""
+    n, cap = 1_000_000, 40
+    pos, vel, pid = numpy_system(n, seed=5, jitter=0.2)
+    state, spec, _ = torch_state(pos, vel, pid, cap)
+    assert spec.mc == 35
+    state, _ = dense_cells.rebuild_dense(
+        dense_cells.DenseState(*(t.to(card) for t in state)), spec)
+    want = dense_force.half_list_buffers(spec, n, RS, card)
+    counts, masks = dense_force.dense_lists_half(state.pos, spec, RS)
+    dense_force.count_half_list_plain(masks, counts, want.nsparse, spec)
+    flat = want.nsparse.reshape(-1)
+    ends = torch.cumsum(flat, 0, dtype=torch.int64)
+    want.start.reshape(-1).copy_(ends - flat)
+    dense_force.pack_half_list_plain(masks, counts, want.start, want.lanes,
+                                     spec)
+    total = int(ends[-1])
+    assert 0 < total <= want.lanes.numel()
+    del counts, masks
+    got = dense_force.half_list_buffers(spec, n, RS, card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the warm-up, outside the capture
+        dense_force.build_half_list(state.pos, spec, RS, got)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _cuda.LAUNCHES["list_sparse"]
+    with torch.cuda.graph(graph):
+        overflow = dense_force.build_half_list(state.pos, spec, RS, got)
+    assert _cuda.LAUNCHES["list_sparse"] - before == 1
+    for _ in range(5):
+        got.start.fill_(-1)
+        got.nsparse.fill_(-1)
+        got.lanes[:total].fill_(-1)
+        overflow.fill_(True)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert not bool(overflow)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("incremental", [False, True],
