@@ -10,6 +10,14 @@ a fault's numbers at the cell's own size.
           half of the slots left at zero
   alter   one answer altered where it is produced: one force component, one
           mask bit
+  ring    the exchange between cards left out (``nve_slab``): the seam's
+          Newton-3 reactions that each rank sends to the rank above it are
+          dropped, so the first layer of every slab misses the forces of the
+          pairs across its lower face
+
+The NVE drivers' ``half`` and ``alter`` break the step's force where the
+step makes it (``DenseSimulator._step_forces``, over the half list); both NVE
+drivers (``nve``, ``nve_fcc``) run that step.
 """
 
 from __future__ import annotations
@@ -18,7 +26,8 @@ import contextlib
 
 import torch
 
-FAULTS = ("frozen", "half", "alter")
+FAULTS = ("frozen", "half", "alter")  # of the one-card drivers
+SLAB_FAULTS = ("frozen", "ring")  # of nve_slab
 
 
 class Switch:
@@ -52,39 +61,58 @@ def _patch(stack, owner, name, make):
     stack.callback(setattr, owner, name, orig)
 
 
+def _frozen_run(switch):
+    """``run`` that gives back the carry it was handed once armed."""
+    def run(orig):
+        def broken(self, carry, nsteps, chunk=100):
+            if switch.on:
+                return carry
+            return orig(self, carry, nsteps, chunk)
+        return broken
+    return run
+
+
 @contextlib.contextmanager
 def planted(fault: str, driver: str):
     """Plant ``fault`` into what ``driver``'s window drives, for the block;
     yields the ``Switch`` that the harness arms at the window's start."""
-    if fault not in FAULTS:
-        raise ValueError(f"fault {fault!r}: one of {FAULTS}")
+    if fault not in FAULTS + SLAB_FAULTS:
+        raise ValueError(f"fault {fault!r}: one of {FAULTS + SLAB_FAULTS}")
     from md_neighbor_list_tpu_torch.models import dense_lj
     switch = Switch()
+    nve = driver in ("nve", "nve_fcc")
     with contextlib.ExitStack() as stack:
-        if driver == "nve" and fault == "frozen":
-            def run(orig):
-                def broken(self, carry, nsteps, chunk=100):
-                    if switch.on:
-                        return carry
-                    return orig(self, carry, nsteps, chunk)
-                return broken
-            _patch(stack, dense_lj.DenseSimulator, "run", run)
-        elif driver == "nve":
-            def forces(orig):
-                def broken(self, state, want_pe=False):
-                    f, pe = orig(self, state, want_pe)
-                    f = f.clone()
-                    on = switch.flag(f.device)
+        if nve and fault == "frozen":
+            _patch(stack, dense_lj.DenseSimulator, "run", _frozen_run(switch))
+        elif nve and fault in ("half", "alter"):
+            def step_forces(orig):
+                def broken(self, carry):
+                    orig(self, carry)
+                    f, on = carry.force, switch.flag(carry.force.device)
                     if fault == "half":
                         f[:, :f.shape[1] // 2] *= 1.0 - on
-                    else:
-                        first = torch.argmax(
-                            (state.pid.reshape(-1) >= 0).to(torch.int32))
-                        f[0].view(-1)[first] += on
-                    return f, pe
+                    else:  # one component of the first occupied slot
+                        held = carry.state.pid.reshape(-1) >= 0
+                        first = torch.argmax(held.to(torch.int32))
+                        slot = torch.arange(held.numel(), device=held.device)
+                        f[0].view(-1).add_((slot == first) * on)
                 return broken
-            _patch(stack, dense_lj.DenseSimulator, "_forces", forces)
-        elif driver == "build":
+            _patch(stack, dense_lj.DenseSimulator, "_step_forces",
+                   step_forces)
+        elif driver == "nve_slab" and fault == "frozen":
+            from md_neighbor_list_tpu_torch.parallel import dense_slab
+            _patch(stack, dense_slab.DenseSlabSimulator, "run",
+                   _frozen_run(switch))
+        elif driver == "nve_slab" and fault == "ring":
+            from md_neighbor_list_tpu_torch.parallel import dense_slab
+
+            def boundary(orig):
+                def broken(*args, **kwargs):
+                    f_last, seam = orig(*args, **kwargs)
+                    return f_last, seam * (1.0 - switch.flag(seam.device))
+                return broken
+            _patch(stack, dense_slab, "slab_forces_boundary", boundary)
+        elif driver == "build" and fault in FAULTS:
             def build(orig):
                 first = []
 

@@ -23,13 +23,27 @@ with:
                                    measured inputs (pairs within rc, rs), for
                                    the rooflines
   unit_name                        what a unit is
+  measure_work()                   optional: fill ``work`` for this rank's
+                                   rooflines, in a traced run, after the
+                                   check (a driver of several ranks)
+  counters                         optional, set by ``finish``: the run's
+                                   own counts ({"steps", "rebuilds",
+                                   "migrated"}), kept under the result's
+                                   ``window``
 
 The check's limits are the cell file's ``check.limits``. The control's
 numbers are judged against the same limits, and must come out not correct.
+
+A run of several ranks (``lib/ranks.py``) runs these phases on every rank,
+each opened and closed by a barrier, through its ``Group``; ``Solo`` is the
+same surface for one process. Only rank 0 checks and builds the result; every
+rank reads the per-layer metrics from its own trace, and a metric's
+``combine(values)`` (default ``max``) makes one number of the ranks' readings.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import sys
@@ -51,10 +65,34 @@ class Context:
     units: int  # units of the untraced window
     window_s: float  # its seconds
     trace: tracing.Trace | None
+    rank: int = 0  # the rank whose trace this is
 
     @property
     def wall_ms_per_unit(self) -> float:
         return window.per_unit_ms(self.units, self.window_s)
+
+
+class Solo:
+    """The phases of a run in one process: no barriers, nothing to share
+    (``lib/ranks.py::Group`` has the same surface for a rank)."""
+
+    rank, size, root = 0, 1, True
+    driver_args: dict = {}
+
+    def phase(self, name: str):
+        return contextlib.nullcontext()
+
+    def sync(self, device_sync):
+        return device_sync
+
+    def agree(self, go: bool) -> bool:
+        return go
+
+    def gather(self, value) -> list:
+        return [value]
+
+    def share(self, value):
+        return value
 
 
 def sync_for(device):
@@ -77,50 +115,76 @@ def judge(checks: dict, limits: dict) -> tuple[bool, dict]:
     return ok, out
 
 
-def per_layer(ctx: Context) -> dict:
-    """The cell's per-layer metrics that its readers find."""
+def per_layer(ctx: Context, group) -> tuple[dict, list]:
+    """(the cell's per-layer metrics that its readers find, each rank's
+    readings): each metric read on every rank and its readings made one
+    number by its reader's ``combine`` (default ``max``)."""
+    readers = {m["name"]: specs.metric_reader(m["name"])
+               for m in ctx.cell.per_layer}
+    mine = {name: r.read(ctx) for name, r in readers.items()}
+    ranks = group.gather(mine)
     out = {}
     for m in ctx.cell.per_layer:
-        value = specs.metric_reader(m["name"]).read(ctx)
-        if value is not None:
-            out[m["name"]] = {"value": value, "unit": m["unit"]}
-    return out
+        name = m["name"]
+        values = [r[name] for r in ranks if r[name] is not None]
+        if values:
+            value = getattr(readers[name], "combine", max)(values)
+            out[name] = {"value": value, "unit": m["unit"]}
+    return out, ranks
 
 
 def run_cell(cell: specs.Cell, seed: int, seconds: float, trace: bool,
              device, t_start: float, n: int | None = None,
-             control: bool = False, on_window=None) -> dict:
+             control: bool = False, on_window=None, group=None) -> dict | None:
     """One run of ``cell``; returns the result's fields (the line's keys,
     ``checks`` last, and with ``control`` the control's verdict and numbers
     under ``control``: ``{"correct", "checks"}``). ``on_window`` is called as
-    the window starts (a planted fault's switch)."""
+    the window starts (a planted fault's switch). With a ``group`` of several
+    ranks every rank runs the phases, and only rank 0 returns a result."""
+    group = group or Solo()
     drv = importlib.import_module(f"mdbench.drivers.{cell.driver}")
-    sync = sync_for(device)
+    device_sync = sync_for(device)
+    sync = group.sync(device_sync)
 
-    run = drv.Run(cell, seed, device, n=n)
-    sync()
+    with group.phase("setup"):
+        run = drv.Run(cell, seed, device, n=n, **group.driver_args)
+        sync()
     setup_s = time.perf_counter() - t_start
     if on_window is not None:
         on_window()
-    units, window_s = window.run_window(seconds, run.unit, sync)
+    with group.phase("window"):
+        units, window_s = window.run_window(seconds, run.unit, sync,
+                                            group.agree)
+    units, window_s = group.share((units, window_s))  # rank 0's clock
     tr = None
     if trace:
-        tr = tracing.traced(run.advance, run.trace_units, sync)
+        with group.phase("trace"):
+            tr = tracing.traced(run.advance, run.trace_units, device_sync)
     on_card = torch.device(device).type == "cuda"
-    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
-    t_check = time.perf_counter()
-    run.finish()
-    if on_card:
-        torch.cuda.empty_cache()
-    limits = cell.check.get("limits", {})
-    correct, checks = judge(run.check(control=False), limits)
-    check_s = time.perf_counter() - t_check
+    peak = max(group.gather(torch.cuda.max_memory_allocated(device)
+                            if on_card else 0))
+    with group.phase("check"):
+        t_check = time.perf_counter()
+        run.finish()
+        if on_card:
+            torch.cuda.empty_cache()
+        limits = cell.check.get("limits", {})
+        if group.root:
+            correct, checks = judge(run.check(control=False), limits)
+        check_s = time.perf_counter() - t_check
+    if trace:
+        if hasattr(run, "measure_work"):
+            run.measure_work()
+        ctx = Context(cell, run, units, window_s, tr, group.rank)
+        layer_metrics, ranks = per_layer(ctx, group)
+        busy = group.gather(tr.busy_s)
+    if not group.root:
+        return None
     # a failed check leaves no unit of the window trusted
     result = {"correct": correct, "attempted": units,
               "failed": 0 if correct else units}
     if trace:
-        ctx = Context(cell, run, units, window_s, tr)
-        result["metrics"] = per_layer(ctx)
+        result["metrics"] = layer_metrics
     else:
         result["metrics"] = {
             **run.end_to_end(units, window_s),
@@ -133,14 +197,20 @@ def run_cell(cell: specs.Cell, seed: int, seconds: float, trace: bool,
         "kind": torch.cuda.get_device_name(device) if on_card else "cpu",
         "count": cell.chips, "memory_peak_bytes": peak}
     if tr is not None:
-        result["device"].update(busy_s=tr.busy_s, window_s=tr.wall_s)
+        # busy seconds averaged over the ranks' cards
+        result["device"].update(busy_s=sum(busy) / len(busy),
+                                window_s=tr.wall_s)
         result["breakdown"] = tr.breakdown()
+        if group.size > 1:
+            result["ranks"] = ranks
     if control:  # the reference's bfloat16 form in the program's place
         ok, numbers = judge(run.check(control=True), limits)
         result["control"] = {"correct": ok, "checks": numbers}
     result["window"] = {"units": units, "seconds": window_s,
                         "unit": run.unit_name, "check_s": check_s,
                         **{k: v for k, v in run.work.items() if k == "cap"}}
+    if getattr(run, "counters", None) is not None:
+        result["window"]["counters"] = run.counters
     result["checks"] = checks
     return result
 

@@ -8,10 +8,11 @@ from mdbench.lib import peaks
 from mdbench.lib import spec
 
 
-def device_ms_per_unit(ctx) -> float | None:
+def device_ms_per_unit(ctx, outside=()) -> float | None:
     """Device milliseconds a unit (step, build, call) in the traced stretch:
-    the union of every device operation over the units traced."""
-    return ctx.trace.busy_ms_per_unit() if ctx.trace else None
+    the union of every device operation over the units traced, leaving out
+    the kernels whose names match ``outside``."""
+    return ctx.trace.busy_ms_per_unit(outside) if ctx.trace else None
 
 
 def idle_share(ctx) -> float | None:
@@ -23,11 +24,15 @@ def idle_share(ctx) -> float | None:
                                               / ctx.wall_ms_per_unit)
 
 
-def roofline_share(ctx, kernel: str) -> float | None:
+def roofline_share(ctx, kernel: str, per_unit: bool = False
+                   ) -> float | None:
     """100 * bound / device seconds a launch of ``kernel`` (its file under
     roofline/), where the bound is the larger of its bytes over the HBM
-    bandwidth and its flops over the fp32 peak, on the measured inputs.
-    None where the trace holds no launch of it or the work is unknown."""
+    bandwidth and its flops over the fp32 peak, on the measured inputs; with
+    ``per_unit`` the bound of a unit's work over the device seconds of its
+    launches a unit (a kernel launched in parts, as the slab sweep's
+    interior and boundary). None where the trace holds no launch of it or
+    the work is unknown."""
     if ctx.trace is None:
         return None
     mod = spec.roofline(kernel)
@@ -36,4 +41,5 @@ def roofline_share(ctx, kernel: str) -> float | None:
     if not launches or seconds <= 0 or work is None:
         return None
     bound, _ = peaks.bound_s(*work)
-    return 100.0 * bound / (seconds / launches)
+    per = ctx.trace.units if per_unit else launches
+    return 100.0 * bound / (seconds / per)

@@ -81,8 +81,13 @@ class Trace:
         """Seconds in which some device operation ran."""
         return union_s((s, e) for _, s, e in self.ops)
 
-    def busy_ms_per_unit(self) -> float | None:
-        busy = self.busy_s
+    def busy_ms_per_unit(self, outside=()) -> float | None:
+        """Device ms a unit: the union of the device operations, leaving out
+        those whose name matches any of the regular expressions
+        ``outside``."""
+        rx = [re.compile(p) for p in outside]
+        busy = union_s((s, e) for n, s, e in self.ops
+                       if not any(r.search(n) for r in rx))
         return busy * 1e3 / self.units if busy > 0 and self.units else None
 
     def kernel(self, patterns) -> tuple[int, float]:

@@ -32,16 +32,18 @@ def percentile(values, q: float) -> float:
     return ordered[rank - 1]
 
 
-def run_window(seconds: float, unit, sync) -> tuple[int, float]:
+def run_window(seconds: float, unit, sync,
+               agree=lambda go: go) -> tuple[int, float]:
     """Call ``unit()`` until ``seconds`` have passed on the host clock, the
     window bracketed by ``sync()`` on both sides. ``unit`` returns the units
     it completed (steps of a chunk, one build, one call). Returns (units,
     window seconds): the last unit started before the deadline and its time
-    is counted whole."""
+    is counted whole. ``agree`` makes one decision of the ranks' (rank 0's),
+    so that every rank of a run runs the same units."""
     sync()
     t0 = time.perf_counter()
     units = 0
-    while time.perf_counter() - t0 < seconds:
+    while agree(time.perf_counter() - t0 < seconds):
         units += unit()
     sync()
     return units, time.perf_counter() - t0

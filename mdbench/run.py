@@ -10,10 +10,18 @@ per-layer metrics), ``device``, with ``--trace 1`` ``breakdown``, and last
 ``checks``: each number compared with its limit (also the last lines of
 standard error).
 
+A cell of P > 1 cards runs as P rank processes of this command, which
+``lib/ranks.py`` starts and watches: each rank pinned to an equal share of the
+CPUs, joined to the others through a ``FileStore`` under ``TMPDIR`` (NCCL),
+bound to ``cuda:r`` with the port's ``Ring``, running the phases of a run
+between barriers; rank 0 times the window, gathers the state for the check
+and every rank's per-layer readings, and this process prints its line. A rank
+that fails or hangs ends the run: the others are ended, nothing is printed,
+and the status is not 0. No run waits forever.
+
 Exits with status 2 and prints no result where there is no card or fewer
-cards than the cell asks for (and for a cell of several cards, whose launcher
-of ranks is not written yet), and with status 3 where the process has loaded
-JAX or the JAX package. ``--control 1`` adds the control (the reference in
+cards than the cell asks for, and with status 3 where the process (or a rank)
+has loaded JAX or the JAX package. ``--control 1`` adds the control (the reference in
 bfloat16 in the program's place) under ``control``: its numbers judged
 against the same limits, and its verdict, which has to be false;
 ``--fault <name>`` plants a fault of ``faults.py``. Both are for reading the
@@ -23,6 +31,7 @@ limits on the card, and the benchmark's own runs use neither.
 import time
 
 T_START = time.perf_counter()
+T_WALL = time.time()  # the same moment, for the ranks of a cell
 
 import argparse  # noqa: E402
 import json  # noqa: E402
@@ -51,6 +60,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace", type=int, choices=[0, 1], default=0)
     ap.add_argument("--control", type=int, choices=[0, 1], default=0)
     ap.add_argument("--fault", default=None)
+    # a rank of a cell of several cards, as lib/ranks.py starts it; --device
+    # and --root drive the ranks on the CPU in the tests; none is taken
+    # without --rank
+    hidden = argparse.SUPPRESS
+    ap.add_argument("--rank", type=int, default=None, help=hidden)
+    ap.add_argument("--ranks", type=int, default=None, help=hidden)
+    ap.add_argument("--store", default=None, help=hidden)
+    ap.add_argument("--t0", type=float, default=None, help=hidden)
+    ap.add_argument("--device", default=None, help=hidden)
+    ap.add_argument("--root", default=None, help=hidden)
     return ap
 
 
@@ -73,7 +92,17 @@ def emit(result: dict) -> int:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     args = build_parser().parse_args(argv)
+    if args.rank is not None:
+        from mdbench.lib import ranks
+        return ranks.rank_main(args, forbidden_modules)
+    rank_only = [f"--{k}" for k in ("ranks", "store", "t0", "device", "root")
+                 if getattr(args, k) is not None]
+    if rank_only:
+        print(f"mdbench: {' '.join(rank_only)} only for a rank: no result",
+              file=sys.stderr, flush=True)
+        return 2
     from mdbench.lib import spec
     cell = spec.load_cell(args.workload)
     import torch
@@ -83,17 +112,18 @@ def main(argv=None) -> int:
         print(f"mdbench: cell {cell.name} needs {cell.chips} CUDA card(s), "
               f"{have} found: no result", file=sys.stderr, flush=True)
         return 2
-    if cell.chips > 1:
-        print(f"mdbench: cell {cell.name} asks for {cell.chips} cards; runs "
-              "of several ranks have no launcher here: no result",
-              file=sys.stderr, flush=True)
-        return 2
     from mdbench.lib import harness, peaks
-    with planted(args.fault, cell.driver) as fault:
-        result = harness.run_cell(cell, args.seed, args.seconds,
-                                  bool(args.trace), "cuda", T_START,
-                                  control=bool(args.control),
-                                  on_window=fault and fault.arm)
+    if cell.chips > 1:
+        from mdbench.lib import ranks
+        status, result = ranks.launch(argv, cell.chips, T_WALL)
+        if status != 0:
+            return status
+    else:
+        with planted(args.fault, cell.driver) as fault:
+            result = harness.run_cell(cell, args.seed, args.seconds,
+                                      bool(args.trace), "cuda", T_START,
+                                      control=bool(args.control),
+                                      on_window=fault and fault.arm)
     result["device"]["power_limit_w"] = peaks.power_limit_w()
     result["checks"] = result.pop("checks")  # last
     return emit(result)

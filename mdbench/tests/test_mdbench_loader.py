@@ -29,10 +29,10 @@ def test_every_listed_cell_loads_with_its_files():
 
 
 def test_rooflines_and_drivers_found_by_name():
-    for kernel in ("forces_half", "lists_half"):
+    for kernel in ("forces_half", "lists_half", "forces_half_slab"):
         mod = spec.roofline(kernel)
         assert mod.KERNELS and callable(mod.work)
-    for name in ("nve", "build"):
+    for name in ("nve", "build", "nve_fcc", "nve_slab"):
         assert hasattr(importlib.import_module(f"mdbench.drivers.{name}"),
                        "Run")
     with pytest.raises(FileNotFoundError):
@@ -60,6 +60,27 @@ def test_a_cell_added_as_files_only_runs(tmp_path):
     r = util.run_small(root, "c4_sorted.build_wide")
     assert r["correct"], r["checks"]
     assert set(r["metrics"]) == {"build_ms", "build_p95_ms", "setup_s"}
+
+
+def test_a_cell_of_four_cards_added_as_files_only_loads(tmp_path):
+    """A cell on the slab engine added by its files and entry alone (a new
+    mix for the ``nve_slab`` driver) reports ``c5_dd.p4``'s metrics; the
+    launcher takes its ranks from ``chips`` (test_mdbench_ranks.py runs
+    them)."""
+    mix = {"driver": "nve_slab", "chunk": 50, "warm_steps": 100,
+           "check_steps": 10, "trace_chunks": 2}
+    body = json.loads((util.HERE / "workloads" / "c5_dd.p4.json")
+                      .read_text())
+    body.update(traffic="nve_slab_short", reports_like="c5_dd.p4")
+    root = util.bench_copy(tmp_path, traffic={"nve_slab_short": mix},
+                           cells={"c5_dd.short": body})
+    c = spec.load_cell("c5_dd.short", root=root,
+                       benchmark=root.parent / "BENCHMARK.json")
+    assert c.driver == "nve_slab" and c.chips == 4
+    assert c.config["mesh_devices"] == 4
+    assert {m["name"] for m in c.end_to_end} == {"steps_per_s", "setup_s"}
+    assert {"nccl_ms_per_step", "forces_half_slab_roofline",
+            "rank_imbalance"} <= {m["name"] for m in c.per_layer}
 
 
 def test_a_cell_must_agree_with_its_entry(tmp_path):

@@ -4,7 +4,6 @@ correct, the control is not, the program's start is held to the harness's,
 and ``faults.py``'s faults planted in the step are caught; and the reader of
 ``halflist_ms.steps`` on synthetic traces."""
 
-import contextlib
 import json
 
 import pytest
@@ -91,40 +90,9 @@ def test_the_program_makes_the_start_and_is_held_to_the_harness(
     assert inits == ["fcc", "fcc"]
 
 
-@contextlib.contextmanager
-def planted_in_the_step(fault: str):
-    """``half`` and ``alter`` of ``faults.py``, planted where the NVE step
-    makes its force since it reads the half list
-    (``DenseSimulator._step_forces``): ``faults.py`` breaks ``_forces``,
-    which that step no longer calls. Yields the ``Switch``."""
-    from md_neighbor_list_tpu_torch.models import dense_lj
-
-    switch = faults.Switch()
-    orig = dense_lj.DenseSimulator._step_forces
-
-    def broken(self, carry):
-        orig(self, carry)
-        f, on = carry.force, switch.flag(carry.force.device)
-        if fault == "half":
-            f[:, :f.shape[1] // 2] *= 1.0 - on
-        else:  # one component of the first occupied slot (no host read)
-            held = carry.state.pid.reshape(-1) >= 0
-            first = torch.argmax(held.to(torch.int32))
-            slot = torch.arange(held.numel(), device=held.device)
-            f[0].view(-1).add_((slot == first) * on)
-
-    dense_lj.DenseSimulator._step_forces = broken
-    try:
-        yield switch
-    finally:
-        dense_lj.DenseSimulator._step_forces = orig
-
-
 @pytest.mark.parametrize("fault", faults.FAULTS)
 def test_faults_in_the_step_are_caught_from_the_fcc_start(root, fault):
-    plant = (faults.planted(fault, "nve") if fault == "frozen"
-             else planted_in_the_step(fault))
-    with plant as switch:
+    with faults.planted(fault, "nve_fcc") as switch:
         r = util.run_small(root, CELL, on_window=switch.arm)
     assert not r["correct"], (fault, r["checks"])
     assert r["failed"] == r["attempted"]
