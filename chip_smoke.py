@@ -659,6 +659,11 @@ SOURCES = {
     "forces_list": ("md_neighbor_list_tpu_torch/csrc/force_list.cu",
                     "md_neighbor_list_tpu/ops/pallas_force.py:613"),
     "list_sparse": ("md_neighbor_list_tpu_torch/csrc/list_sparse.cu", None),
+    # the incremental rebuild's mover keys and window predicate (no TPU
+    # kernel: array expressions, which XLA fuses; md_neighbor_list_tpu/ops/
+    # incremental.py:241 and :257)
+    "mover_keys": ("md_neighbor_list_tpu_torch/csrc/incremental.cu", None),
+    "window_count": ("md_neighbor_list_tpu_torch/csrc/incremental.cu", None),
     # the NVE step's integrator (no TPU kernel: the JAX step's half kick,
     # drift and vote, which XLA fuses; md_neighbor_list_tpu/models/
     # dense_lj.py:128)
@@ -1357,12 +1362,29 @@ def per_cell_sets(pid: torch.Tensor, spec) -> torch.Tensor:
     return torch.sort(torch.where(rows >= 0, rows, 1 << 40), dim=1).values
 
 
-def incremental_kernels(sim: DenseSimulator, state) -> tuple[dict, dict]:
+def window_counts_agree(row_start: torch.Tensor) -> tuple[bool, list]:
+    """``window_count`` against ``window_count_plain`` on ``row_start``, each
+    from the same counts, none of them zero: (equal, the kernel's flags)."""
+    outs = []
+    for run in (incremental.window_count, incremental.window_count_plain):
+        dev = row_start.device
+        window = torch.tensor([True, True], device=dev)
+        taken = torch.tensor([5, 7], dtype=torch.int64, device=dev)
+        movers = torch.tensor(11, dtype=torch.int64, device=dev)
+        run(row_start, window, taken, movers)
+        outs.append((window.tolist(), taken.tolist(), int(movers)))
+    return outs[0] == outs[1], outs[0][0]
+
+
+def incremental_kernels(sim: DenseSimulator,
+                        state) -> tuple[list[dict], dict]:
     """At N = 1M, on ``state`` (the incremental run's last state) drifted by
-    skin/2: K8 bitwise against its plain version, the incremental rebuild
-    bitwise against its twin and as the same partition per cell as the full
-    rebuild; and the window predicate tripped by a from_packed seed. Returns
-    (the K8 row of the kernel table, numbers for the phase)."""
+    skin/2: the mover keys (wrapped pos, keys, stayer pid) and K8 bitwise
+    against their plain versions, the window predicate with its flags and
+    counts against its plain version there and on a from_packed seed, which
+    trips it; the incremental rebuild bitwise against its twin and as the
+    same partition per cell as the full rebuild. Returns (the rows of the
+    kernel table, numbers for the phase)."""
     cfg, spec, dev = sim.config, sim.spec, sim.device
     system, _ = init_lattice(cfg.n, cfg.rho,
                              torch.Generator(dev).manual_seed(5),
@@ -1371,10 +1393,23 @@ def incremental_kernels(sim: DenseSimulator, state) -> tuple[dict, dict]:
     _, seed_overflow = incremental.rebuild_dense_incremental(seed, spec)
     check(bool(seed_overflow), "incremental: a from_packed seed did not trip "
           "the mover window")
+    same, flags = window_counts_agree(incremental.merge_inputs(seed, spec)[1])
+    check(same and flags == [True, False], "incremental: the window count "
+          "kernel differs from its plain version on a from_packed seed")
     del seed, system
     state = drifted_state(sim, state)
 
+    got = incremental.wrap_keys(state, spec)
+    torch.cuda.synchronize()
+    want = incremental.wrap_keys_plain(state, spec)
+    check(all(torch.equal(a, b) for a, b in zip((*got[0], *got[1:]),
+                                                (*want[0], *want[1:]))),
+          "incremental: the mover keys kernel differs from its plain version")
+    del got, want
     args, row_start = incremental.merge_inputs(state, spec)
+    same, flags = window_counts_agree(row_start)
+    check(same and flags == [False, True], "incremental: the window count "
+          "kernel differs from its plain version after a skin/2 drift")
     movers_n = int((args[2].pid >= 0).sum())
     check(0 < movers_n < cfg.n // 2,
           f"incremental: {movers_n} movers after a skin/2 drift")
@@ -1407,7 +1442,8 @@ def incremental_kernels(sim: DenseSimulator, state) -> tuple[dict, dict]:
 
     numbers = {"movers": movers_n, "mover_share": movers_n / cfg.n,
                "stayers": int((args[1] >= 0).sum())}
-    return kernel_row("merge", 0.0), numbers
+    return [kernel_row(name, 0.0)
+            for name in ("merge", "mover_keys", "window_count")], numbers
 
 
 def incremental_path(sim: DenseSimulator):
@@ -2448,13 +2484,13 @@ def main() -> int:
     sim = DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device,
                          incremental=True)
     inc, carry = incremental_path(sim)
-    row_k8, numbers = incremental_kernels(sim, carry.state)
+    rows_inc, numbers = incremental_kernels(sim, carry.state)
     graph_chunk(sim, carry, "incremental")
     build_graph(sim, carry, "incremental")
     del carry
     emit("incremental_kernels", n=sim.config.n, cap=sim.spec.cap,
-         kernels=[row_k8], **numbers)
-    rows.append(row_k8)
+         kernels=rows_inc, **numbers)
+    rows += rows_inc
     small_slab_shapes(device)
     rows += slab_kernels_phase(
         DenseSimulator(PRESETS["c4_sorted"], cap=40, device=device))

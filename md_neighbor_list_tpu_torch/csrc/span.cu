@@ -19,6 +19,10 @@ __global__ void span_end_rebuild() {}
 // pack); no span's name may contain another's `span_begin_<name>`
 __global__ void span_begin_halflist() {}
 __global__ void span_end_halflist() {}
+// the incremental rebuild's own work inside a rebuild (wrap, keys, mover sort
+// and expand, window predicate, K8)
+__global__ void span_begin_increment() {}
+__global__ void span_end_increment() {}
 
 }  // namespace mdnl
 
@@ -39,5 +43,15 @@ extern "C" int mdnl_span_begin_halflist(void* stream) {
 
 extern "C" int mdnl_span_end_halflist(void* stream) {
   mdnl::span_end_halflist<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
+}
+
+extern "C" int mdnl_span_begin_increment(void* stream) {
+  mdnl::span_begin_increment<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
+  return cudaGetLastError();
+}
+
+extern "C" int mdnl_span_end_increment(void* stream) {
+  mdnl::span_end_increment<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
   return cudaGetLastError();
 }

@@ -40,16 +40,21 @@ JAX ``step_fn`` is one step outside the scan.
 Tracing (``utils/trace.py``): ``run`` marks each chunk as the host span
 ``chunk`` tiled by ``chunk.snapshot`` (the clone), ``chunk.launch`` (up to the
 last replay: the capture key, any capture, the replays), ``chunk.settle``
-(the branch counters' read, then the overflow flag's) and, when taken,
-``chunk.redo`` (the rollback), and counts ``steps`` and ``redos``. The step's
-displacement-triggered rebuild is the branch ``rebuilds`` and, on the card,
-the device span ``rebuild`` inside it (in the incremental engine the
-incremental branch; the full fallback and the merged state's take are
-branches of their own). The step's half list, built where a rebuild ends
-(``take``), is the device span ``halflist`` on the card: inside ``rebuild``
-in the step (in the incremental engine, inside the branch that takes the
-state), and also in the initial build, which carries no ``rebuild``.
-The timed list build (``_rebuild_and_lists``) carries neither.
+(the branch counters' read, in the incremental engine the device counts of
+its rebuilds by branch, then the overflow flag's) and, when taken,
+``chunk.redo`` (the rollback), and counts ``steps`` and ``redos``; the
+incremental engine's counts go into ``incremental_rebuilds`` and
+``full_fallbacks``. The step's displacement-triggered rebuild is the branch
+``rebuilds`` and, on the card, the device span ``rebuild`` inside it. In the
+incremental engine the span opens in that branch, which makes the incremental
+pass, and closes at the end of whichever branch follows it, the full fallback
+or the take of the merged state, so that each rebuild has one begin and one
+end marker around all its work; the pass itself is the device span
+``increment``, in the step and in the timed list build. The step's half
+list, built where a rebuild ends (``take``), is the device span ``halflist``
+on the card: inside ``rebuild`` in the step, and also in the initial build,
+which carries no ``rebuild``. The timed list build (``_rebuild_and_lists``)
+carries neither.
 
 The timed list build, ``_rebuild_and_lists``, is one device program on the
 card too, as the JAX ``jit`` of the rebuild and the list kernel is: the
@@ -69,9 +74,12 @@ to ask for.
 merged in by the K8 kernel), and through the full rebuild when the mover
 stream trips the JAX package's window predicate (the JAX ``lax.cond``). In the
 step the two are branches of their own on flags the incremental branch sets,
-since conditional nodes do not nest; the counts of each are kept on the
-device. Unlike the JAX package, whose ``"jnp"`` engine ignores the flag, the
-port honours it on the CPU too, where it runs the plain versions.
+since conditional nodes do not nest; a build without a vote (the initial and
+the timed list build) has only the fallback's branch, written over the merged
+state that it then takes. The counts of each, and of the movers the
+incremental passes sorted, are kept on the device. Unlike the JAX package,
+whose ``"jnp"`` engine ignores the flag, the port honours it on the CPU too,
+where it runs the plain versions.
 """
 
 from __future__ import annotations
@@ -130,11 +138,14 @@ class DenseSimulator:
         self.spec = make_spec(self.box, config.rs, cap)
         # rebuilds by branch, counted on the device: incremental ones kept,
         # and full rebuilds taken because the mover stream tripped the window
-        # predicate
+        # predicate; and the two as trace.COUNTS has them
         self._taken = torch.zeros(2, dtype=torch.int64, device=self.device)
-        # the step's flags for the two branches after an incremental rebuild:
-        # take the full rebuild, keep the merged state
+        self._counted = [0, 0]
+        # the flags for the branches after an incremental pass: take the full
+        # rebuild, keep the merged state
         self._window = torch.zeros(2, dtype=torch.bool, device=self.device)
+        # the movers (particles that changed cell) of every incremental pass
+        self._movers = torch.zeros((), dtype=torch.int64, device=self.device)
         # the step's displacement vote on the card, raised by the integrator's
         # first pass and lowered by its closing kick
         self._flag = torch.zeros((), dtype=torch.bool, device=self.device)
@@ -151,11 +162,32 @@ class DenseSimulator:
 
     @property
     def incremental_rebuilds(self) -> int:
-        return int(self._taken[0])
+        return self._settle_counts()[0]
 
     @property
     def full_fallbacks(self) -> int:
-        return int(self._taken[1])
+        return self._settle_counts()[1]
+
+    def _settle_counts(self) -> list[int]:
+        """The list builds' replays settled (their launches counted), and
+        ``_taken`` read once and what it gained since the last read added to
+        ``trace.COUNTS["incremental_rebuilds"]`` and ``["full_fallbacks"]``
+        (no read for the full engine, whose ``_taken`` stays zero). Returns
+        ``_taken`` as read."""
+        self._build_runner.settle()
+        if not self.incremental:
+            return [0, 0]
+        taken = self._taken.tolist()
+        for name, now, was in zip(("incremental_rebuilds", "full_fallbacks"),
+                                  taken, self._counted):
+            trace.add(name, now - was)
+        self._counted = taken
+        return taken
+
+    @property
+    def movers(self) -> int:
+        """Movers sorted by every incremental pass so far (kept or not)."""
+        return int(self._movers)
 
     def _grow(self) -> None:
         self.cap = grow_cap(self.cap)
@@ -254,42 +286,64 @@ class DenseSimulator:
         rebuild, or with ``incremental`` the incremental one unless its window
         predicate holds. Taking the full path is the reference's own
         algorithm, never a response to a kernel's failure. The branch on
-        ``need`` is ``rebuilds``, its body the device span ``rebuild``."""
+        ``need`` is ``rebuilds``; the device span ``rebuild`` opens at its
+        start and closes where the rebuild's last branch ends, and the
+        incremental pass is the device span ``increment``."""
         spec = self.spec
         device = state.pos.device
 
         def full() -> None:
             take(rebuild_dense(state, spec)[0])
 
-        def when(body) -> None:
+        if not self.incremental:
             if need is None:
-                body()
+                full()
                 return
 
             def marked() -> None:
                 with trace.device_span("rebuild", device):
-                    body()
+                    full()
 
             cond(need, marked, "rebuilds")
-
-        if not self.incremental:
-            when(full)
             return
         merged = []
 
         def incremental() -> None:
-            new, window_overflow = rebuild_dense_incremental(state, spec)
-            merged.append(new)
-            self._window.copy_(torch.stack([window_overflow,
-                                            ~window_overflow]))
-            self._taken.add_(torch.stack([~window_overflow, window_overflow]))
+            # its window predicate written into the flags and counts
+            with trace.device_span("increment", device):
+                merged.append(rebuild_dense_incremental(
+                    state, spec, (self._window, self._taken, self._movers))[0])
+
+        if need is None:
+            # a build without a vote (the initial and the timed list build)
+            # takes one branch: the full rebuild written over the merged
+            # state where the window predicate holds; then the take
+            def rewrite() -> None:
+                for dst, src in zip(merged[0], rebuild_dense(state, spec)[0]):
+                    dst.copy_(src)
+
+            incremental()
+            cond(self._window[0], rewrite)
+            take(merged[0])
+            return
+
+        def opened() -> None:
+            trace.device_mark("rebuild", "begin", device)
+            incremental()
+
+        def closing(body):
+            def run() -> None:
+                body()
+                trace.device_mark("rebuild", "end", device)
+            return run
 
         # the JAX engine's lax.cond on the window predicate, as two branches
-        # on the flags the incremental branch sets
+        # on the flags the incremental branch sets; the span closes at the end
+        # of whichever runs
         self._window.zero_()
-        when(incremental)
-        cond(self._window[0], full)
-        cond(self._window[1], lambda: take(merged[0]))
+        cond(need, opened, "rebuilds")
+        cond(self._window[0], closing(full))
+        cond(self._window[1], closing(lambda: take(merged[0])))
 
     def _step(self, carry: DenseCarry, cond) -> None:
         """One velocity-Verlet step, in place, branching through ``cond``."""
@@ -330,7 +384,7 @@ class DenseSimulator:
         self._runner.launch(lambda cond: self._step(carry, cond), nsteps,
                             [*carry.state, carry.force, carry.ref_pos,
                              carry.n_rebuilds, carry.overflow, self._taken,
-                             self._window, self._flag,
+                             self._window, self._movers, self._flag,
                              *self._list_tensors()],
                             key=self.spec)
 
@@ -358,10 +412,12 @@ class DenseSimulator:
         ``state`` is copied into the engine's build buffers, then the build
         step runs once by the build's chunk runner: on the card one replay of
         a graph captured for the spec (again after the capacity grows), with
-        no host read; on the CPU the step eagerly, the incremental engine's
-        window predicate read on the host. On either device the returned
-        tensors are the engine's, and the next build overwrites them (clone
-        what must outlive it; the masks are about 206 MB at N = 1M)."""
+        no host read (the branch counters of the builds are read where the
+        engine's counts are, or by the next chunk of ``run``); on the CPU the
+        step eagerly, the incremental engine's window predicate read on the
+        host. On either device the returned tensors are the engine's, and the
+        next build overwrites them (clone what must outlive it; the masks are
+        about 206 MB at N = 1M)."""
         spec = self.spec
         shape = (spec.rows, spec.mc, spec.cap)
         if self._build_in is None or self._build_in.pid.shape != shape:
@@ -374,9 +430,10 @@ class DenseSimulator:
         buf = self._build_in
         for dst, src in zip(buf, state):
             dst.copy_(src)
-        self._build_runner.run(lambda cond: self._build_step(buf, cond), 1,
-                               [*buf, self._taken, self._window],
-                               key=(spec, self.incremental))
+        self._build_runner.launch(lambda cond: self._build_step(buf, cond),
+                                  1, [*buf, self._taken, self._window,
+                                      self._movers],
+                                  key=(spec, self.incremental))
         return (buf, *self._lists)
 
     def _build_step(self, state: DenseState, cond) -> None:
@@ -442,6 +499,7 @@ class DenseSimulator:
                     self._launch_chunk(carry, this)
                 with trace.span("chunk.settle"):
                     self._runner.settle()
+                    self._settle_counts()
                     overflow = bool(carry.overflow)
                 if self.config.rebuild_every_step:
                     trace.add("rebuilds", this)

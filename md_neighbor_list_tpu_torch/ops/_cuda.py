@@ -75,6 +75,10 @@ _ENTRIES = {
     # stayer pos, vel, pid, mover pos, vel, pid, out pos, vel, pid, rows, mc,
     # cap, park_step
     "merge": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F],
+    # the incremental rebuild: pos, pid, pos_w, keys, spid, slots, mc, cap,
+    # L, 1/cell; row_start, window, taken, movers, rows, group, records
+    "mover_keys": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F],
+    "window_count": [_P, _P, _P, _P, _I, _I, _I],
     # the NVE step's integrator: vel, pos, force, ref_pos, pid, flag (null:
     # no vote), slots, dt/2, dt, f32(skin^2); vel, force, pid, flag (null:
     # none to lower), slots, dt/2
@@ -84,7 +88,7 @@ _ENTRIES = {
 
 # the empty marker kernels of the device spans (csrc/span.cu): the stream only
 _SPANS = ("span_begin_rebuild", "span_end_rebuild", "span_begin_halflist",
-          "span_end_halflist")
+          "span_end_halflist", "span_begin_increment", "span_end_increment")
 
 # kernel launches so far, by kernel; reset_launches() zeroes them
 LAUNCHES = {name: 0 for name in _ENTRIES}

@@ -5,11 +5,14 @@ Between rebuilds particles move at most skin/2, so at a rebuild only a few
 percent of them ("movers") have left their cell. The incremental rebuild:
 
   1. wraps the positions and keys every slot; a stayer is a valid slot whose
-     key is the cell it sits in, a mover any other valid slot;
+     key is the cell it sits in, a mover any other valid slot (on the card
+     one kernel, ``wrap_keys``);
   2. sorts the mover stream (stayers and empty slots take the beyond-last
      key) and expands it with the K1 kernel into a dense mover state;
   3. checks the JAX package's window predicate on the mover stream's row
-     starts (``window_overflow``);
+     starts (``window_overflow``), written with the counts of the branch it
+     picks into an engine's flags (``window_count``, on the card one
+     kernel);
   4. stitches each cell in the K8 kernel (``merge``): its stayers compacted to
      a prefix in slot order, its movers behind them, the rest parked.
 
@@ -66,6 +69,36 @@ def window_overflow(row_start: torch.Tensor) -> torch.Tensor:
         g_end = torch.cat([g_end, row_start[-1:]])
     span = torch.max(g_end - (g_start // 128) * 128)
     return span > MOVER_WINDOW
+
+
+def window_count_plain(row_start: torch.Tensor, window: torch.Tensor,
+                       taken: torch.Tensor, movers: torch.Tensor) -> None:
+    """Plain PyTorch version of ``window_count``."""
+    over = window_overflow(row_start)
+    window.copy_(torch.stack([over, ~over]))
+    taken.add_(torch.stack([~over, over]))
+    movers.add_(row_start[-1])
+
+
+def window_count(row_start: torch.Tensor, window: torch.Tensor,
+                 taken: torch.Tensor, movers: torch.Tensor) -> None:
+    """The window predicate on the mover stream's row starts (R+1,) i32,
+    written in place as an engine's branch flags and counts: ``window`` (2,)
+    bool = (predicate, not predicate), ``taken`` (2,) i64 += (not predicate,
+    predicate), ``movers`` () i64 += the movers (the last row start). No
+    host read. Kernel: ``csrc/incremental.cu`` (one block); CPU tensors take
+    ``window_count_plain``."""
+    if not row_start.is_cuda:
+        return window_count_plain(row_start, window, taken, movers)
+    args = (row_start, window, taken, movers)
+    _cuda.check_cuda(*args)
+    for t, want, shape in zip(args, (torch.int32, torch.bool, torch.int64,
+                                     torch.int64), ((None,), (2,), (2,), ())):
+        if t.dtype != want or (shape != (None,) and t.shape != shape):
+            raise ValueError(f"window_count: expected {want} of shape "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+    _cuda.launch("window_count", *args, row_start.shape[0] - 1, MOVER_G,
+                 MOVER_WINDOW)
 
 
 # --------------------------------------------------------------- K8: merge
@@ -154,28 +187,71 @@ def mover_keys(state_w: DenseState,
                        torch.full_like(keys, spec.ncells)), stay
 
 
+def wrap_keys_plain(state: DenseState, spec):
+    """Plain PyTorch version of ``wrap_keys``."""
+    state_w = state._replace(pos=torch.remainder(state.pos, spec.L))
+    keys, stay = mover_keys(state_w, spec)
+    spid = torch.where(stay, state.pid, torch.full_like(state.pid, -1))
+    return state_w, keys, spid
+
+
+def wrap_keys(state: DenseState, spec):
+    """Step 1: ``(state_w, keys, spid)``: the state with its positions
+    wrapped into the box, the mover stream's keys (``mover_keys``) and the
+    pid with every slot but the stayers' set to -1, all (R, mc, cap).
+    Kernel: ``csrc/incremental.cu`` (``mover_keys``), equal to
+    ``wrap_keys_plain`` bitwise; CPU tensors take ``wrap_keys_plain``."""
+    if not state.pid.is_cuda:
+        return wrap_keys_plain(state, spec)
+    _cuda.check_cuda(state.pos, state.pid)
+    shape = (spec.rows, spec.mc, spec.cap)
+    if state.pos.shape != (3,) + shape or state.pos.dtype != torch.float32 \
+            or state.pid.shape != shape or state.pid.dtype != torch.int32:
+        raise ValueError("wrap_keys: expected pos f32 (3, R, mc, cap) and "
+                         f"pid i32 (R, mc, cap), got {state.pos.dtype} "
+                         f"{tuple(state.pos.shape)}, {state.pid.dtype} "
+                         f"{tuple(state.pid.shape)}")
+    pos_w = torch.empty_like(state.pos)
+    keys = torch.empty_like(state.pid)
+    spid = torch.empty_like(state.pid)
+    _cuda.launch("mover_keys", state.pos, state.pid, pos_w, keys, spid,
+                 spec.slots, spec.mc, spec.cap, float(np.float32(spec.L)),
+                 float(np.float32(1.0 / spec.cell_size)))
+    return state._replace(pos=pos_w), keys, spid
+
+
 def merge_inputs(state: DenseState, spec):
     """Steps 1-2 of the incremental rebuild: ``((state_w, spid, movers),
     row_start)`` — the wrapped state, its pid with every slot but the
     stayers' set to -1, the expanded mover stream, and that stream's row
     starts."""
-    state_w = state._replace(pos=torch.remainder(state.pos, spec.L))
-    keys, stay = mover_keys(state_w, spec)
+    state_w, keys, spid = wrap_keys(state, spec)
     movers, row_start = sort_expand(
         keys.reshape(-1), state_w.pos.reshape(3, -1),
         state_w.vel.reshape(3, -1), state.pid.reshape(-1), spec)
-    spid = torch.where(stay, state.pid, torch.full_like(state.pid, -1))
     return (state_w, spid, movers), row_start
 
 
-def rebuild_dense_incremental(state: DenseState,
-                              spec) -> tuple[DenseState, torch.Tensor]:
+def rebuild_dense_incremental(state: DenseState, spec, counts=None
+                              ) -> tuple[DenseState, torch.Tensor]:
     """Incremental rebuild: (new_state, inc_overflow). When ``inc_overflow``
     (a 0-d bool tensor) is True the caller must take ``rebuild_dense``
     instead, as the JAX engine does. Cell overflow is, as on the full path,
-    the caller's count of valid slots."""
+    the caller's count of valid slots.
+
+    The window predicate is written by ``window_count`` into ``counts``, an
+    engine's ``(window, taken, movers)`` (its branch flags and device
+    counts; ``inc_overflow`` is then ``window[0]``), or into fresh zeroed
+    ones where ``counts`` is None. No host read."""
     args, row_start = merge_inputs(state, spec)
-    return merge(*args, spec), window_overflow(row_start)
+    new = merge(*args, spec)
+    if counts is None:
+        dev = row_start.device
+        counts = (torch.zeros(2, dtype=torch.bool, device=dev),
+                  torch.zeros(2, dtype=torch.int64, device=dev),
+                  torch.zeros((), dtype=torch.int64, device=dev))
+    window_count(row_start, *counts)
+    return new, counts[0][0]
 
 
 def rebuild_reference_incremental(state: DenseState, spec) -> DenseState:

@@ -20,10 +20,13 @@ counts the times the body runs.
   step runs on the card);
 - else on the CUDA device, as ``nsteps`` replays of one ``StepGraph`` with no
   host read between them, then one read of the branch counters (none where
-  the step has no branch). The graph is captured for the carry's tensors
-  (their addresses, shapes and types) and the caller's ``key``, and captured
-  again when any of them changes, as the JAX engine compiles again after its
-  capacity grows. A capture is the host span ``graph.capture`` and counts in
+  the step has no branch). ``launch`` alone may be called again before
+  ``settle``: the counters then sum every replay since the last ``settle``,
+  which reads them once (as the list build does, one replay a call). The
+  graph is captured for the carry's tensors (their addresses, shapes and
+  types) and the caller's ``key``, and captured again when any of them
+  changes, as the JAX engine compiles again after its capacity grows. A
+  capture is the host span ``graph.capture`` and counts in
   ``COUNTS["captures"]``.
 
 A step may also make tensors of its own and hand them to its caller (the list
@@ -204,16 +207,20 @@ class StepGraph:
         self.names.append(name)
 
     def replay(self, nsteps: int) -> None:
-        """``nsteps`` steps on the device; the host reads nothing."""
-        self.hits.zero_()
+        """``nsteps`` steps on the device; the host reads nothing. The
+        branch counters go on from the last ``settle``."""
         for _ in range(nsteps):
             self.graph.replay()
 
     def settle(self, nsteps: int) -> None:
-        """After ``replay(nsteps)``: one read of the branch counters (none
-        for a step without branches), the launches of the replays added to
-        ``_cuda.LAUNCHES`` and the named branches' runs to their counters."""
+        """After replays of ``nsteps`` steps in all since the last settle:
+        one read of the branch counters (none for a step without branches),
+        which then start again from zero, the launches of the replays added
+        to ``_cuda.LAUNCHES`` and the named branches' runs to their
+        counters."""
         taken = self.hits.tolist() if self.per_body else []
+        if self.per_body:
+            self.hits.zero_()
         accrue(_cuda.LAUNCHES, self.per_step, self.per_body, taken, nsteps,
                self.names, trace.COUNTS, self.step_named)
 
@@ -247,6 +254,7 @@ class ChunkRunner:
         full_key = (key, tuple((t.data_ptr(), tuple(t.shape), t.dtype)
                                for t in carry))
         if self.graph is None or full_key != self._key:
+            self.settle()  # the old graph's replays, before it goes
             self.graph = None  # free the old graph's memory first
             with trace.span("graph.capture"):
                 t0 = time.perf_counter()
@@ -256,11 +264,12 @@ class ChunkRunner:
             self.captures += 1
             trace.add("captures")
         self.graph.replay(nsteps)
-        self._replayed = nsteps
+        self._replayed += nsteps
 
     def settle(self) -> None:
-        """The rest of ``run`` after ``launch``: the replays' one read of
-        the branch counters and their counts (nothing after eager steps)."""
+        """The rest of ``run`` after ``launch`` (after one or more): the
+        replays' one read of the branch counters and their counts (nothing
+        after eager steps)."""
         if self._replayed:
             self.graph.settle(self._replayed)
             self._replayed = 0

@@ -20,6 +20,15 @@ per-layer metrics and the CLI read of the program's own work.
             (``utils/graphs.accrue``); every step unless the configuration
             rebuilds every step (the step then sweeps). Like ``rebuilds`` it
             counts the steps of a chunk that is then undone.
+  incremental_rebuilds, full_fallbacks
+            rebuilds of ``DenseSimulator(incremental=True)`` by what followed
+            the incremental pass: the merged state kept, or the full rebuild
+            taken because the mover stream tripped the window predicate, in
+            the step, the initial build and the timed list build alike. They
+            are the engine's device counts (``_taken``), brought here where
+            the engine reads them: once a chunk at its settle, and where its
+            ``incremental_rebuilds`` or ``full_fallbacks`` is read. Like
+            ``rebuilds`` they count the rebuilds of a chunk then undone.
 
 Host spans. ``with span("chunk.launch"):`` marks a stretch of host work.
 While a ``torch.profiler`` records, it emits an empty record function named
@@ -38,8 +47,12 @@ Device spans. ``with device_span("rebuild", device):`` around work launched
 on a card (in a captured graph too) launches the empty kernel
 ``mdnl::span_begin_<name>`` before it and ``mdnl::span_end_<name>`` after
 (``csrc/span.cu``), uncounted: the work between the two on the device's
-timeline is the span's. Nothing on the CPU. Two: ``rebuild`` (the step's
-rebuild) and ``halflist`` (the step's half list, inside it). A reader finds a
+timeline is the span's. Nothing on the CPU. ``device_mark`` launches one
+marker alone, for a span that opens in one branch of a step and closes in
+another. Three: ``rebuild`` (the step's rebuild), ``halflist`` (the step's
+half list, inside it) and ``increment`` (the incremental rebuild's own pass:
+inside ``rebuild`` in the step, and also in the initial and the timed list
+build, which carry no ``rebuild``). A reader finds a
 span's markers by the substring ``span_begin_<name>``, so no span's name
 contains another's (no ``rebuild_list``).
 """
@@ -56,7 +69,8 @@ from md_neighbor_list_tpu_torch.ops import _cuda
 PREFIX = "mdnl."  # the host spans' event names in a trace
 
 COUNTS = {"launches": _cuda.LAUNCHES, "steps": 0, "rebuilds": 0, "redos": 0,
-          "captures": 0, "list_forces": 0}
+          "captures": 0, "list_forces": 0, "incremental_rebuilds": 0,
+          "full_fallbacks": 0}
 _adding = threading.Lock()
 
 _profiling = torch._C._autograd._profiler_enabled
@@ -97,9 +111,13 @@ def device_span(name: str, device: torch.device):
     """A device span named ``name`` (a kernel pair of ``csrc/span.cu``)
     around the work launched in the block on ``device``; nothing off a
     card."""
-    if device.type != "cuda":
-        yield
-        return
-    _cuda.launch("span_begin_" + name, device=device)
+    device_mark(name, "begin", device)
     yield
-    _cuda.launch("span_end_" + name, device=device)
+    device_mark(name, "end", device)
+
+
+def device_mark(name: str, edge: str, device: torch.device) -> None:
+    """The ``edge`` ("begin" or "end") marker kernel of the device span
+    ``name`` on ``device``; nothing off a card."""
+    if device.type == "cuda":
+        _cuda.launch(f"span_{edge}_{name}", device=device)

@@ -150,7 +150,9 @@ def test_cli_check_parity_save_and_resume(tmp_path):
     # c1 rebuilds every step, so no step reads a list
     assert events["run_done"]["counters"] == {"steps": 10, "rebuilds": 10,
                                               "redos": 0, "captures": 0,
-                                              "list_forces": 0}
+                                              "list_forces": 0,
+                                              "incremental_rebuilds": 0,
+                                              "full_fallbacks": 0}
     assert pathlib.Path(ckpt).exists()
 
     out = _cli("--preset", "c1_brute", "--n", "1024", "--steps", "3",
@@ -161,7 +163,8 @@ def test_cli_check_parity_save_and_resume(tmp_path):
     assert resumed and resumed[0]["step"] == 10
     done = [e for e in _events(out.stderr) if e["event"] == "run_done"][0]
     assert done["counters"] == {"steps": 3, "rebuilds": 3, "redos": 0,
-                                "captures": 0, "list_forces": 0}
+                                "captures": 0, "list_forces": 0,
+                                "incremental_rebuilds": 0, "full_fallbacks": 0}
 
 
 def test_cli_compare_mode():

@@ -202,7 +202,8 @@ def test_no_span_marker_name_holds_another_spans_begin():
     (``mdbench/lib/spans.py``): only ``rebuild``'s own markers may contain
     ``span_begin_rebuild``, or a list span would count as a rebuild."""
     assert set(_cuda._SPANS) == {"span_begin_rebuild", "span_end_rebuild",
-                                 "span_begin_halflist", "span_end_halflist"}
+                                 "span_begin_halflist", "span_end_halflist",
+                                 "span_begin_increment", "span_end_increment"}
     spans = {m.split("_", 2)[2] for m in _cuda._SPANS}
     for name in spans:
         holding = [m for m in _cuda._SPANS

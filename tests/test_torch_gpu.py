@@ -295,6 +295,58 @@ def test_merge_at_any_cap(card, cap):
         assert torch.equal(a.cpu(), b)
 
 
+@pytest.mark.parametrize("cap", [32, 40, 384])
+def test_wrap_keys_and_window_count_match_plain_versions(card, cap):
+    """The incremental rebuild's two small kernels (``csrc/incremental.cu``)
+    bitwise against their plain versions on the card and on the CPU: the
+    mover keys of a drifted state at mc = 7 (R = 49, a tail group), some of
+    whose positions lie on cell faces, on the box's faces, past them and just
+    below zero, and of a ``from_packed`` seed at mc = 8; the window
+    predicate with the engine's flags and counts on each one's mover stream
+    (the drifted one's holds, the seed's trips), from counts that are not
+    zero."""
+    cases = []
+    for n in (9261, 13824):  # L = 21, mc = 7; L = 24, mc = 8
+        pos, vel, pid = numpy_system(n, seed=18)
+        seed, spec, _ = torch_state(pos, vel, pid, cap)
+        if n == 13824:
+            cases.append((seed, spec, True))
+            continue
+        state = dense_cells.rebuild_dense(seed, spec)[0]
+        drift = np.random.default_rng(cap).normal(0.0, 0.2, state.pos.shape)
+        drift = np.where(state.valid().numpy()[None], drift, 0.0)
+        state = state._replace(pos=state.pos + torch.from_numpy(
+            drift.astype(np.float32)))
+        held = torch.nonzero(state.valid().reshape(-1)).squeeze(1)
+        flat = state.pos.reshape(3, -1)
+        L, cell = np.float32(spec.L), np.float32(spec.cell_size)
+        edges = [0.0, -0.0, float(L), float(np.nextafter(L, np.float32(0))),
+                 -1e-7, float(3 * cell), float(np.nextafter(3 * cell, L)),
+                 float(L) + 1e-3, -float(cell)]
+        for k, v in enumerate(edges):
+            flat[k % 3, held[k]] = v
+        cases.append((state, spec, False))
+    for case, spec, trips in cases:
+        on_card = dense_cells.DenseState(*(t.to(card) for t in case))
+        want = incremental.wrap_keys_plain(on_card, spec)
+        for got in (incremental.wrap_keys(on_card, spec),
+                    incremental.wrap_keys_plain(case, spec)):
+            for a, b in zip((*got[0], got[1], got[2]),
+                            (*want[0], want[1], want[2])):
+                assert torch.equal(a.to(card), b)
+        _, row_start = incremental.merge_inputs(on_card, spec)
+        outs = []
+        for run in (incremental.window_count, incremental.window_count_plain):
+            window = torch.zeros(2, dtype=torch.bool, device=card)
+            taken = torch.tensor([5, 7], dtype=torch.int64, device=card)
+            movers = torch.tensor(11, dtype=torch.int64, device=card)
+            run(row_start, window, taken, movers)
+            outs.append((window.tolist(), taken.tolist(), int(movers)))
+        assert outs[0] == outs[1]
+        assert outs[0][0] == [trips, not trips]
+        assert outs[0][2] == 11 + int(row_start[-1]) > 11
+
+
 @pytest.mark.parametrize("p,cap", [(2, 32), (4, 40), (2, 384)])
 def test_slab_forms_match_plain_versions(card, p, cap):
     """The slab forms of K1-K3 on the card against their plain versions:
@@ -710,6 +762,9 @@ def test_traced_chunk_marks_each_rebuild_on_the_device(card):
         assert any("expand_kernel" in name and a <= s and e <= b
                    for s, e, name in dev)
     assert not [name for _, _, name in dev if name.startswith(trace.PREFIX)]
+    # the full engine marks no incremental pass
+    assert not [name for _, _, name in dev if "span_begin_increment" in name
+                or "span_end_increment" in name]
     spans = [(a, b) for (a, _), (_, b) in zip(begins, ends)]
     outside = [name for s, e, name in dev
                if not any(a <= s and e <= b for a, b in spans)]
@@ -722,6 +777,70 @@ def test_traced_chunk_marks_each_rebuild_on_the_device(card):
     for name in ("chunk", "chunk.snapshot", "chunk.launch", "chunk.settle"):
         assert host.count(f"{trace.PREFIX}{name}.begin") == 1, name
         assert host.count(f"{trace.PREFIX}{name}.end") == 1, name
+
+
+def test_traced_incremental_chunk_marks_the_rebuild_and_the_increment(card):
+    """The incremental engine in a traced chunk: one pair of ``rebuild``
+    markers for each rebuild, opened in the branch that makes the
+    incremental pass and closed after the branch that takes its state, so
+    that it holds K8 (``merge_kernel``) and the step's list kernel; inside
+    each, one pair of ``increment`` markers holding K8 and no list kernel;
+    K8 once per rebuild kept. The captured list build that
+    ``_rebuild_and_lists`` replays holds one ``increment`` pair and no
+    ``rebuild`` marker."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from md_neighbor_list_tpu_torch import DenseSimulator, MDConfig
+    from md_neighbor_list_tpu_torch.utils import convert, trace
+
+    def marks(prof, name):
+        dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA)
+        return dev, ([(s, e) for s, e, m in dev if f"span_begin_{name}" in m],
+                     [(s, e) for s, e, m in dev if f"span_end_{name}" in m])
+
+    n = 1728
+    pos, vel, pid = numpy_system(n, seed=5)
+    sim = DenseSimulator(MDConfig(n=n, **HOT), cap=32, device=card,
+                         incremental=True)
+    carry = sim.build(convert.system_from_numpy(
+        pos, 1.4 * vel, np.zeros_like(pos), pid, device=card))
+    carry = sim.run(carry, 10, chunk=10)  # the capture
+    kept = sim.incremental_rebuilds  # brings the counters up to date
+    before = trace.counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        carry = sim.run(carry, 40, chunk=40)
+        torch.cuda.synchronize()
+    got = {k: trace.counters()[k] - before[k] for k in before}
+    rebuilds = got["rebuilds"]
+    assert rebuilds >= 2 and got["full_fallbacks"] == 0
+    assert got["incremental_rebuilds"] == rebuilds == \
+        sim.incremental_rebuilds - kept
+    dev, (rb, re) = marks(prof, "rebuild")
+    _, (ib, ie) = marks(prof, "increment")
+    assert len(rb) == len(re) == len(ib) == len(ie) == rebuilds
+    for (_, a), (b, _), (i0, i1), (i2, i3) in zip(rb, re, ib, ie):
+        assert a <= i0 and i1 <= i2 and i3 <= b  # increment inside rebuild
+        rebuild = [m for s, e, m in dev if a <= s and e <= b]
+        increment = [m for s, e, m in dev if i1 <= s and e <= i2]
+        for inside in (rebuild, increment):
+            assert sum("merge_kernel" in m for m in inside) == 1, inside
+        assert any("list_sparse_kernel" in m for m in rebuild), rebuild
+        assert not any("list_sparse_kernel" in m for m in increment)
+    assert sum("merge_kernel" in m for _, _, m in dev) == rebuilds
+    sim._rebuild_and_lists(carry.state)  # its capture
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sim._rebuild_and_lists(carry.state)
+        torch.cuda.synchronize()
+    dev, (ib, ie) = marks(prof, "increment")
+    _, (rb, re) = marks(prof, "rebuild")
+    assert len(ib) == len(ie) == 1 and rb == re == []
+    (_, i1), (i2, _) = ib[0], ie[0]
+    assert [m for s, e, m in dev if "merge_kernel" in m and i1 <= s
+            and e <= i2]
 
 
 def test_traced_chunk_marks_the_half_list_inside_each_rebuild(card):

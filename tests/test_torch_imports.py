@@ -51,7 +51,7 @@ def test_expected_modules_and_sources_exist():
     for src in ("geom.cuh", "half_sweep.cuh", "expand.cu", "lists_half.cu",
                 "force_half.cu", "pe_virial_half.cu", "force_full.cu",
                 "merge.cu", "span.cu", "decode.cpp", "force_list.cu",
-                "integrate.cu", "list_sparse.cu"):
+                "integrate.cu", "list_sparse.cu", "incremental.cu"):
         assert (PORT / "csrc" / src).exists()
 
 
@@ -63,10 +63,12 @@ def test_every_kernel_has_an_entry_a_counter_and_a_source():
         "pe_virial_half", "count_half", "force_full", "force_full_pe",
         "count_full", "merge", "expand_slab", "lists_half_slab",
         "forces_half_slab", "forces_half_slab_pe", "forces_list",
-        "list_sparse", "kick_drift_vote", "kick"}
+        "list_sparse", "kick_drift_vote", "kick", "mover_keys",
+        "window_count"}
     # the device spans' marker kernels (csrc/span.cu), uncounted
     assert _cuda._SPANS == ("span_begin_rebuild", "span_end_rebuild",
-                            "span_begin_halflist", "span_end_halflist")
+                            "span_begin_halflist", "span_end_halflist",
+                            "span_begin_increment", "span_end_increment")
     assert not set(_cuda._SPANS) & set(_cuda.LAUNCHES)
     sources = "".join(p.read_text() for p in _cuda._sources()[0])
     for name in (*_cuda._ENTRIES, *_cuda._SPANS):

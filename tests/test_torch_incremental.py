@@ -185,6 +185,32 @@ def test_window_overflow_flags_and_engine_falls_back():
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("trips", [False, True], ids=["drifted", "seed"])
+def test_rebuild_writes_the_engines_flags_and_counts(trips):
+    """With an engine's ``(window, taken, movers)`` the rebuild writes its
+    window predicate there, on top of counts that are not zero, as the
+    engine's step takes it: the same state and flag as without them, the
+    flags (predicate, not predicate), the branch's count raised by one and
+    the movers by the mover stream's length."""
+    if trips:
+        n = 13824  # a from_packed seed at mc = 8
+        pos, vel, pid = numpy_system(n, 21)
+        ts, tspec, _ = torch_state(pos, vel, pid, 32)
+    else:
+        _, _, ts, tspec = drifted(32)
+    want, want_of = tinc.rebuild_dense_incremental(ts, tspec)
+    counts = (torch.tensor([True, True]), torch.tensor([5, 7]),
+              torch.tensor(11))
+    new, of = tinc.rebuild_dense_incremental(ts, tspec, counts)
+    for a, b in zip(new, want):
+        assert torch.equal(a, b)
+    assert bool(of) == bool(want_of) == trips
+    assert counts[0].tolist() == [trips, not trips]
+    assert counts[1].tolist() == ([5, 8] if trips else [6, 7])
+    movers = int(tinc.merge_inputs(ts, tspec)[1][-1])
+    assert movers > 0 and int(counts[2]) == 11 + movers
+
+
 def test_cell_overflow_detected_as_lost_particles():
     """Movers into a cell already full are dropped by the merge and show as
     lost particles (the engine then grows cap), in both packages alike."""

@@ -88,7 +88,8 @@ def test_steps_and_rebuilds_counted(engine):
     rise in the carry's rebuild count (the step's branches, or every step
     where the configuration rebuilds every step), no redo, no capture on
     the CPU, ``list_forces`` every step of the dense engine that reads its
-    list (none where it rebuilds every step, none of the xla engine)."""
+    list (none where it rebuilds every step, none of the xla engine), and
+    no branch of the incremental engine."""
     if engine == "xla":
         pos, vel, pid = numpy_system(N, 5)
         sim = Simulator(MDConfig(n=N, **HOT), device="cpu")
@@ -104,7 +105,8 @@ def test_steps_and_rebuilds_counted(engine):
     assert _since(before) == {"steps": 25,
                               "rebuilds": rebuilds(carry) - start,
                               "redos": 0, "captures": 0,
-                              "list_forces": 25 if engine == "dense" else 0}
+                              "list_forces": 25 if engine == "dense" else 0,
+                              "incremental_rebuilds": 0, "full_fallbacks": 0}
     assert rebuilds(carry) - start >= 2
 
 
@@ -142,10 +144,12 @@ def test_launches_counter_is_the_kernel_counter():
     assert not set(_cuda._SPANS) & set(_cuda.LAUNCHES)
     before = trace.counters()
     assert set(before) == {"steps", "rebuilds", "redos", "captures",
-                           "list_forces"}
+                           "list_forces", "incremental_rebuilds",
+                           "full_fallbacks"}
     trace.add("steps", 3)
     assert _since(before) == {"steps": 3, "rebuilds": 0, "redos": 0,
-                              "captures": 0, "list_forces": 0}
+                              "captures": 0, "list_forces": 0,
+                              "incremental_rebuilds": 0, "full_fallbacks": 0}
 
 
 def test_span_is_inert_without_a_profiler_and_marks_under_one():
