@@ -654,8 +654,10 @@ SOURCES = {
                    "md_neighbor_list_tpu/ops/pallas_force.py:230"),
     "merge": ("md_neighbor_list_tpu_torch/csrc/merge.cu",
               "md_neighbor_list_tpu/ops/incremental.py:127"),
-    # the NVE step's K3 over the half list, and the list's build (no TPU
-    # kernel: the JAX step sweeps the cells)
+    # the NVE step's K3 over the half list (one block a cell, 12 an SM at 40
+    # registers; its staged list range shorter than a clustered cell's, the
+    # rest read from global memory), and the list's build (no TPU kernel:
+    # the JAX step sweeps the cells)
     "forces_list": ("md_neighbor_list_tpu_torch/csrc/force_list.cu",
                     "md_neighbor_list_tpu/ops/pallas_force.py:613"),
     "list_sparse": ("md_neighbor_list_tpu_torch/csrc/list_sparse.cu", None),

@@ -36,22 +36,42 @@
 // carry's sticky overflow flag (ops/dense_force.py::build_half_list), which
 // rolls the chunk back and grows the cells.
 //
-// WHAT BOUNDS IT, AND THE DESIGN (PERF.md, section 6: each step measured on an
-// NVIDIA H100 80GB HBM3 at 700 W, N = 1M, cap 40, against the sweep's
-// 0.60 ms). In the liquid K2 finds 44.4M pairs within rs, 32.9M within rc;
-// the sweep tests 317M slot pairs. A listed pair costs more than a tested one,
-// though: its partner is gathered by index and its reaction scattered to
-// the partner's slot, where the sweep keeps 4 partners a lane in registers
-// against a broadcast own slot. A warp per own slot over all 14 cells'
-// entries took 0.58 ms, its per-pair global atomics alone 0.28 and the
-// staging 0.16; warp-private shared copies of the window's reactions (no
-// atomic in the block) 0.70, one shared copy with shared atomics 0.74. So
-// the work is split by where the pairs lie. The own cell and its three
-// face neighbours (x+1 of the own row, x of rows 1 and 3: pc 0, 1, 3, 9)
-// hold 71 % of the pairs within rs (76 % within rc), about 40 % of their
-// slot pairs: there the block sweeps, as half_sweep.cuh does, over those
-// four cells only. The ten edge and corner cells hold 29 % of the pairs,
-// under 10 % of their slot pairs: there the block walks the list. 0.45 ms.
+// WHAT BOUNDS IT, AND THE DESIGN (PERF.md, section 6: each step measured on
+// an NVIDIA H100 80GB HBM3 at 700 W, N = 1M, cap 40). In the liquid K2
+// finds 44.4M pairs within rs, 32.9M within rc; the sweep tests 317M slot
+// pairs. A listed pair costs more than a tested one: its partner is
+// gathered by index and its reaction scattered to the partner's slot,
+// where the sweep keeps 4 partners a lane in registers against a broadcast
+// own slot. A warp per own slot over all 14 cells' entries took 0.58 ms,
+// its per-pair global atomics alone 0.28 and the staging 0.16;
+// warp-private shared copies of the window's reactions (no atomic in the
+// block) 0.70, one shared copy with shared atomics 0.74. So the
+// work is split by where the pairs lie. The own cell and its three face
+// neighbours (x+1 of the own row, x of rows 1 and 3: pc 0, 1, 3, 9) hold
+// 71 % of the pairs within rs (76 % within rc), about 40 % of their slot
+// pairs: there the block sweeps, as half_sweep.cuh does, over those four
+// cells only. The ten edge and corner cells hold 29 % of the pairs, under
+// 10 % of their slot pairs: there the block walks the list.
+//
+// What bounds the kernel is how many blocks an SM holds and what each
+// block's threads spill and store, not the latency of its global loads.
+// It runs 12 blocks an SM at 40 registers a thread: 8 blocks of
+// 64 registers ran 7 % slower, and every byte of shared memory or spilled
+// register a block adds costs time. Measured against the 0.44 ms of the
+// form before (H100, c4, by CUDA events):
+//  - a persistent kernel, a resident block a run of cells with each cell's
+//    whole window staged in a ring of two stages by asynchronous copies
+//    (bulk copies on an mbarrier, or cp.async), ran 0.54-0.63 ms: the ring
+//    took the SM from 12 blocks to 8, and one static run a block (the old
+//    kernel's body looped over runs) ran 9 % slower on its own, SMs idle
+//    while the slowest runs ended; prefetching the next cell of a run into
+//    L1 ran 10-14 % slower, staging it in shared memory by cp.async 20 %;
+//  - without the dense walk's store of the own-slot sums it ran 12 %
+//    faster, without the sparse walk's reactions 7 %;
+//  - one sparse round read ahead (kPre) instead of four, two staging items
+//    a thread instead of five and 2 KB of staged list entries a block
+//    instead of 8 took the spills from 92 bytes to 4 and the kernel from
+//    0.442 to 0.384 ms (0.935 to 0.787 at lammps_lj).
 //
 // The force (force_half_kernel<kForce, true>, K3's trace name): one block
 // of 32*W threads per own cell.
@@ -64,9 +84,10 @@
 //     lane, reactions in registers), own-slot sums in warp-private shared
 //     copies walked with a stagger; no atomic inside the block.
 //  3. The sparse walk: a warp takes four own slots at a time, 8 lanes each,
-//     over the slots' listed partners; a lane loads its partners of several
-//     rounds from global memory at once (their cells' slots are read by the
-//     neighbouring blocks too, through L1) and image-shifts them; a
+//     over the slots' listed partners; a lane loads its partners from
+//     global memory (the first of each of kPre rounds before the walk;
+//     their cells' slots are read by the neighbouring blocks too, through
+//     L1) and image-shifts them; a
 //     partner's reaction goes out by one global f32 atomicAdd per component
 //     where the pair is within rc; the own sum is reduced over the 8 lanes
 //     by shuffles.
@@ -82,8 +103,10 @@
 
 namespace mdnl {
 
-// Window lanes a thread loads per round (loads in flight at once).
-constexpr int kListItems = 5;
+// Window lanes a thread loads per round of the dense cells' staging: 2 x
+// 128 covers the 160 lanes of cap 40; 5 (half_sweep.cuh's) spilled and ran
+// 3-4 % slower (PERF.md).
+constexpr int kListItems = 2;
 // Lanes the sparse walk gives one own slot (four own slots a warp): 16
 // ran 11 % and 32 13 % slower (PERF.md).
 constexpr int kSparseLanes = 8;
@@ -92,14 +115,18 @@ constexpr int kSlotsWarp = 32 / kSparseLanes;
 // dense cells' three columns or so spread over three warps; 2 and 4
 // (half_sweep.cuh's) ran 1.5-20 % slower (PERF.md).
 constexpr int kDenseB = 1;
-// Own-slot rounds of the sparse walk whose partners a lane loads at once.
-constexpr int kPre = 4;
-// Blocks an SM should hold: the bound caps a thread at 40 registers (a few
+// Own-slot rounds of the sparse walk whose first partners a lane loads at
+// once: 2 and 4 kept more registers live across the walk (2.7 and 5 %
+// slower, PERF.md).
+constexpr int kPre = 1;
+// Blocks an SM should hold: the bound caps a thread at 40 registers (4
 // bytes spill); without it the kernel took 0.59 ms against 0.51 (PERF.md).
 constexpr int kListMinBlocks = 12;
-// List entries of one cell staged in shared memory (8 KB): about 300 at
-// cap 40 in the liquid; a longer cell reads the rest from global memory.
-constexpr int kListStage = 4096;
+// List entries of one cell staged in shared memory (2 KB): about 300 a cell
+// at cap 40 in the liquid, 515 at most; a longer cell reads the rest from
+// global memory. 8 KB ran 2 % slower: the shared memory the 12 blocks of an
+// SM take is not L1 for the sparse walk's gathers.
+constexpr int kListStage = 1024;
 
 // Shared memory of one force block: half_sweep.cuh's, with the four dense
 // cells' lanes as its partners.
@@ -314,7 +341,8 @@ force_half_kernel(const float* __restrict__ pos,
       if (r < no) {
         const float4 o = own[r];
         const int slot_i = __float_as_int(o.w);
-        // the first 16 partners were loaded above, the rest (rare) here
+        // each lane's first partner (8 a slot) was loaded above, the rest
+        // here
         for (int t = hl; t < own_nsp[slot_i]; t += kSparseLanes) {
           float4 pt = pj[k];
           int g = gj[k];

@@ -664,8 +664,12 @@ def dense_forces_list(pos4: torch.Tensor, lst: HalfList, spec, rc: float,
     block per own cell sweeps the own cell and its three face neighbours as
     ``dense_forces_half`` does (71 % of the pairs, at a hit rate near 40 %)
     and walks the list's entries in the ten edge and corner cells, four own
-    slots a warp, each pair's reaction by a global atomicAdd. CPU tensors
-    take ``forces_list_plain``."""
+    slots a warp, each pair's reaction by a global atomicAdd. What bounds it
+    is the 12 blocks an SM holds at 40 registers a thread, and what a block
+    spills and keeps in shared memory, not the latency of its loads: a
+    persistent form that staged the next cells' windows by asynchronous
+    copies ran slower (PERF.md, section 6). CPU tensors take
+    ``forces_list_plain``."""
     if spec.cap > LIST_MAX_CAP:
         raise ValueError(f"the list-driven force takes cap <= {LIST_MAX_CAP},"
                          f" got {spec.cap}")

@@ -1167,15 +1167,17 @@ def _list_on(state, spec, n, device):
 
 
 @pytest.mark.parametrize("case", sorted(CASES) + ["scattered_cap40",
-                                                  "scattered_cap384"])
+                                                  "scattered_cap384",
+                                                  "scattered_cap448"])
 def test_list_kernels_match_plain_versions(card, case):
     """The list's kernel (bitwise, one launch a build: the one-walk form up
-    to cap 192, the two-walk form at cap 384) and the list-driven K3 against
-    their plain versions on the rebuilt state, and K3 also against the sweep, on the
-    rebuilt state and on it drifted to just under the vote's trigger (every
-    particle 0.999 skin/2 from where the list was built); parked slots get
-    exactly zero force. On scattered slots (no prefix of occupied slots),
-    up to cap 384, as the step's graph runs it there."""
+    to cap 192, the two-walk form at cap 384 and 448) and the list-driven K3
+    against their plain versions on the rebuilt state, and K3 also against
+    the sweep, on the rebuilt state and on it drifted to just under the
+    vote's trigger (every particle 0.999 skin/2 from where the list was
+    built); parked slots get exactly zero force. On scattered slots (no
+    prefix of occupied slots), up to cap 448 (``LIST_MAX_CAP``), as the
+    step's graph runs it there."""
     if case.startswith("scattered"):
         cap = int(case[len("scattered_cap"):])
         state, spec = _scattered_on_card(card, cap)
@@ -1281,6 +1283,76 @@ def test_list_kernel_places_a_cell_past_its_buffer(card):
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
     assert int(want.nsparse.reshape(-1, cap).sum(1).max()) > 88 * cap
+
+
+def _pair_force_sums(pos4, lst, spec, rc):
+    """Each slot's sum of |pair force| over the pairs ``forces_list_plain``
+    takes (the dense cells' and the listed ones), in float64: the scale of
+    the rounding its float32 sum can carry. (3, R, mc, cap), CPU."""
+    p = pos4.cpu().double().reshape(3, -1)
+    total = torch.zeros(p.shape[1], dtype=torch.float64)
+    for own, part, shift in (dense_force.dense_pairs(pos4.cpu(), spec),
+                             dense_force.list_pairs(lst, spec)):
+        d = p[:, own] - (p[:, part] + shift.double())
+        r2 = (d * d).sum(0)
+        s2 = 1.0 / r2
+        s6 = s2 * s2 * s2
+        f = torch.where(r2 < rc * rc,
+                        (24.0 * s6 * (2.0 * s6 - 1.0) * s2).abs()
+                        * r2.sqrt(), 0.0)
+        total.index_add_(0, own, f)
+        total.index_add_(0, part, f)
+    return total.expand(3, -1).reshape(pos4.shape)
+
+
+def _list_cut_at(lst, cap, kept):
+    """``lst`` with each cell's list range cut after its first ``kept``
+    entries (counted from the entry of the cell's slot 0, as K3 stages
+    them)."""
+    start = lst.start.reshape(-1, cap).long()
+    n = lst.nsparse.reshape(-1, cap).long()
+    n = torch.clamp(torch.minimum(n, start[:, :1] + kept - start), min=0)
+    return dense_force.HalfList(lst.start, n.to(torch.int32).reshape(
+        lst.nsparse.shape), lst.lanes)
+
+
+def test_list_force_reads_a_list_range_past_its_stage(card):
+    """A simple cubic lattice of spacing 0.75 (each particle moved by up to
+    0.05 a component) at cap 72, mc = 4: 64 particles a cell, each cell
+    listing 1,800 or more entries, more than the 1,024 the list-driven K3
+    stages a cell (``csrc/force_list.cu``), so it reads the rest from global
+    memory. Its forces agree with the plain version and the sweep, each
+    particle to 1e-4 of its sum of |pair force|; parked slots get exactly
+    zero. The tolerance can fail: the plain forces without the entries past
+    the first 1,024 of each cell lie outside it."""
+    side, spacing, cap = 16, 0.75, 72
+    n, L = side**3, side * spacing
+    g = (np.arange(side) + 0.5) * spacing
+    pos = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    pos += np.random.default_rng(31).uniform(-0.05, 0.05, pos.shape)
+    state, spec, _ = torch_state(pos.astype(np.float32),
+                                 np.zeros((n, 3), np.float32),
+                                 np.arange(n, dtype=np.int32), cap,
+                                 rho=n / L**3)
+    assert spec.mc == 4
+    state, _ = dense_cells.rebuild_dense(
+        dense_cells.DenseState(*(t.to(card) for t in state)), spec)
+    lst = _list_on(state, spec, n, card)
+    cpu = dense_force.HalfList(*(t.cpu() for t in lst))
+    assert int(cpu.nsparse.reshape(-1, cap).sum(1).min()) > 1024
+    f = dense_force.dense_forces_list(state.pos, lst, spec, RC).cpu()
+    f_p = dense_force.forces_list_plain(state.pos.cpu(), cpu, spec, RC)
+    f_s = dense_force.dense_forces_half(state.pos, spec, RC)[0].cpu()
+    tol = 1e-4 * _pair_force_sums(state.pos, cpu, spec, RC)
+    for want in (f_p, f_s):
+        err = (f.double() - want.double()).abs()
+        assert bool((err <= tol).all()), float((err / tol).nan_to_num().max())
+    valid = state.valid().cpu()
+    assert not bool(valid.all())
+    assert float(f[:, ~valid].abs().sum()) == 0.0
+    cut = dense_force.forces_list_plain(state.pos.cpu(),
+                                        _list_cut_at(cpu, cap, 1024), spec, RC)
+    assert bool(((cut.double() - f.double()).abs() > tol).any())
 
 
 def test_list_kernel_replayed_at_full_width_is_bitwise_each_time(card):
